@@ -13,6 +13,8 @@ def pytest_configure(config):
     arms faulthandler to dump EVERY thread's traceback and hard-exit once the
     whole pytest run exceeds the budget -- the dump names the blocked thread,
     which a plain timeout kill never would."""
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere")
     secs = os.environ.get("REPRO_TEST_TIMEOUT_S")
     if secs:
         import faulthandler
