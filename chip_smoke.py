@@ -7,14 +7,19 @@ Phases, in order; none catches its own failure, so any error or mismatch exits
 non-zero before the final line:
 
   1. fail unless CUDA is available;
-  2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``
-     (``nvcc``, ``sm_90a``), then generate TPC-H at ``--scale`` (default SF 1)
-     and encode the 22 columns the port decodes (set-up);
-  3. kernel vs plain PyTorch version on the card, bitwise: every Fully-Parallel
-     and Group-Parallel stage of the 22 columns' main path (the FP producers
-     inside rule-5 Aux stages included) on the same inputs, timed beside their
-     plain versions and, for RLE expansion, ``torch.repeat_interleave``; an FP
-     bit-width x length sweep; GP on skewed run lengths;
+  2. build the three hand-written kernels from ``src/repro_torch/kernels/csrc``
+     (``nvcc``, ``sm_90a``, one process per source, all at once), then generate
+     TPC-H at ``--scale`` (default SF 1) and encode all 24 Table-2 columns
+     (set-up);
+  3. kernel vs plain PyTorch version on the card, bitwise: every Fully-Parallel,
+     Group-Parallel and Non-Parallel stage of the 24 columns' main path (the FP
+     producers inside rule-5 Aux stages included) on the same inputs, timed
+     beside their plain versions (the plain rANS decode, a Python loop of
+     ``chunk_size`` steps, with fewer reps) and, for RLE expansion,
+     ``torch.repeat_interleave``; an FP bit-width x length sweep; GP on skewed
+     run lengths; an rANS sweep (chunk sizes 256 and 4096; uint8, int32 and
+     float32 items; a skewed and a one-symbol alphabet; lengths that are not a
+     multiple of the chunk size; a rule-4 tail);
   4. the main path: ``ColumnPipeline(..., device="cuda").run()`` once cold and
      ``WARM_RUNS`` times warm, with the launch counts zeroed just before; every
      column must equal its source bitwise.  Then the same blobs through the
@@ -44,14 +49,26 @@ KERNELS = {
                        "src/repro/kernels/fully_parallel.py:35"),
     "group_parallel": ("src/repro_torch/kernels/csrc/group_parallel.cu",
                        "src/repro/kernels/group_parallel.py:51"),
+    "non_parallel": ("src/repro_torch/kernels/csrc/non_parallel.cu",
+                     "src/repro/kernels/non_parallel.py:29"),
 }
 FP_BWS = (1, 3, 7, 8, 13, 17, 25, 31, 32)
 FP_NS = (1, 127, 4097, 1 << 20, 1_000_003)
+NP_CHUNKS = (256, 4096)
+NP_KINDS = ("uint8", "int32", "float32", "skewed", "one-symbol")
+NP_NS = (1, 3 * 4096, 1_000_003)
 WARM_RUNS = 5
+# operations bound of the rANS decode: integer operations per symbol (mask,
+# shift, multiply, add, subtract, compare, renorm shift/or, three table reads,
+# the store) over the H100 SXM's peak INT32 rate outside the tensor cores
+# (33.5 TOP/s, Hopper architecture white paper)
+NP_OPS_PER_SYMBOL = 12
+INT32_OPS_PER_S = 33.5e12
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    """4-byte values as int32 bits (torch compares few uint32 ops)."""
+    return t.view(torch.int32) if t.dtype in (torch.float32, torch.uint32) else t
 
 
 def same(k: torch.Tensor, p: torch.Tensor, what: str) -> float:
@@ -76,10 +93,10 @@ class Timer:
         self.reps = reps
         self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn) -> float:
+    def ms(self, fn, reps: int | None = None) -> float:
         fn()
         ts = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -91,9 +108,24 @@ class Timer:
         return float(np.median(ts))
 
 
-def stage_bytes(names, env, n_out: int) -> int:
+def stage_bytes(names, env, out: torch.Tensor) -> int:
     """Bytes a stage must move: each input read once, the output written once."""
-    return sum(env[k].numel() * env[k].element_size() for k in set(names)) + 4 * n_out
+    return (sum(env[k].numel() * env[k].element_size() for k in set(names))
+            + out.numel() * out.element_size())
+
+
+def ans_input(kind: str, n: int, rng) -> np.ndarray:
+    """One input of the rANS sweep."""
+    if kind == "skewed":
+        return np.where(rng.random(n) < 0.995, 78, rng.integers(0, 256, n)) \
+            .astype(np.uint8)
+    if kind == "one-symbol":
+        return np.full(n, 82, np.uint8)
+    if kind == "float32":
+        return rng.normal(0, 1e3, n).astype(np.float32)
+    if kind == "int32":
+        return rng.integers(-2**31, 2**31, n).astype(np.int32)
+    return rng.integers(0, 5, n).astype(np.uint8)
 
 
 def main() -> int:
@@ -113,16 +145,22 @@ def main() -> int:
     from repro_torch.core.compiler import build_graph, device_buffers
     from repro_torch.core.executor import StreamingExecutor
     from repro_torch.core.geometry import chip_from_device
-    from repro_torch.core.patterns import (IDENTITY, LOAD, Aux, FullyParallel,
-                                           GroupParallel, stage_inputs)
+    from repro_torch.core.fusion import fuse
+    from repro_torch.core.patterns import (IDENTITY, LOAD, Aux, BufSpec, FullyParallel,
+                                           GroupParallel, NonParallel, gather, load,
+                                           stage_inputs)
     from repro_torch.core.plan import Encoded, Plan, encode, make_plan
-    from repro_torch.data.columns import SLICE_COLUMNS, TABLE2_PLANS
+    from repro_torch.data.columns import TABLE2_PLANS
     from repro_torch.data.loader import ColumnPipeline
     from repro_torch.data.tpch import generate
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.fully_parallel import KERNEL as FP, fully_parallel
     from repro_torch.kernels.group_parallel import KERNEL as GP, group_parallel
+    from repro_torch.kernels.non_parallel import KERNEL as NP, non_parallel
     from repro_torch.kernels.ops import run_stage
+
+    columns = tuple(TABLE2_PLANS)
+    libs = (FP, GP, NP)
 
     name = torch.cuda.get_device_name(0)
     spec = chip_from_device(0)
@@ -133,20 +171,20 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    cuda.build([FP, GP])
-    FP.load()
-    GP.load()
+    cuda.build(libs)
+    for lib in libs:
+        lib.load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {FP.path().parent}")
-    for lib in (FP, GP):
+    for lib in libs:
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}")
 
     t0 = time.perf_counter()
     cols = generate(args.scale, seed=args.seed)
-    cols = {k: cols[k] for k in SLICE_COLUMNS}
+    cols = {k: cols[k] for k in columns}
     t_gen = time.perf_counter() - t0
-    pipe = ColumnPipeline({k: TABLE2_PLANS[k] for k in SLICE_COLUMNS}, device="cuda")
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda")
     t0 = time.perf_counter()
     ratios = pipe.compress(cols)
     print(f"setup: generate(scale={args.scale}) {t_gen:.1f} s, encode "
@@ -154,25 +192,37 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 3
     timer = Timer()
-    err = {"fully_parallel": 0.0, "group_parallel": 0.0}
-    compared = {"fully_parallel": 0, "group_parallel": 0}
+    err = {k: 0.0 for k in KERNELS}
+    compared = {k: 0 for k in KERNELS}
     stages = []
 
     def check(st, env, col, timed):
-        """Kernel vs plain on one FP/GP stage; env holds plain-version inputs."""
+        """Kernel vs plain on one FP/GP/NP stage; env holds plain-version inputs."""
+        plain_reps = None
         if isinstance(st, FullyParallel):
             kname, kfn, pfn = "fully_parallel", fully_parallel, ref.fully_parallel_torch
-        else:
+        elif isinstance(st, GroupParallel):
             kname, kfn, pfn = "group_parallel", group_parallel, ref.group_parallel_torch
+        else:
+            kname, kfn, pfn = "non_parallel", non_parallel, ref.non_parallel_torch
+            # the plain rANS decode is chunk_size steps of a dozen torch
+            # launches each (about a second at 4096): 3 reps, not 10
+            plain_reps = 3
         plain = pfn(st, env)
         err[kname] = max(err[kname], same(kfn(st, env), plain, f"{col}:{st.name}"))
         compared[kname] += 1
         if timed:
             rec = {"kernel": kname, "column": col, "stage": st.name, "n": st.n_out,
-                   "bytes": stage_bytes(stage_inputs(st), env, st.n_out),
+                   "bytes": stage_bytes(stage_inputs(st), env, plain),
                    "ms": timer.ms(lambda: kfn(st, env)),
-                   "plain_ms": timer.ms(lambda: pfn(st, env)), "library_ms": None}
+                   "plain_ms": timer.ms(lambda: pfn(st, env), plain_reps),
+                   "library_ms": None}
             rec["bound_ms"] = rec["bytes"] / (hbm * 1e9) * 1e3
+            rec["bound_by"] = "bytes"
+            if kname == "non_parallel":
+                ops_ms = st.n_out * NP_OPS_PER_SYMBOL / INT32_OPS_PER_S * 1e3
+                if ops_ms > rec["bound_ms"]:
+                    rec["bound_ms"], rec["bound_by"] = ops_ms, "operations"
             if (isinstance(st, GroupParallel) and st.map_kind == IDENTITY
                     and not st.tail and st.values[0][0].kind == LOAD):
                 vals = env[st.values[0][0].bufs[0]]
@@ -197,7 +247,7 @@ def main() -> int:
         return env[graph.out]
 
     t0 = time.perf_counter()
-    for col in SLICE_COLUMNS:
+    for col in columns:
         walk(pipe.executor.graph(col), device_buffers(pipe.encoded(col)), col)
     rng = np.random.default_rng(args.seed)
     for bw in FP_BWS:
@@ -231,6 +281,29 @@ def main() -> int:
                            [-7, -7 - 2**31]]).astype(np.int64)
     same(out.cpu(), torch.from_numpy(((want + 2**31) % 2**32 - 2**31).astype(np.int32)),
          "deltastride wrap vs source")
+    for chunk in NP_CHUNKS:
+        for kind in NP_KINDS:
+            for n in NP_NS:
+                arr = ans_input(kind, n, rng)
+                enc = encode(Plan("ans", params={"chunk_size": chunk}), arr)
+                what = f"ans sweep {kind} chunk={chunk} n={n}"
+                out = walk(build_graph(enc), device_buffers(enc), what, timed=False)
+                same(bits(out.cpu()), bits(torch.from_numpy(arr)), f"{what} vs source")
+    # fusion rule 4 (no Table-2 plan fires it): a GATHER tail inside kernel 3
+    syms = rng.integers(0, 40, 1_000_003).astype(np.uint8)
+    enc = encode(Plan("ans", params={"chunk_size": 4096}), syms)
+    env = device_buffers(enc)
+    table = rng.integers(-2**31, 2**31, 40).astype(np.int32)
+    env["table"] = torch.from_numpy(table).cuda()
+    (dec,) = build_graph(enc).stages
+    dec.out = "syms"
+    (fused,) = fuse([dec, FullyParallel(
+        chain=(load("syms"), gather("table")), inputs=("syms",),
+        specs=(BufSpec("tile"),), out="out", n_out=syms.size, name="lookup")])
+    if not isinstance(fused, NonParallel) or not fused.tail:
+        raise AssertionError(f"rule 4 did not fuse: {fused}")
+    same(check(fused, env, "rule-4 tail", False).cpu(), torch.from_numpy(table[syms]),
+         "rule-4 tail vs source")
     print(f"compare: {compared} kernel launches bitwise equal to plain "
           f"({time.perf_counter() - t0:.1f} s)")
     for r in stages:
@@ -240,26 +313,27 @@ def main() -> int:
               f"{r['bound_ms']:.4f}{lib}")
 
     # ---------------------------------------------------------------- phase 4
-    FP.launches = GP.launches = 0
+    for lib in libs:
+        lib.launches = 0
     makespans, host_ms = [], []
     for label in ("cold",) + ("warm",) * WARM_RUNS:
         res = None      # drop the last run's columns: a warm run reuses their memory
         t0 = time.perf_counter()
         res = pipe.run()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-        for col in SLICE_COLUMNS:
+        for col in columns:
             got = res[col].array.cpu()
             same(got, torch.from_numpy(cols[col]), f"{label} run {col} vs source")
         makespans.append(pipe.makespan_s)
-    launches = {"fully_parallel": FP.launches, "group_parallel": GP.launches}
+    launches = {k: lib.launches for k, lib in zip(KERNELS, libs)}
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
     plain_exec = StreamingExecutor(backend="torch", device=pipe.device)
-    for col in SLICE_COLUMNS:
+    for col in columns:
         plain_exec.compile(col, pipe.encoded(col))
     for _ in range(2):
         pres = plain_exec.run()
-    for col in SLICE_COLUMNS:
+    for col in columns:
         same(pres[col].array.cpu(), torch.from_numpy(cols[col]), f"plain run {col}")
     pres = None
     for r in res.values():
@@ -268,15 +342,15 @@ def main() -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced = pipe.run()
-    device_ms = {"h2d_copy": 0.0, "fully_parallel": 0.0, "group_parallel": 0.0,
-                 "torch_ops": 0.0}
+    device_ms = {"h2d_copy": 0.0, **{k: 0.0 for k in KERNELS}, "torch_ops": 0.0}
     spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kind = ("h2d_copy" if "Memcpy" in e.name else
                 "fully_parallel" if "zf_fully_parallel" in e.name else
-                "group_parallel" if "zf_group_parallel" in e.name else "torch_ops")
+                "group_parallel" if "zf_group_parallel" in e.name else
+                "non_parallel" if "zf_non_parallel" in e.name else "torch_ops")
         device_ms[kind] += e.time_range.elapsed_us() / 1e3
         spans.append((e.time_range.start, e.time_range.end))
     busy_us, reach = 0.0, float("-inf")
@@ -296,7 +370,7 @@ def main() -> int:
     plain_b = sum(r.plain_bytes for r in res.values())
     comp_b = sum(r.compressed_bytes for r in res.values())
     rows = []
-    for col in SLICE_COLUMNS:
+    for col in columns:
         r = res[col]
         rows.append({"column": col, "nesting": pipe.executor.graph(col).nesting,
                      "rows": int(cols[col].size), "compressed_mb": r.compressed_bytes / 1e6,
@@ -323,7 +397,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": err[kname],
             "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-            "bound_by": "bytes", "library_ms": big["library_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"],
             "matches_plain": True, "at": f"{big['column']}:{big['stage']}",
             "n": big["n"], "launches_per_run": launches[kname] // len(makespans),
             "main_path_ms": sum(r["ms"] for r in mine),

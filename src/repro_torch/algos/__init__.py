@@ -1,5 +1,3 @@
-"""Codecs of the port; importing this package registers them all.
-
-ANS and StringDict (the Non-Parallel kernel's codecs) are not ported yet."""
-from repro_torch.algos import (bitpack, delta, deltastride, dictionary,  # noqa: F401
-                               float2int, rle)
+"""Codecs of the port; importing this package registers them all."""
+from repro_torch.algos import (ans, bitpack, delta, deltastride,  # noqa: F401
+                               dictionary, float2int, rle, stringdict)

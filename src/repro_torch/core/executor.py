@@ -36,6 +36,7 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core.compiler import Program, ProgramCache, compile_blob, device_layout
 from repro_torch.kernels.fully_parallel import KERNEL as FP_KERNEL
 from repro_torch.kernels.group_parallel import KERNEL as GP_KERNEL
+from repro_torch.kernels.non_parallel import KERNEL as NP_KERNEL
 from repro_torch.kernels.ref import torch_dtype
 
 _ALIGN = 256     # byte alignment of each operand inside a staged column
@@ -83,7 +84,7 @@ def stage_column(enc: plan_mod.Encoded, pin: bool = False) -> StagedColumn:
 
 
 def _launches() -> int:
-    return FP_KERNEL.launches + GP_KERNEL.launches
+    return FP_KERNEL.launches + GP_KERNEL.launches + NP_KERNEL.launches
 
 
 class StreamingExecutor:

@@ -2,13 +2,14 @@
 Fully-Parallel with Fusion').
 
 Rules, applied to a lowered stage list until fixpoint (the reference's rules 1-5;
-rule 4 needs the Non-Parallel stage, which is not ported yet, and rule 6 belongs
-to fused queries):
+rule 6 belongs to fused queries, not ported yet):
 
   1. FP -> FP        : concatenate chains (one kernel, no intermediate round-trip).
   2. FP -> GP.values : move the producer's chain into the Group-Parallel value
                        chain (bit-packed RLE values decode inside the expansion).
   3. GP -> FP        : append an elementwise consumer's ops to the GP tail.
+  4. NP -> FP        : the same for the Non-Parallel tail (each decoded symbol
+                       goes through the consumer's ops before it is written).
   5. FP -> Aux       : attach the producer to the auxiliary whole-array op; a
                        kernel backend still runs it as a kernel before the op.
 
@@ -20,8 +21,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel, Stage,
-                                       compose_fp, load, stage_inputs)
+from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel,
+                                       NonParallel, Stage, compose_fp, load,
+                                       stage_inputs)
 
 
 def _use_counts(stages: Sequence[Stage]) -> dict[str, int]:
@@ -62,10 +64,10 @@ def _fuse_once(stages: list[Stage], final_out: str | None) -> bool:
                     identity_values=False)
                 del stages[pi]
                 return True
-        # --- rule 3: GP -> FP -------------------------------------------------
+        # --- rules 3/4: GP|NP -> FP ------------------------------------------
         if isinstance(cons, FullyParallel) and cons.elementwise and cons.inputs:
             pi = producer.get(cons.inputs[0])
-            if pi is not None and isinstance(stages[pi], GroupParallel):
+            if pi is not None and isinstance(stages[pi], (GroupParallel, NonParallel)):
                 prod = stages[pi]
                 # extra consumer inputs would need whole-buffer plumbing
                 if single_use(prod.out) and len(cons.inputs) == 1 \

@@ -7,6 +7,11 @@ the paper's own GPU way.
 
 One block covers L*S*C output elements; grid = ceil(N / (L*S*C)).
 
+For the Non-Parallel (rANS) kernel the unit is a *chunk*, not an element:
+S is threads per block and C chunks per thread (decoded one after another), so
+a block covers L*S*C chunks and each chunk's ``chunk_size`` serial steps run in
+one thread.
+
 The reference package re-derives these for TPU VMEM tiles and picks a chip's
 "native" geometry with an analytic cost model and autotuner; those come over in
 a later slice.  Until then ``native_config`` returns one fixed geometry per
@@ -72,8 +77,11 @@ _HBM_GBPS_BY_SKU = (("H100 PCIe", 2000.0), ("H100 NVL", 3900.0), ("H100", 3350.0
 # iterations of 256 threads, one element each, so a warp's loads and stores of
 # neighbouring elements are neighbouring words.  GP: one thread per output
 # element; the binary search dominates, more work per thread buys nothing.
+# NP: one chunk per thread in blocks of 64, so the ~1,500-3,000 chunks of an
+# SF-1 column spread over as many SMs as they can fill.
 _NATIVE: dict[str, dict[str, Geometry]] = {
-    "h100": {"fp": Geometry(4, 256, 1), "gp": Geometry(1, 256, 1)},
+    "h100": {"fp": Geometry(4, 256, 1), "gp": Geometry(1, 256, 1),
+             "np": Geometry(1, 64, 1)},
 }
 
 
@@ -97,5 +105,5 @@ def chip_from_device(device_index: int = 0, name: str = DEFAULT_CHIP) -> ChipSpe
 
 
 def native_config(pattern: str, chip: str = DEFAULT_CHIP) -> Geometry:
-    """The fixed geometry of ``pattern`` ("fp" or "gp") on a chip."""
+    """The fixed geometry of ``pattern`` ("fp", "gp" or "np") on a chip."""
     return _NATIVE[chip][pattern]

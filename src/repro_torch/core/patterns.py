@@ -5,6 +5,8 @@ A decompression *plan* lowers to a list of stages over named buffers:
   * ``FullyParallel`` -- out[i] = chain(i), no cross-element dependency.
   * ``GroupParallel`` -- variable-sized groups expand 1->N; out[i] is produced from
     the group g owning position i and the within-group offset pos = i - presum[g].
+  * ``NonParallel``   -- chunked serial decode (interleaved rANS): chunk c is a
+    serial chain of ``chunk_size`` steps, chunks are independent (§4, Fig. 11).
   * ``Aux``           -- whole-array auxiliary ops (prefix sums, exception scatter),
     the paper's "PyTorch out-of-the-box operations" escape hatch (§3.2, Fig. 7).
 
@@ -23,9 +25,18 @@ that reads at the element index):
   UNPACK(packed, bw_op, base_op)  bit-unpack element i of a FOR-bitpacked uint32
                                   stream (``algos/bitpack.py``), result int32
   LOAD(buf)                       buf[i]
+  BYTES(buf, itemsize)            bytes buf[i*itemsize + k], k < min(itemsize, 4),
+                                  little-endian in one 32-bit word: the bits of
+                                  the output element (rANS byte-reassemble)
   GATHER(table)                   table[v]                       (dictionary)
+  SPAN(offs)                      offs[v+1] - offs[v]            (stringdict)
   I2F_DIV(scale)                  float32(v) / scale[0]          (float2int)
   UNZIGZAG                        (v >> 1) ^ -(v & 1) on uint32  (delta)
+
+Buffers may hold 8-, 16- or 32-bit elements; an op reads an element at its own
+width (sign-extending signed ones), so uint8 and uint16 leaves reach the device
+as they are.  Table lookups index like jnp: a negative index wraps once, then
+the index is clamped into range.
 
 Data-dependent scalar metadata (bitpack ``bit_width``/``base``, delta ``base``)
 arrives as (1,)-shaped operand buffers listed among a stage's inputs with
@@ -65,26 +76,31 @@ class BufSpec:
 # ------------------------------------------------------------------------- ops
 UNPACK = "unpack"
 LOAD = "load"
+BYTES = "bytes"
 GATHER = "gather"
+SPAN = "span"
 I2F_DIV = "i2f_div"
 UNZIGZAG = "unzigzag"
-SOURCE_OPS = (UNPACK, LOAD)
-OP_KINDS = (UNPACK, LOAD, GATHER, I2F_DIV, UNZIGZAG)
+SOURCE_OPS = (UNPACK, LOAD, BYTES)
+OP_KINDS = (UNPACK, LOAD, BYTES, GATHER, SPAN, I2F_DIV, UNZIGZAG)
 
 
 @dataclasses.dataclass(frozen=True)
 class Op:
-    """One step of an op chain: ``kind`` plus the buffer names it reads."""
+    """One step of an op chain: ``kind``, the buffer names it reads and, for
+    ``BYTES``, an immediate (the item size)."""
 
     kind: str
     bufs: tuple[str, ...] = ()
+    imm: int = 0
 
     def __post_init__(self):
         if self.kind not in OP_KINDS:
             raise ValueError(f"unknown op kind {self.kind!r}")
 
     def __str__(self) -> str:
-        return f"{self.kind.upper()}({', '.join(self.bufs)})"
+        args = list(self.bufs) + ([str(self.imm)] if self.kind == BYTES else [])
+        return f"{self.kind.upper()}({', '.join(args)})"
 
 
 def unpack(packed: str, bw_op: str, base_op: str) -> Op:
@@ -95,8 +111,16 @@ def load(buf: str) -> Op:
     return Op(LOAD, (buf,))
 
 
+def load_bytes(buf: str, itemsize: int) -> Op:
+    return Op(BYTES, (buf,), imm=int(itemsize))
+
+
 def gather(table: str) -> Op:
     return Op(GATHER, (table,))
+
+
+def span(offs: str) -> Op:
+    return Op(SPAN, (offs,))
 
 
 def i2f_div(scale: str) -> Op:
@@ -150,9 +174,10 @@ class FullyParallel(Stage):
         self.out_dtype = np.dtype(self.out_dtype)
 
 
-IDENTITY = "identity"   # out = value (RLE)
-AFFINE = "affine"       # out = start + stride * pos, values = (start, stride)
-MAP_KINDS = (IDENTITY, AFFINE)
+IDENTITY = "identity"    # out = value (RLE)
+AFFINE = "affine"        # out = start + stride * pos, values = (start, stride)
+STRGATHER = "strgather"  # out = chars[offs[value] + pos] (StringDict)
+MAP_KINDS = (IDENTITY, AFFINE, STRGATHER)
 
 
 @dataclasses.dataclass
@@ -170,7 +195,8 @@ class GroupParallel(Stage):
     the group index; absorbing a preceding Fully-Parallel producer (fusion rule
     2) replaces a ``LOAD`` chain with the producer's chain -- the paper's Fig.
     7(c) fusion of bit-packing into the RLE kernel.  ``tail`` holds elementwise
-    ops absorbed from a consumer (fusion rule 3).
+    ops absorbed from a consumer (fusion rule 3).  The ``STRGATHER`` map
+    (StringDict) reads the word bytes and offsets named by ``extra_inputs``.
     """
 
     presum: str
@@ -201,6 +227,46 @@ class GroupParallel(Stage):
         if len(self.values) != (2 if self.map_kind == AFFINE else 1):
             raise ValueError(f"{self.map_kind} map takes "
                              f"{2 if self.map_kind == AFFINE else 1} value chains")
+        if self.map_kind == STRGATHER and len(self.extra_inputs) != 2:
+            raise ValueError("the strgather map takes extra_inputs (chars, offsets)")
+
+
+@dataclasses.dataclass
+class NonParallel(Stage):
+    """Chunked serial decode, one chunk per thread in lockstep (paper §4 'towards
+    SIMT'), specialised to interleaved rANS (``algos/ans.py``).
+
+    Buffers: ``streams`` (max_words, n_chunks) uint16 words, chunk-transposed so
+    word t of every chunk is one row; ``states`` (n_chunks,) uint32 initial
+    decoder states (staged as int32 bits); ``sym_tab`` (4096,) uint8,
+    ``freq_tab``/``cum_tab`` (256,) uint16.  Chunk c decodes the symbols
+    out[c*chunk_size : (c+1)*chunk_size] (the last chunk is cut at ``n_out``), and
+    each symbol goes through ``tail``: the elementwise ops of a consumer absorbed
+    by fusion rule 4 (the reference's ``out_map``).
+    """
+
+    streams: str
+    states: str
+    sym_tab: str
+    freq_tab: str
+    cum_tab: str
+    chunk_size: int
+    n_chunks: int
+    tail: Chain = ()
+    out: str = "out"
+    n_out: int = 0
+    out_dtype: Any = np.dtype(np.uint8)
+    name: str = "np"
+    # actual (pre-padding) word count per chunk, host planning data emitted by
+    # the encoder; identified by dtype/shape only, never transferred
+    host_group_words: Any = None
+    # serial within a chunk, but chunks are independent: splits where whole
+    # chunks (= groups) do
+    chunkability = CHUNK_GROUP
+
+    def __post_init__(self):
+        self.tail = check_chain(self.tail, source=False)
+        self.out_dtype = np.dtype(self.out_dtype)
 
 
 @dataclasses.dataclass
@@ -250,4 +316,6 @@ def stage_inputs(st: Stage) -> tuple[str, ...]:
     """Every env name a stage reads."""
     if isinstance(st, GroupParallel):
         return (st.presum,) + st.value_inputs + st.extra_inputs
+    if isinstance(st, NonParallel):
+        return (st.streams, st.states, st.sym_tab, st.freq_tab, st.cum_tab)
     return tuple(getattr(st, "inputs", ()))

@@ -1,16 +1,13 @@
 """Per-column nested compression plans (paper Table 2) + BtrBlocks-style auto chooser.
 
 ``TABLE2_PLANS`` transcribes the paper's custom nesting per TPC-H column into the
-Plan IR (all 24 entries, as in the reference).  ``SLICE_COLUMNS`` are the 22 whose
-codecs the port has today: every column but the rANS-backed L_RETURNFLAG and
-O_COMMENT.  ``auto_plan`` searches a candidate pool by measured ratio (the
-BtrBlocks role), skipping candidates whose codecs are not ported yet.
+Plan IR (all 24 entries, as in the reference).  ``auto_plan`` searches a
+candidate pool by measured ratio (the BtrBlocks role).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import registry
 from repro_torch.core.plan import Plan, encode, make_plan
 
 _bp = lambda: make_plan("bitpack")
@@ -56,21 +53,11 @@ TABLE2_PLANS: dict[str, Plan] = {
     "PS_SUPPKEY": Plan("delta", children={
         "deltas": Plan("dictionary", children={"index": _bp()})}),
     "O_SHIPPRIORITY": Plan("rle", children={"counts": _bp(), "values": _bp()}),
-    # --- entropy / strings (codecs not ported yet) ---
+    # --- entropy / strings ---
     "L_RETURNFLAG": make_plan("ans"),
     "O_COMMENT": Plan("stringdict", children={
         "index": Plan("bitpack", children={"packed": make_plan("ans")})}),
 }
-
-SLICE_COLUMNS: tuple[str, ...] = tuple(
-    k for k in TABLE2_PLANS if k not in ("L_RETURNFLAG", "O_COMMENT"))
-
-
-def _codecs(p: Plan) -> set[str]:
-    out = {p.codec}
-    for c in p.children.values():
-        out |= _codecs(c)
-    return out
 
 
 def candidate_plans(arr: np.ndarray) -> list[Plan]:
@@ -93,15 +80,11 @@ def candidate_plans(arr: np.ndarray) -> list[Plan]:
 
 
 def auto_plan(arr: np.ndarray, sample: int = 1 << 16) -> tuple[Plan, float]:
-    """Pick the best-ratio plan on a sample (returns (plan, full ratio estimate)).
-    Candidates using a codec the port does not have are skipped."""
+    """Pick the best-ratio plan on a sample (returns (plan, full ratio estimate))."""
     flat = np.asarray(arr).reshape(-1)
     probe = flat[:sample]
-    known = set(registry.names())
     best, best_ratio = None, -1.0
     for p in candidate_plans(flat):
-        if not _codecs(p) <= known:
-            continue
         try:
             enc = encode(p, probe)
         except (TypeError, ValueError):

@@ -43,10 +43,11 @@ class ColumnPipeline:
             from repro_torch.kernels import cuda
             from repro_torch.kernels.fully_parallel import KERNEL as FP
             from repro_torch.kernels.group_parallel import KERNEL as GP
+            from repro_torch.kernels.non_parallel import KERNEL as NP
 
-            cuda.build([FP, GP])
-            FP.load()
-            GP.load()
+            cuda.build([FP, GP, NP])
+            for lib in (FP, GP, NP):
+                lib.load()
         self.executor = StreamingExecutor(backend=self.backend, device=device)
         self._encoded: dict[str, plan_mod.Encoded] = {}
 

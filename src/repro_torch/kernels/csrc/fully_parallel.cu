@@ -7,22 +7,25 @@
 // nothing, so the output is exactly (n,) (the TPU's padded tile has no counterpart).
 //
 // Bound on this card: bytes.  A chain does a handful of integer operations per
-// element against 4 bytes written and up to 4 read, far below the H100's
+// element against 1-4 bytes written and up to 4 read, far below the H100's
 // operations-per-byte balance point.  The design keeps every intermediate of a
 // fused chain in registers (one read of the packed words, one write of the
 // output), and with C = 1 neighbouring threads touch neighbouring words, so a
-// warp's loads and stores coalesce.
+// warp's loads and stores coalesce.  The ``BYTES`` source (rANS byte-reassemble)
+// reads an item's bytes one by one; a warp still reads one contiguous span.
 #include "zf_chain.cuh"
 
 struct ZfFpArgs {
   ZfChain chain;
-  uint32_t* out;
+  void* out;
   int64_t n;
   int32_t L;
   int32_t C;
+  int32_t out_width;   // bytes per output element: 1, 2 or 4
+  int32_t pad;
 };
 
-static_assert(sizeof(ZfFpArgs) == 352, "ZfFpArgs layout is shared with kernels/cuda.py");
+static_assert(sizeof(ZfFpArgs) == 360, "ZfFpArgs layout is shared with kernels/cuda.py");
 
 __global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
   const int64_t S = blockDim.x;
@@ -31,7 +34,7 @@ __global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
     const int64_t t0 = block0 + (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
     for (int c = 0; c < a.C; ++c) {
       const int64_t i = t0 + c;
-      if (i < a.n) a.out[i] = zf_eval(a.chain, i);
+      if (i < a.n) zf_write(a.out, a.out_width, i, zf_eval(a.chain, i));
     }
   }
 }
@@ -49,8 +52,4 @@ extern "C" int zf_fully_parallel(const ZfFpArgs* args, int32_t threads, int32_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int zf_args_size() { return static_cast<int>(sizeof(ZfFpArgs)); }
-
-extern "C" const char* zf_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+ZF_EXPORT_HELPERS(ZfFpArgs)

@@ -8,12 +8,13 @@
 //   pos = i - presum[g]
 //   v   = values[0](g)                    IDENTITY (RLE)
 //       | values[0](g) + values[1](g)*pos AFFINE (DeltaStride), mod 2^32
-//   out[i] = tail(v)
+//       | chars[offs[values[0](g)] + pos] STRGATHER (StringDict)
+//   out[i] = tail(v), stored in 1, 2 or 4 bytes
 // Each value chain may hold an absorbed Fully-Parallel producer (fusion rule 2),
 // e.g. bit-packed RLE values decoded right here, never materialized.
 //
-// Bound on this card: bytes (4 bytes written per element, the presum and value
-// words read).  The search is log2(groups) dependent loads per element, but
+// Bound on this card: bytes (1-4 bytes written per element, the presum and
+// value words read).  The search is log2(groups) dependent loads per element, but
 // neighbouring threads follow the same path, so those loads hit L1/L2.  The
 // reference's per-tile first-group scan and windowed search are a later
 // optimization.
@@ -24,15 +25,17 @@ struct ZfGpArgs {
   int64_t n_groups;
   ZfChain values[2];
   ZfChain tail;
-  int32_t map_kind;       // ZF_IDENTITY (values[0] only) or ZF_AFFINE
-  int32_t pad;
-  uint32_t* out;
+  ZfOp chars;             // STRGATHER: word bytes (a, n, elem; kind unused)
+  ZfOp offs;              // STRGATHER: word offsets
+  int32_t map_kind;       // ZF_IDENTITY, ZF_AFFINE or ZF_STRGATHER
+  int32_t out_width;      // bytes per output element: 1, 2 or 4
+  void* out;
   int64_t n;
   int32_t L;
   int32_t C;
 };
 
-static_assert(sizeof(ZfGpArgs) == 1032, "ZfGpArgs layout is shared with kernels/cuda.py");
+static_assert(sizeof(ZfGpArgs) == 1112, "ZfGpArgs layout is shared with kernels/cuda.py");
 
 // First j in [0, len) with presum[j] > q, or len.
 __device__ __forceinline__ int64_t zf_upper_bound(const int32_t* presum, int64_t len, int64_t q) {
@@ -48,9 +51,15 @@ __device__ __forceinline__ int64_t zf_upper_bound(const int32_t* presum, int64_t
 __device__ __forceinline__ uint32_t zf_expand(const ZfGpArgs& a, int64_t i) {
   int64_t g = zf_upper_bound(a.presum, a.n_groups + 1, i) - 1;
   g = g < 0 ? 0 : (g >= a.n_groups ? a.n_groups - 1 : g);
-  const uint32_t pos = static_cast<uint32_t>(i - static_cast<int64_t>(a.presum[g]));
+  const int64_t pos = i - static_cast<int64_t>(a.presum[g]);
   uint32_t v = zf_eval(a.values[0], g);
-  if (a.map_kind == ZF_AFFINE) v += zf_eval(a.values[1], g) * pos;  // uint32: wraps
+  if (a.map_kind == ZF_AFFINE) {
+    v += zf_eval(a.values[1], g) * static_cast<uint32_t>(pos);  // uint32: wraps
+  } else if (a.map_kind == ZF_STRGATHER) {
+    const int64_t w = zf_jnp_index(static_cast<int32_t>(v), a.offs.n);
+    const int64_t k = static_cast<int32_t>(zf_read(a.offs.a, a.offs.elem, w)) + pos;
+    v = zf_read(a.chars.a, a.chars.elem, zf_jnp_index(k, a.chars.n));
+  }
   return zf_transforms(a.tail, 0, v);
 }
 
@@ -61,7 +70,7 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a) {
     const int64_t t0 = block0 + (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
     for (int c = 0; c < a.C; ++c) {
       const int64_t i = t0 + c;
-      if (i < a.n) a.out[i] = zf_expand(a, i);
+      if (i < a.n) zf_write(a.out, a.out_width, i, zf_expand(a, i));
     }
   }
 }
@@ -80,8 +89,4 @@ extern "C" int zf_group_parallel(const ZfGpArgs* args, int32_t threads, int32_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int zf_args_size() { return static_cast<int>(sizeof(ZfGpArgs)); }
-
-extern "C" const char* zf_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+ZF_EXPORT_HELPERS(ZfGpArgs)

@@ -5,6 +5,10 @@
 // A chain is passed to a kernel by value as a small POD array of ops holding
 // device pointers, so one build serves every chain.  Every register value is a
 // 32-bit word; each op knows how it reads it (int32, uint32 or float32 bits).
+// Buffers hold 8-, 16- or 32-bit elements: an op's ``elem`` gives the width of
+// its buffer ``a`` in bytes, negative for a signed narrow type, and a read
+// zero- or sign-extends the element to a word.  An output of 1, 2 or 4 bytes
+// per element takes the word's low bytes (``zf_write``).
 #pragma once
 
 #include <cstdint>
@@ -12,14 +16,19 @@
 
 #define ZF_MAX_OPS 8
 
-enum : int32_t { ZF_UNPACK = 0, ZF_LOAD = 1, ZF_GATHER = 2, ZF_I2F_DIV = 3, ZF_UNZIGZAG = 4 };
-enum : int32_t { ZF_IDENTITY = 0, ZF_AFFINE = 1 };
+enum : int32_t {
+  ZF_UNPACK = 0, ZF_LOAD = 1, ZF_GATHER = 2, ZF_I2F_DIV = 3, ZF_UNZIGZAG = 4,
+  ZF_BYTES = 5, ZF_SPAN = 6
+};
+enum : int32_t { ZF_IDENTITY = 0, ZF_AFFINE = 1, ZF_STRGATHER = 2 };
 
 struct ZfOp {
   int32_t kind;
-  int32_t pad;
+  int16_t elem;     // element of buffer a: 1, 2 or 4 bytes; -1, -2 signed
+  int16_t imm;      // BYTES: item size
   int64_t n;        // element count of buffer a (packed words, table entries)
-  const void* a;    // UNPACK: packed words; LOAD: buffer; GATHER: table; I2F_DIV: scale
+  const void* a;    // UNPACK: packed words; LOAD: buffer; GATHER: table; I2F_DIV:
+                    // scale; BYTES: bytes; SPAN: offsets
   const void* b;    // UNPACK: bit width operand (int32, (1,))
   const void* c;    // UNPACK: base operand (int32, (1,))
 };
@@ -32,6 +41,30 @@ struct ZfChain {
 
 static_assert(sizeof(ZfOp) == 40, "ZfOp layout is shared with kernels/cuda.py");
 static_assert(sizeof(ZfChain) == 328, "ZfChain layout is shared with kernels/cuda.py");
+
+// Element j of a buffer of `elem`-byte elements as a 32-bit word.
+__device__ __forceinline__ uint32_t zf_read(const void* p, int32_t elem, int64_t j) {
+  switch (elem) {
+    case 1: return static_cast<const uint8_t*>(p)[j];
+    case -1: return static_cast<uint32_t>(static_cast<int32_t>(static_cast<const int8_t*>(p)[j]));
+    case 2: return static_cast<const uint16_t*>(p)[j];
+    case -2: return static_cast<uint32_t>(static_cast<int32_t>(static_cast<const int16_t*>(p)[j]));
+    default: return static_cast<const uint32_t*>(p)[j];
+  }
+}
+
+// Store the low `width` bytes of v as element i.
+__device__ __forceinline__ void zf_write(void* p, int32_t width, int64_t i, uint32_t v) {
+  if (width == 1) static_cast<uint8_t*>(p)[i] = static_cast<uint8_t>(v);
+  else if (width == 2) static_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(v);
+  else static_cast<uint32_t*>(p)[i] = v;
+}
+
+// jnp indexing into n entries: a negative index wraps once, then it is clamped.
+__device__ __forceinline__ int64_t zf_jnp_index(int64_t j, int64_t n) {
+  j = j < 0 ? j + n : j;
+  return j < 0 ? 0 : (j >= n ? n - 1 : j);
+}
 
 // Bit-unpack element i (algos/bitpack.py).  The bit position is split as
 // (i>>5)*bw + ((i&31)*bw)>>5 in 64 bits; shifts by 32 are undefined in C++, so
@@ -51,19 +84,31 @@ __device__ __forceinline__ uint32_t zf_unpack(const ZfOp& op, int64_t i) {
   return ((lo | hi) & mask) + base;  // int32 add, wrapping
 }
 
+// Item i of a byte buffer, little-endian: bytes past the fourth would shift out
+// of the word (the reference's uint32 shifts give 0), so they are not read.
+__device__ __forceinline__ uint32_t zf_bytes(const ZfOp& op, int64_t i) {
+  const uint8_t* b = static_cast<const uint8_t*>(op.a) + i * op.imm;
+  const int k_end = op.imm < 4 ? op.imm : 4;
+  uint32_t v = 0;
+  for (int k = 0; k < k_end; ++k) v |= static_cast<uint32_t>(b[k]) << (8 * k);
+  return v;
+}
+
 __device__ __forceinline__ uint32_t zf_source(const ZfOp& op, int64_t i) {
   if (op.kind == ZF_UNPACK) return zf_unpack(op, i);
-  return static_cast<const uint32_t*>(op.a)[i];  // ZF_LOAD
+  if (op.kind == ZF_BYTES) return zf_bytes(op, i);
+  return zf_read(op.a, op.elem, i);  // ZF_LOAD
 }
 
 __device__ __forceinline__ uint32_t zf_transform(const ZfOp& op, uint32_t v) {
   switch (op.kind) {
-    case ZF_GATHER: {
-      // jnp indexing: a negative index wraps once, then the index is clamped
-      int64_t j = static_cast<int32_t>(v);
-      j = j < 0 ? j + op.n : j;
-      j = j < 0 ? 0 : (j >= op.n ? op.n - 1 : j);
-      return static_cast<const uint32_t*>(op.a)[j];
+    case ZF_GATHER:
+      return zf_read(op.a, op.elem, zf_jnp_index(static_cast<int32_t>(v), op.n));
+    case ZF_SPAN: {
+      // offs[v+1] - offs[v]; the index is int32, so v + 1 wraps as in the reference
+      const int64_t hi = zf_jnp_index(static_cast<int32_t>(v + 1u), op.n);
+      const int64_t lo = zf_jnp_index(static_cast<int32_t>(v), op.n);
+      return zf_read(op.a, op.elem, hi) - zf_read(op.a, op.elem, lo);
     }
     case ZF_I2F_DIV: {
       // correctly rounded int32 -> float32 and float32 divide (no fast math)
@@ -90,3 +135,10 @@ __device__ __forceinline__ uint32_t zf_transforms(const ZfChain& ch, int first, 
 __device__ __forceinline__ uint32_t zf_eval(const ZfChain& ch, int64_t i) {
   return zf_transforms(ch, 1, zf_source(ch.ops[0], i));
 }
+
+// The error helpers every library exports (kernels/cuda.py reads them).
+#define ZF_EXPORT_HELPERS(ArgsType)                                             \
+  extern "C" int zf_args_size() { return static_cast<int>(sizeof(ArgsType)); } \
+  extern "C" const char* zf_error_string(int err) {                            \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));                  \
+  }

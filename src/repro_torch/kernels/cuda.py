@@ -10,7 +10,9 @@ first use, all sources concurrently.  A build or launch failure raises; nothing
 falls back to the plain versions.
 
 The op-chain structs below mirror ``csrc/zf_chain.cuh`` byte for byte; every
-library reports its argument struct's size, which is checked at load.
+library reports its argument struct's size, which is checked at load.  Operands
+reach the kernels at their own width (8-, 16- or 32-bit elements); each op
+carries its buffer's element code, and each launch its output's width.
 """
 from __future__ import annotations
 
@@ -24,20 +26,26 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.patterns import GATHER, I2F_DIV, LOAD, UNPACK, UNZIGZAG, Chain
+from repro_torch.core.patterns import (BYTES, GATHER, I2F_DIV, LOAD, SPAN, UNPACK,
+                                       UNZIGZAG, Chain)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 MAX_OPS = 8
-_OP_CODES = {UNPACK: 0, LOAD: 1, GATHER: 2, I2F_DIV: 3, UNZIGZAG: 4}
-_WORD_DTYPES = (torch.int32, torch.uint32, torch.float32)
+_OP_CODES = {UNPACK: 0, LOAD: 1, GATHER: 2, I2F_DIV: 3, UNZIGZAG: 4, BYTES: 5,
+             SPAN: 6}
+# element code of a buffer: bytes per element, negative for a signed narrow type
+_ELEM_CODES = {torch.int32: 4, torch.uint32: 4, torch.float32: 4,
+               torch.uint16: 2, torch.int16: -2, torch.uint8: 1, torch.bool: 1,
+               torch.int8: -1}
 
 
 class ZfOp(ctypes.Structure):
-    _fields_ = [("kind", ctypes.c_int32), ("pad", ctypes.c_int32),
-                ("n", ctypes.c_int64), ("a", ctypes.c_void_p),
-                ("b", ctypes.c_void_p), ("c", ctypes.c_void_p)]
+    _fields_ = [("kind", ctypes.c_int32), ("elem", ctypes.c_int16),
+                ("imm", ctypes.c_int16), ("n", ctypes.c_int64),
+                ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("c", ctypes.c_void_p)]
 
 
 class ZfChain(ctypes.Structure):
@@ -47,14 +55,26 @@ class ZfChain(ctypes.Structure):
 
 class ZfFpArgs(ctypes.Structure):
     _fields_ = [("chain", ZfChain), ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
-                ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
+                ("L", ctypes.c_int32), ("C", ctypes.c_int32),
+                ("out_width", ctypes.c_int32), ("pad", ctypes.c_int32)]
 
 
 class ZfGpArgs(ctypes.Structure):
     _fields_ = [("presum", ctypes.c_void_p), ("n_groups", ctypes.c_int64),
                 ("values", ZfChain * 2), ("tail", ZfChain),
-                ("map_kind", ctypes.c_int32), ("pad", ctypes.c_int32),
+                ("chars", ZfOp), ("offs", ZfOp),
+                ("map_kind", ctypes.c_int32), ("out_width", ctypes.c_int32),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
+
+
+class ZfNpArgs(ctypes.Structure):
+    _fields_ = [("streams", ctypes.c_void_p), ("states", ctypes.c_void_p),
+                ("sym", ctypes.c_void_p), ("freq", ctypes.c_void_p),
+                ("cum", ctypes.c_void_p), ("max_words", ctypes.c_int64),
+                ("n_chunks", ctypes.c_int64), ("n", ctypes.c_int64),
+                ("tail", ZfChain), ("out", ctypes.c_void_p),
+                ("chunk_size", ctypes.c_int32), ("out_width", ctypes.c_int32),
                 ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
 
 
@@ -168,14 +188,29 @@ def build(libs) -> None:
 
 # --------------------------------------------------------------- op-chain ABI
 
-def _word_tensor(t: torch.Tensor, what: str, device: torch.device) -> int:
+def operand(t: torch.Tensor, what: str, device: torch.device,
+            dtypes=tuple(_ELEM_CODES)) -> int:
+    """The device pointer of a tensor a kernel reads, after checking it."""
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, the launch on {device}")
-    if t.dtype not in _WORD_DTYPES:
-        raise ValueError(f"{what} has dtype {t.dtype}; the kernels take 32-bit words")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what} has dtype {t.dtype}; the kernels take 8-, 16- and "
+                         f"32-bit elements ({', '.join(map(str, dtypes))})")
     if not t.is_contiguous() or t.numel() == 0:
         raise ValueError(f"{what} must be a non-empty contiguous tensor")
     return t.data_ptr()
+
+
+def pack_buffer(t: torch.Tensor, what: str, device: torch.device) -> ZfOp:
+    """A whole buffer as an op's ``a`` operand (pointer, count, element code)."""
+    return ZfOp(a=operand(t, what, device), n=t.numel(), elem=_ELEM_CODES[t.dtype])
+
+
+def out_width(t: torch.Tensor) -> int:
+    """Bytes per element of a kernel's output (the kernels store 1, 2 or 4)."""
+    if t.element_size() not in (1, 2, 4):
+        raise ValueError(f"the kernels write 1-, 2- or 4-byte elements, not {t.dtype}")
+    return t.element_size()
 
 
 def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
@@ -188,17 +223,25 @@ def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
         raise ValueError(f"chain of {len(chain)} ops exceeds the kernels' {MAX_OPS}")
     out = ZfChain(n_ops=len(chain))
     for k, op in enumerate(chain):
-        ptrs = [_word_tensor(env[b], f"{op} input {b!r}", device) for b in op.bufs]
-        if op.kind == LOAD and env[op.bufs[0]].numel() < extent:
+        ptrs = [operand(env[b], f"{op} input {b!r}", device) for b in op.bufs]
+        reads = extent * (op.imm if op.kind == BYTES else 1)
+        if op.kind in (LOAD, BYTES) and env[op.bufs[0]].numel() < reads:
             raise ValueError(f"{op}: buffer holds {env[op.bufs[0]].numel()} "
-                             f"elements, the chain reads {extent}")
+                             f"elements, the chain reads {reads}")
         if op.kind == UNPACK:
+            if _ELEM_CODES[env[op.bufs[0]].dtype] != 4:
+                raise ValueError(f"{op}: packed words must be 32-bit")
             bw, base = env[op.bufs[1]], env[op.bufs[2]]
             if bw.dtype != torch.int32 or base.dtype != torch.int32:
                 raise ValueError(f"{op}: bit width and base operands must be int32")
         if op.kind == I2F_DIV and env[op.bufs[0]].dtype != torch.float32:
             raise ValueError(f"{op}: the scale must be float32")
+        if op.kind == BYTES and (env[op.bufs[0]].dtype != torch.uint8 or op.imm < 1):
+            raise ValueError(f"{op}: reads a uint8 buffer, item size >= 1")
         ptrs += [None] * (3 - len(ptrs))
-        n = env[op.bufs[0]].numel() if op.bufs else 0
-        out.ops[k] = ZfOp(kind=_OP_CODES[op.kind], n=n, a=ptrs[0], b=ptrs[1], c=ptrs[2])
+        buf = env[op.bufs[0]] if op.bufs else None
+        out.ops[k] = ZfOp(kind=_OP_CODES[op.kind], imm=op.imm,
+                          elem=_ELEM_CODES[buf.dtype] if buf is not None else 4,
+                          n=buf.numel() if buf is not None else 0,
+                          a=ptrs[0], b=ptrs[1], c=ptrs[2])
     return out

@@ -42,7 +42,7 @@ def fully_parallel(stage: FullyParallel, env: dict[str, torch.Tensor],
     if stage.n_out:
         args = cuda.ZfFpArgs(chain=cuda.pack_chain(stage.chain, env, device,
                                                    stage.n_out),
-                             out=out.data_ptr(), n=stage.n_out, L=geom.L, C=geom.C)
+                             out=out.data_ptr(), n=stage.n_out, L=geom.L, C=geom.C,
+                             out_width=cuda.out_width(out))
         KERNEL.launch(args, geom.S, device)
-    out_dt = ref.torch_dtype(stage.out_dtype)
-    return out if out.dtype == out_dt else out.to(out_dt)
+    return ref.to_out(out, stage.chain, stage.out_dtype)

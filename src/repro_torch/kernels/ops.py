@@ -2,9 +2,9 @@
 
 ``run_stage`` is the per-stage executor of ``repro_torch.core.compiler``:
 
-  * backend ``"kernel"`` -- Fully-Parallel and Group-Parallel stages go to the
-    CUDA kernels at their native geometry (whose wrappers take the plain version
-    only for CPU tensors);
+  * backend ``"kernel"`` -- Fully-Parallel, Group-Parallel and Non-Parallel
+    stages go to the CUDA kernels at their native geometry (whose wrappers take
+    the plain version only for CPU tensors);
   * backend ``"torch"``  -- the plain PyTorch versions on any device.
 
 An ``Aux`` stays a whole-array torch op on both backends; the Fully-Parallel
@@ -15,10 +15,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.patterns import Aux, FullyParallel, GroupParallel, Stage
+from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel,
+                                       NonParallel, Stage)
 from repro_torch.kernels import ref
 from repro_torch.kernels.fully_parallel import fully_parallel
 from repro_torch.kernels.group_parallel import group_parallel
+from repro_torch.kernels.non_parallel import non_parallel
 
 BACKENDS = ("kernel", "torch")
 
@@ -32,6 +34,10 @@ def run_stage(stage: Stage, env: dict[str, torch.Tensor], backend: str) -> torch
         if backend == "kernel":
             return group_parallel(stage, env)
         return ref.group_parallel_torch(stage, env)
+    if isinstance(stage, NonParallel):
+        if backend == "kernel":
+            return non_parallel(stage, env)
+        return ref.non_parallel_torch(stage, env)
     if isinstance(stage, Aux):
         local = dict(env) if stage.producers else env
         for prod in stage.producers:

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the two kernels: whole-array interpreters of op chains.
+"""Plain PyTorch versions of the three kernels: whole-array interpreters of op chains.
 
-``fully_parallel_torch`` and ``group_parallel_torch`` compute exactly what the CUDA
-kernels compute (``fully_parallel.cu`` / ``group_parallel.cu``), with torch ops
-over every element at once.  The CPU backend and the tests use them, and the card
+``fully_parallel_torch``, ``group_parallel_torch`` and ``non_parallel_torch``
+compute exactly what the CUDA kernels compute (``fully_parallel.cu``,
+``group_parallel.cu``, ``non_parallel.cu``), with torch ops over every element
+(or, for rANS, every chunk) at once.  The CPU backend and the tests use them, and the card
 compares each kernel with them; nothing on the card's main path calls them.
 
 torch has no ``>>``, ``<<``, ``-`` or ``<`` for ``uint32`` on the CPU, so 32-bit
@@ -14,18 +15,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.patterns import (AFFINE, GATHER, I2F_DIV, IDENTITY, LOAD,
-                                       UNPACK, UNZIGZAG, Chain, FullyParallel,
-                                       GroupParallel, Op)
+from repro_torch.core.patterns import (AFFINE, BYTES, GATHER, I2F_DIV, IDENTITY,
+                                       LOAD, SPAN, STRGATHER, UNPACK, UNZIGZAG,
+                                       Chain, FullyParallel, GroupParallel,
+                                       NonParallel, Op)
 
 MASK32 = 0xFFFFFFFF
+# rANS constants (algos/ans.py): renorm bound, probability scale
+ANS_L = 1 << 16
+ANS_SCALE_BITS = 12
 
 _TORCH_DTYPES = {
     np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32,
     np.dtype(np.int64): torch.int64, np.dtype(np.float64): torch.float64,
     np.dtype(np.uint8): torch.uint8, np.dtype(np.int8): torch.int8,
-    np.dtype(np.int16): torch.int16, np.dtype(np.uint32): torch.uint32,
-    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int16): torch.int16, np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.uint32): torch.uint32, np.dtype(np.bool_): torch.bool,
 }
 
 
@@ -60,21 +65,41 @@ def _unpack(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Te
     return wrap_i32(((lo | hi) & mask) + base)
 
 
+def _bytes(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Little-endian word of bytes buf[i*itemsize + k]; bytes past the fourth
+    would shift out of 32 bits (the reference's uint32 shifts give 0)."""
+    b = env[op.bufs[0]]
+    v = torch.zeros_like(idx)
+    for k in range(min(op.imm, 4)):
+        v |= b[idx * op.imm + k].to(torch.int64) << (8 * k)
+    return wrap_i32(v)
+
+
 def _source(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
     if op.kind == UNPACK:
         return _unpack(op, idx, env)
     if op.kind == LOAD:
         return env[op.bufs[0]][idx]
+    if op.kind == BYTES:
+        return _bytes(op, idx, env)
     raise ValueError(f"{op} is not a source op")
+
+
+def jnp_index(j: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp indexing of int64 ``j`` into n entries: wrap a negative once, clamp."""
+    return torch.where(j < 0, j + n, j).clamp(0, n - 1)
 
 
 def _transform(op: Op, v: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
     if op.kind == GATHER:
         table = env[op.bufs[0]]
-        j = v.to(torch.int64)
-        # jnp indexing: negative indices wrap once, then clamp into range
-        j = torch.where(j < 0, j + table.numel(), j).clamp(0, table.numel() - 1)
-        return table[j]
+        return table[jnp_index(v.to(torch.int64), table.numel())]
+    if op.kind == SPAN:
+        offs = env[op.bufs[0]]
+        j = v.to(torch.int32).to(torch.int64)   # the index is int32; j + 1 wraps
+        hi = offs[jnp_index(wrap_i32(j + 1).to(torch.int64), offs.numel())]
+        lo = offs[jnp_index(j, offs.numel())]
+        return wrap_i32(hi.to(torch.int64) - lo.to(torch.int64))
     if op.kind == I2F_DIV:
         # int32 -> float32 (round to nearest even), then an IEEE float32 divide
         return v.to(torch.float32) / env[op.bufs[0]][0].to(torch.float32)
@@ -101,7 +126,7 @@ def chain_dtype(chain: Chain, env: dict[str, torch.Tensor],
     """The dtype a chain produces (``start``: the value entering a tail)."""
     dt = start
     for op in chain:
-        if op.kind in (UNPACK, UNZIGZAG):
+        if op.kind in (UNPACK, UNZIGZAG, BYTES, SPAN):
             dt = torch.int32
         elif op.kind in (LOAD, GATHER):
             dt = env[op.bufs[0]].dtype
@@ -111,9 +136,29 @@ def chain_dtype(chain: Chain, env: dict[str, torch.Tensor],
 
 
 def gp_dtype(stage: GroupParallel, env: dict[str, torch.Tensor]) -> torch.dtype:
-    mapped = (chain_dtype(stage.values[0], env) if stage.map_kind == IDENTITY
-              else torch.int32)
+    if stage.map_kind == IDENTITY:
+        mapped = chain_dtype(stage.values[0], env)
+    elif stage.map_kind == STRGATHER:
+        mapped = env[stage.extra_inputs[0]].dtype
+    else:
+        mapped = torch.int32
     return chain_dtype(stage.tail, env, start=mapped)
+
+
+def np_dtype(stage: NonParallel, env: dict[str, torch.Tensor]) -> torch.dtype:
+    return chain_dtype(stage.tail, env, start=torch.uint8)
+
+
+def to_out(v: torch.Tensor, chain: Chain, out_dtype) -> torch.Tensor:
+    """A chain's values as the stage's output dtype.  A ``BYTES`` word holds the
+    output element's bits, so a 4-byte output is a bitcast (float32 included);
+    everything else converts by value."""
+    dt = torch_dtype(out_dtype)
+    if v.dtype == dt:
+        return v
+    if chain and chain[0].kind == BYTES and dt.itemsize == 4:
+        return v.view(dt)
+    return v.to(dt)
 
 
 def fully_parallel_torch(stage: FullyParallel,
@@ -121,7 +166,7 @@ def fully_parallel_torch(stage: FullyParallel,
     """out[i] = chain(i) for every i < n_out."""
     device = env[stage.inputs[0]].device
     idx = torch.arange(stage.n_out, dtype=torch.int64, device=device)
-    return eval_chain(stage.chain, idx, env).to(torch_dtype(stage.out_dtype))
+    return to_out(eval_chain(stage.chain, idx, env), stage.chain, stage.out_dtype)
 
 
 def group_parallel_torch(stage: GroupParallel,
@@ -139,6 +184,39 @@ def group_parallel_torch(stage: GroupParallel,
         start = vals[0].to(torch.int32).to(torch.int64)
         stride = vals[1].to(torch.int32).to(torch.int64)
         v = wrap_i32(start + stride * pos)
+    elif stage.map_kind == STRGATHER:
+        chars, offs = (env[k] for k in stage.extra_inputs)
+        j = jnp_index(vals[0].to(torch.int32).to(torch.int64), offs.numel())
+        v = chars[jnp_index(offs[j].to(torch.int64) + pos, chars.numel())]
     else:
         v = vals[0]
     return apply_ops(stage.tail, v, env).to(out_dt)
+
+
+def non_parallel_torch(stage: NonParallel,
+                       env: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Lockstep rANS decode (``algos/ans.py decode_chunks_np``): a loop over the
+    ``chunk_size`` serial steps, each vectorised across the chunks; uint32
+    arithmetic in int64 masked to 32 bits.  Returns the first ``n_out``
+    symbols through the tail."""
+    streams = env[stage.streams].to(torch.int64)
+    x = u32(env[stage.states])
+    sym = env[stage.sym_tab].to(torch.int64)
+    freq = env[stage.freq_tab].to(torch.int64)
+    cum = env[stage.cum_tab].to(torch.int64)
+    n_chunks, cs = stage.n_chunks, stage.chunk_size
+    lanes = torch.arange(n_chunks, device=x.device)
+    cur = torch.zeros(n_chunks, dtype=torch.int64, device=x.device)
+    cap = streams.shape[0] - 1
+    out = torch.empty((n_chunks, cs), dtype=torch.uint8, device=x.device)
+    for t in range(cs):
+        slot = x & ((1 << ANS_SCALE_BITS) - 1)
+        s = sym[slot]
+        out[:, t] = s.to(torch.uint8)
+        x = (freq[s] * (x >> ANS_SCALE_BITS) + slot - cum[s]) & MASK32
+        need = x < ANS_L
+        w = streams[cur.clamp(0, cap), lanes]
+        x = torch.where(need, ((x << 16) | w) & MASK32, x)
+        cur += need
+    flat = out.reshape(-1)[: stage.n_out]
+    return apply_ops(stage.tail, flat, env).to(torch_dtype(stage.out_dtype))

@@ -10,15 +10,23 @@ import pytest
 import torch
 
 from repro_torch.core.compiler import build_graph, compile_blob, device_buffers
+from repro_torch.core.fusion import fuse
 from repro_torch.core.geometry import Geometry
+from repro_torch.core.patterns import BufSpec, FullyParallel, gather, load, load_bytes
 from repro_torch.core.plan import Plan, encode, make_plan
 from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
 from repro_torch.data.tpch import generate
+from repro_torch.kernels import ref
 from repro_torch.kernels.fully_parallel import KERNEL as FP, fully_parallel
 from repro_torch.kernels.group_parallel import KERNEL as GP, group_parallel
+from repro_torch.kernels.non_parallel import KERNEL as NP, non_parallel
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches() -> int:
+    return FP.launches + GP.launches + NP.launches
 
 
 @pytest.fixture
@@ -30,16 +38,17 @@ def gpu():
 
 def decode_both(enc, gpu):
     bufs = device_buffers(enc, gpu)
-    before = FP.launches + GP.launches
+    before = _launches()
     got = compile_blob(enc, backend="kernel")(bufs)
-    assert FP.launches + GP.launches > before
+    assert _launches() > before
     plain = compile_blob(enc, backend="torch")(bufs)
     torch.cuda.synchronize()
     return got.cpu(), plain.cpu()
 
 
 def bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    """A 4-byte tensor as int32 bits (torch compares few uint32 ops)."""
+    return t.view(torch.int32) if t.dtype in (torch.float32, torch.uint32) else t
 
 
 @pytest.mark.parametrize("bw", [1, 3, 7, 8, 13, 17, 25, 31, 32])
@@ -85,13 +94,14 @@ def test_rle_kernel_on_skewed_runs(values, gpu):
 
 def test_pipeline_on_the_card(gpu):
     cols = generate(0.01, seed=0)
-    names = ["L_ORDERKEY", "L_SHIPDATE", "O_TOTALPRICE", "PS_SUPPKEY", "O_SHIPPRIORITY"]
+    names = ["L_ORDERKEY", "L_SHIPDATE", "O_TOTALPRICE", "PS_SUPPKEY", "O_SHIPPRIORITY",
+             "L_RETURNFLAG", "O_COMMENT"]
     pipe = ColumnPipeline({k: TABLE2_PLANS[k] for k in names})
     assert pipe.backend == "kernel" and pipe.device.type == "cuda"
     pipe.compress({k: cols[k] for k in names})
-    FP.launches = GP.launches = 0
+    FP.launches = GP.launches = NP.launches = 0
     res = pipe.run()
-    assert FP.launches > 0 and GP.launches > 0
+    assert FP.launches > 0 and GP.launches > 0 and NP.launches > 0
     for k in names:
         assert torch.equal(bits(res[k].array.cpu()), bits(torch.from_numpy(cols[k])))
         assert res[k].kernel_launches >= 1
@@ -125,3 +135,137 @@ def test_kernels_at_other_geometries(geom, gpu):
     (fp,) = build_graph(fp_enc).stages
     got = fully_parallel(fp, device_buffers(fp_enc, gpu), geom)
     assert torch.equal(got.cpu(), torch.from_numpy(arr))
+
+
+# ------------------------------------------------------- kernel 3 and byte widths
+
+def ans_sweep_input(kind: str, n: int, rng) -> np.ndarray:
+    if kind == "skewed":
+        return np.where(rng.random(n) < 0.995, 78, rng.integers(0, 256, n)) \
+            .astype(np.uint8)
+    if kind == "one-symbol":
+        return np.full(n, 82, np.uint8)
+    if kind == "float32":
+        return rng.normal(0, 1e3, n).astype(np.float32)
+    if kind == "int32":
+        return rng.integers(-2**31, 2**31, n).astype(np.int32)
+    return rng.integers(0, 5, n).astype(np.uint8)
+
+
+@pytest.mark.parametrize("chunk", [256, 4096])
+@pytest.mark.parametrize("kind", ["uint8", "int32", "float32", "skewed", "one-symbol"])
+@pytest.mark.parametrize("n", [1, 4096 * 3, 1_000_003])
+def test_ans_kernel_matches_plain(kind, chunk, n, gpu):
+    """Kernel 3 (and kernel 1's BYTES source for wider items) against the plain
+    versions, and the source, bit for bit; n = 1_000_003 is not a multiple of
+    either chunk size."""
+    arr = ans_sweep_input(kind, n, np.random.default_rng(n + chunk))
+    enc = encode(Plan("ans", params={"chunk_size": chunk}), arr)
+    before = NP.launches
+    got, plain = decode_both(enc, gpu)
+    assert NP.launches == before + 1
+    assert torch.equal(bits(got), bits(plain))
+    assert torch.equal(bits(got), bits(torch.from_numpy(arr)))
+
+
+@pytest.mark.parametrize("geom", [Geometry(1, 32, 1), Geometry(2, 64, 3),
+                                  Geometry(1, 1024, 1)], ids=str)
+def test_ans_kernel_at_other_geometries(geom, gpu):
+    arr = np.random.default_rng(4).integers(0, 30, 300_001).astype(np.uint8)
+    enc = encode(Plan("ans", params={"chunk_size": 256}), arr)
+    (st,) = build_graph(enc).stages
+    got = non_parallel(st, device_buffers(enc, gpu), geom)
+    assert torch.equal(got.cpu(), torch.from_numpy(arr))
+
+
+def test_ans_kernel_with_a_fused_tail(gpu):
+    """Fusion rule 4: each symbol goes through the tail (here a GATHER into an
+    int32 table) inside kernel 3, which then writes 4-byte elements."""
+    rng = np.random.default_rng(5)
+    syms = rng.integers(0, 40, 500_000).astype(np.uint8)
+    enc = encode(Plan("ans", params={"chunk_size": 4096}), syms)
+    env = device_buffers(enc, gpu)
+    table = rng.integers(-2**31, 2**31, 40).astype(np.int32)
+    env["table"] = torch.from_numpy(table).to(gpu)
+    (dec,) = build_graph(enc).stages
+    dec.out = "syms"
+    cons = FullyParallel(chain=(load("syms"), gather("table")), inputs=("syms",),
+                         specs=(BufSpec("tile"),), out="out", n_out=syms.size,
+                         name="lookup")
+    (fused,) = fuse([dec, cons])
+    got = non_parallel(fused, env)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.non_parallel_torch(fused, env))
+    assert torch.equal(got.cpu(), torch.from_numpy(table[syms]))
+
+
+def comment_bytes(n_rows: int, rng, end_with_delimiter: bool) -> np.ndarray:
+    words = np.array(["furiously", "quickly", "regular", "deposits", "sleep", "the",
+                      "carefully", "final", "packages", "ironic", "accounts"])
+    text = "".join(" ".join(rng.choice(words, int(rng.integers(3, 12))))
+                   + str(rng.choice([". ", " ", "."])) for _ in range(n_rows))
+    if not end_with_delimiter:
+        text = text.rstrip(". ") + " trailing"
+    return np.frombuffer(text.encode(), np.uint8).copy()
+
+
+@pytest.mark.parametrize("end_with_delimiter", [True, False])
+@pytest.mark.parametrize("index", ["leaf", "bitpack", "bitpack[ans]"])
+def test_stringdict_gp_writes_bytes(index, end_with_delimiter, gpu):
+    """Kernel 2's STRGATHER map over (chars, offsets) with a uint8 output."""
+    arr = comment_bytes(20_000, np.random.default_rng(6), end_with_delimiter)
+    kids = {"leaf": {}, "bitpack": {"index": make_plan("bitpack")},
+            "bitpack[ans]": {"index": Plan("bitpack",
+                                           children={"packed": make_plan("ans")})}}
+    enc = encode(Plan("stringdict", children=kids[index]), arr)
+    before = GP.launches
+    got, plain = decode_both(enc, gpu)
+    assert GP.launches == before + 1
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, plain) and torch.equal(got, torch.from_numpy(arr))
+
+
+def _guarded(n: int, gpu):
+    """A freed block of n bytes followed by a guard block: a kernel output of n
+    uint8 allocated next reuses the hole, so an overrun lands in the guard."""
+    hole = torch.empty(n, dtype=torch.uint8, device=gpu)
+    guard = torch.full((1 << 20,), 0x5A, dtype=torch.uint8, device=gpu)
+    del hole
+    return guard
+
+
+def test_uint8_gather_output_does_not_overrun(gpu):
+    rng = np.random.default_rng(7)
+    n = 100_000
+    env = {"i": torch.from_numpy(rng.integers(0, 200, n).astype(np.int32)).to(gpu),
+           "t": torch.from_numpy(rng.integers(0, 256, 200).astype(np.uint8)).to(gpu)}
+    st = FullyParallel(chain=(load("i"), gather("t")), inputs=("i", "t"),
+                       specs=(BufSpec("tile"), BufSpec("full")), out="o", n_out=n,
+                       out_dtype=np.uint8, name="lookup")
+    guard = _guarded(n, gpu)
+    got = fully_parallel(st, env)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, ref.fully_parallel_torch(st, env))
+    assert bool((guard == 0x5A).all())
+
+
+def test_bytes_source_of_the_fp_kernel(gpu):
+    """BYTES at item sizes 2, 4 and 8 (int16, uint32/float32 bitcast, int64's
+    low word), against the plain version."""
+    rng = np.random.default_rng(8)
+    raw = torch.from_numpy(rng.integers(0, 256, 8 * 70_001).astype(np.uint8)).to(gpu)
+    for itemsize, out_dtype in ((2, np.int16), (4, np.uint32), (4, np.float32),
+                                (8, np.int32)):
+        n = raw.numel() // itemsize
+        st = FullyParallel(chain=(load_bytes("b", itemsize),), inputs=("b",),
+                           specs=(BufSpec("tile", num=itemsize),), out="o", n_out=n,
+                           out_dtype=out_dtype, elementwise=False,
+                           name="byte-reassemble")
+        env = {"b": raw}
+        got = fully_parallel(st, env)
+        assert got.dtype == ref.torch_dtype(out_dtype)
+        assert torch.equal(bits(got), bits(ref.fully_parallel_torch(st, env)))
+        want = raw.cpu().numpy().view({2: np.int16, 4: np.uint32, 8: np.int64}[itemsize])
+        want = want.view(out_dtype) if itemsize == 4 else want.astype(out_dtype)
+        assert np.array_equal(bits(got.cpu()).numpy(), bits(torch.from_numpy(want)).numpy())

@@ -1,9 +1,9 @@
 """The port's blobs and compile front end against the JAX reference, per TPC-H column.
 
-For each of the 22 columns the port decodes (every Table-2 column but the
-rANS-backed L_RETURNFLAG and O_COMMENT): both packages' encoders give identical
+For each of the 24 Table-2 columns: both packages' encoders give identical
 buffers (bytes, dtype, shape) and meta, identical structural signatures, and
 identical fused stage lists (kinds, names, outputs, lengths, dtypes).
+``auto_plan`` picks the reference's plan.
 """
 import numpy as np
 import pytest
@@ -18,11 +18,12 @@ from repro_torch.core import fusion
 from repro_torch.core import plan as P
 from repro_torch.core.compiler import build_graph
 from repro_torch.core.ir import structural_signature
-from repro_torch.core.patterns import Aux, FullyParallel, GroupParallel
+from repro_torch.core.patterns import Aux, FullyParallel, GroupParallel, NonParallel
 from repro_torch.data import columns
 from repro_torch.data.tpch import generate
 
 SCALE = 0.002
+COLUMNS = tuple(columns.TABLE2_PLANS)
 
 
 @pytest.fixture(scope="module")
@@ -67,12 +68,13 @@ def test_table2_plans_match():
     assert list(columns.TABLE2_PLANS) == list(ref_columns.TABLE2_PLANS)
     for k, p in ref_columns.TABLE2_PLANS.items():
         assert columns.TABLE2_PLANS[k].describe() == p.describe(), k
-    assert len(columns.SLICE_COLUMNS) == 22
-    assert set(columns.TABLE2_PLANS) - set(columns.SLICE_COLUMNS) == {
-        "L_RETURNFLAG", "O_COMMENT"}
+    assert len(COLUMNS) == 24
+    assert columns.TABLE2_PLANS["L_RETURNFLAG"].describe() == "ans"
+    assert columns.TABLE2_PLANS["O_COMMENT"].describe() == \
+        "stringdict[index=bitpack[packed=ans]]"
 
 
-@pytest.mark.parametrize("name", columns.SLICE_COLUMNS)
+@pytest.mark.parametrize("name", COLUMNS)
 def test_encode_matches_reference(name, cols):
     arr = cols[name]
     mine = P.encode(columns.TABLE2_PLANS[name], arr)
@@ -86,7 +88,7 @@ def test_encode_matches_reference(name, cols):
     assert structural_signature(carried) == ref_signature(ref)
 
 
-@pytest.mark.parametrize("name", columns.SLICE_COLUMNS)
+@pytest.mark.parametrize("name", COLUMNS)
 def test_fused_stages_match_reference(name, cols):
     ref = RP.encode(ref_columns.TABLE2_PLANS[name], cols[name])
     rg = ref_build_graph(ref)
@@ -123,3 +125,24 @@ def test_fused_chains_of_the_slice(cols):
     assert [kinds(p.chain) for p in presum.producers] == [["unpack"]]
     ds = graph("O_ORDERKEY").stages[-1]
     assert ds.map_kind == "affine" and [kinds(c) for c in ds.values] == [["load"]] * 2
+    (flag,) = graph("L_RETURNFLAG").stages
+    assert isinstance(flag, NonParallel) and flag.tail == () and flag.chunk_size == 4096
+    dec, reas, unpack, lengths, expand = graph("O_COMMENT").stages
+    assert isinstance(dec, NonParallel) and dec.out_dtype == np.uint8
+    assert kinds(reas.chain) == ["bytes"] and reas.chain[0].imm == 4
+    assert np.dtype(reas.out_dtype) == np.uint32 and kinds(unpack.chain) == ["unpack"]
+    assert [kinds(p.chain) for p in lengths.producers] == [["load", "span"]]
+    assert expand.map_kind == "strgather" and np.dtype(expand.out_dtype) == np.uint8
+    assert len(expand.extra_inputs) == 2
+
+
+@pytest.mark.parametrize("kind", ["uint8", "float32", "int32"])
+def test_auto_plan_matches_reference(kind, cols):
+    """Every candidate is available now, so the port picks the reference's plan."""
+    arr = {"uint8": cols["L_RETURNFLAG"], "float32": cols["L_DISCOUNT"],
+           "int32": cols["L_QUANTITY"]}[kind]
+    mine, ratio = columns.auto_plan(arr)
+    ref, ref_ratio = ref_columns.auto_plan(arr)
+    assert mine.describe() == ref.describe() and ratio == pytest.approx(ref_ratio)
+    if kind == "uint8":
+        assert "ans" in mine.describe()

@@ -100,8 +100,9 @@ def test_abi_structs_match_the_cuda_layout():
 
     assert ctypes.sizeof(cuda.ZfOp) == 40
     assert ctypes.sizeof(cuda.ZfChain) == 328
-    assert ctypes.sizeof(cuda.ZfFpArgs) == 352
-    assert ctypes.sizeof(cuda.ZfGpArgs) == 1032
+    assert ctypes.sizeof(cuda.ZfFpArgs) == 360
+    assert ctypes.sizeof(cuda.ZfGpArgs) == 1112
+    assert ctypes.sizeof(cuda.ZfNpArgs) == 416
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
@@ -136,3 +137,24 @@ def test_pack_chain_rejects_what_the_kernels_do_not_take():
         cuda.pack_chain((load("i"),) + (gather("t"),) * cuda.MAX_OPS, env, dev)
     with pytest.raises(ValueError, match="reads 5"):
         cuda.pack_chain((load("i"), gather("t")), env, dev, extent=5)
+
+
+def test_pack_chain_keeps_narrow_operands_narrow():
+    """uint8/uint16/int8 buffers go to the kernels at their own width: each op
+    carries its buffer's element code (bytes, negative when signed)."""
+    from repro_torch.core.patterns import gather, load, load_bytes, span
+
+    dev = torch.device("cpu")
+    env = {"b": torch.zeros(12, dtype=torch.uint8), "h": torch.zeros(3, dtype=torch.uint16),
+           "s": torch.zeros(3, dtype=torch.int8), "o": torch.zeros(4, dtype=torch.int32)}
+    packed = cuda.pack_chain((load_bytes("b", 4), gather("h"), gather("s"), span("o")),
+                             env, dev, extent=3)
+    assert [(op.elem, op.imm, op.n) for op in packed.ops[:4]] == \
+        [(1, 4, 12), (2, 0, 3), (-1, 0, 3), (4, 0, 4)]
+    with pytest.raises(ValueError, match="reads 16"):
+        cuda.pack_chain((load_bytes("b", 4),), env, dev, extent=4)
+    with pytest.raises(ValueError, match="uint8"):
+        cuda.pack_chain((load_bytes("o", 4),), env, dev, extent=1)
+    assert cuda.out_width(torch.empty(2, dtype=torch.uint8)) == 1
+    with pytest.raises(ValueError, match="4-byte"):
+        cuda.out_width(torch.empty(2, dtype=torch.int64))

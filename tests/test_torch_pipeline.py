@@ -1,7 +1,8 @@
 """The slice as a whole: TPC-H (scale 0.002) through the port's ``ColumnPipeline``
 on the CPU, against the source columns and the JAX reference's Pallas decode.
 
-The port's pipeline runs once per module (22 columns, whole-column FIFO streaming);
+The port's pipeline runs once per module (all 24 Table-2 columns, whole-column
+FIFO streaming);
 each column is then held bit for bit against its source array and against the
 reference's ``compile_decoder(backend="pallas", interpret=True)`` output on the
 same blob.
@@ -16,12 +17,13 @@ from repro.core.geometry import Geometry
 
 from repro_torch.core import plan as P
 from repro_torch.core.executor import ColumnExec, StreamingExecutor
-from repro_torch.data.columns import SLICE_COLUMNS, TABLE2_PLANS
+from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
 from repro_torch.data.tpch import generate
 
 GEOMS = {"fp": Geometry(2, 8, 512), "gp": Geometry(2, 8, 512),
          "np": Geometry(1, 8, 512)}
+COLUMNS = tuple(TABLE2_PLANS)
 
 
 def as_bits(a) -> np.ndarray:
@@ -31,17 +33,17 @@ def as_bits(a) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def cols():
-    return {k: v for k, v in generate(0.002, seed=0).items() if k in SLICE_COLUMNS}
+    return {k: v for k, v in generate(0.002, seed=0).items() if k in TABLE2_PLANS}
 
 
 @pytest.fixture(scope="module")
 def pipe_run(cols):
-    pipe = ColumnPipeline({k: TABLE2_PLANS[k] for k in SLICE_COLUMNS}, device="cpu")
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cpu")
     ratios = pipe.compress(cols)
     return pipe, ratios, pipe.run()
 
 
-@pytest.mark.parametrize("name", SLICE_COLUMNS)
+@pytest.mark.parametrize("name", COLUMNS)
 def test_column_matches_source_and_reference(name, cols, pipe_run):
     pipe, ratios, res = pipe_run
     rec = res[name]
@@ -75,9 +77,27 @@ def test_pipeline_run_records(cols, pipe_run):
         assert isinstance(rec, ColumnExec)
         assert rec.transfer_s >= 0 and rec.decode_s >= 0 and rec.n_chunks == 1
     stats = pipe.cache_stats
-    # 22 columns, some share a structure: fewer programs than columns
+    # 24 columns, some share a structure: fewer programs than columns
     assert stats["programs"] == stats["misses"] and stats["hits"] >= 1
-    assert stats["programs"] + stats["hits"] == len(SLICE_COLUMNS)
+    assert stats["programs"] + stats["hits"] == len(COLUMNS)
+
+
+@pytest.mark.parametrize("name", ["L_RETURNFLAG", "O_COMMENT"])
+def test_narrow_leaves_stage_at_their_own_width(name, pipe_run):
+    """uint8 and uint16 leaves are staged as they are, not widened: the staged
+    operands hold the blob's compressed bytes plus the lifted (1,) meta."""
+    pipe, _, res = pipe_run
+    enc = pipe.encoded(name)
+    layout = {k: (nb, dt) for k, _, nb, dt, _ in pipe.executor._staged[name].layout}
+    leaves = P.flat_buffers(enc)
+    for k, a in leaves.items():
+        assert layout[k] == (a.nbytes, {np.dtype(np.uint32): torch.int32}.get(
+            a.dtype, torch.from_numpy(a[:0]).dtype)), k
+    assert {a.dtype for a in leaves.values()} >= {np.dtype(np.uint8),
+                                                  np.dtype(np.uint16)}
+    meta = sum(nb for k, (nb, _) in layout.items() if k not in leaves)
+    assert sum(nb for nb, _ in layout.values()) - meta == enc.compressed_nbytes
+    assert res[name].compressed_bytes == enc.compressed_nbytes
 
 
 def test_explicit_order_and_window(cols):
