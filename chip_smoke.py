@@ -16,10 +16,15 @@ non-zero before the final line:
      producers inside rule-5 Aux stages included) on the same inputs, timed
      beside their plain versions (the plain rANS decode, a Python loop of
      ``chunk_size`` steps, with fewer reps) and, for RLE expansion,
-     ``torch.repeat_interleave``; an FP bit-width x length sweep; GP on skewed
-     run lengths; an rANS sweep (chunk sizes 256 and 4096; uint8, int32 and
-     float32 items; a skewed and a one-symbol alphabet; lengths that are not a
-     multiple of the chunk size; a rule-4 tail);
+     ``torch.repeat_interleave``; each GP and NP launch also by
+     ``torch.profiler``, and kernel 3 at blocks of 32 and 64 threads; an FP
+     bit-width x length sweep; GP on skewed run lengths, on zero-count groups
+     whose window overflows a block's shared buffer, on all counts 1, on one
+     run longer than many tiles and on StringDict words longer than a
+     thread's 16 bytes; an rANS sweep (chunk sizes 256, 1000 and 4096; uint8,
+     int32 and float32 items; a skewed, a one-symbol and a uniform 256-symbol
+     alphabet; lengths that are not a multiple of the chunk size; a rule-4
+     tail; tables outside the packed layout);
   4. the main path: ``ColumnPipeline(..., device="cuda").run()`` once cold and
      ``WARM_RUNS`` times warm, with the launch counts zeroed just before; every
      column must equal its source bitwise.  Then the same blobs through the
@@ -54,8 +59,9 @@ KERNELS = {
 }
 FP_BWS = (1, 3, 7, 8, 13, 17, 25, 31, 32)
 FP_NS = (1, 127, 4097, 1 << 20, 1_000_003)
-NP_CHUNKS = (256, 4096)
-NP_KINDS = ("uint8", "int32", "float32", "skewed", "one-symbol")
+NP_CHUNKS = (256, 1000, 4096)     # 1000: chunks that are not a multiple of 16
+NP_KINDS = ("uint8", "int32", "float32", "skewed", "one-symbol", "uniform256")
+NP_BLOCKS = (32, 64)              # kernel 3's block sizes timed on the main path
 NP_NS = (1, 3 * 4096, 1_000_003)
 WARM_RUNS = 5
 # operations bound of the rANS decode: integer operations per symbol (mask,
@@ -125,7 +131,35 @@ def ans_input(kind: str, n: int, rng) -> np.ndarray:
         return rng.normal(0, 1e3, n).astype(np.float32)
     if kind == "int32":
         return rng.integers(-2**31, 2**31, n).astype(np.int32)
+    if kind == "uniform256":                # renormalises about every 2 steps
+        return rng.integers(0, 256, n).astype(np.uint8)
     return rng.integers(0, 5, n).astype(np.uint8)
+
+
+def long_words(n_words: int, rng) -> np.ndarray:
+    """Text whose words (17-64 letters) are longer than a thread's 16 bytes."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    lens = rng.integers(17, 65, n_words)
+    text = rng.choice(letters, int(lens.sum()) + n_words)
+    text[np.cumsum(lens + 1) - 1] = ord(" ")
+    return text.astype(np.uint8)
+
+
+def profiled_ms(fn, kernel: str, flush: torch.Tensor, reps: int = 5) -> float:
+    """Median device time of ``kernel``'s launches in ``reps`` calls of fn, as
+    ``torch.profiler`` reads it (no launch latency, unlike CUDA events)."""
+    fn()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if len(ts) != reps:
+        raise AssertionError(f"profiler saw {len(ts)} launches of {kernel}, not {reps}")
+    return float(np.median(ts))
 
 
 def main() -> int:
@@ -144,9 +178,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.compiler import build_graph, device_buffers
     from repro_torch.core.executor import StreamingExecutor
-    from repro_torch.core.geometry import chip_from_device
+    from repro_torch.core.geometry import Geometry, chip_from_device, native_config
     from repro_torch.core.fusion import fuse
-    from repro_torch.core.patterns import (IDENTITY, LOAD, Aux, BufSpec, FullyParallel,
+    from repro_torch.core.patterns import (AFFINE, IDENTITY, LOAD, STRGATHER, Aux,
+                                           BufSpec, FullyParallel,
                                            GroupParallel, NonParallel, gather, load,
                                            stage_inputs)
     from repro_torch.core.plan import Encoded, Plan, encode, make_plan
@@ -155,8 +190,9 @@ def main() -> int:
     from repro_torch.data.tpch import generate
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.fully_parallel import KERNEL as FP, fully_parallel
-    from repro_torch.kernels.group_parallel import KERNEL as GP, group_parallel
-    from repro_torch.kernels.non_parallel import KERNEL as NP, non_parallel
+    from repro_torch.kernels.group_parallel import (KERNEL as GP, group_parallel,
+                                                    tile_windows)
+    from repro_torch.kernels.non_parallel import KERNEL as NP, decode_table, non_parallel
     from repro_torch.kernels.ops import run_stage
 
     columns = tuple(TABLE2_PLANS)
@@ -208,6 +244,9 @@ def main() -> int:
             # the plain rANS decode is chunk_size steps of a dozen torch
             # launches each (about a second at 4096): 3 reps, not 10
             plain_reps = 3
+            if timed and not decode_table(env[st.sym_tab], env[st.freq_tab],
+                                          env[st.cum_tab])[1]:
+                raise AssertionError(f"{col}:{st.name}: tables miss the packed layout")
         plain = pfn(st, env)
         err[kname] = max(err[kname], same(kfn(st, env), plain, f"{col}:{st.name}"))
         compared[kname] += 1
@@ -217,6 +256,12 @@ def main() -> int:
                    "ms": timer.ms(lambda: kfn(st, env)),
                    "plain_ms": timer.ms(lambda: pfn(st, env), plain_reps),
                    "library_ms": None}
+            if kname != "fully_parallel":
+                rec["profiler_ms"] = profiled_ms(lambda: kfn(st, env), f"zf_{kname}",
+                                                 timer.flush)
+            if kname == "non_parallel":
+                for s_ in NP_BLOCKS:
+                    rec[f"ms_s{s_}"] = timer.ms(lambda: kfn(st, env, Geometry(1, s_, 1)))
             rec["bound_ms"] = rec["bytes"] / (hbm * 1e9) * 1e3
             rec["bound_by"] = "bytes"
             if kname == "non_parallel":
@@ -281,6 +326,54 @@ def main() -> int:
                            [-7, -7 - 2**31]]).astype(np.int64)
     same(out.cpu(), torch.from_numpy(((want + 2**31) % 2**32 - 2**31).astype(np.int32)),
          "deltastride wrap vs source")
+    # kernel 2's windows: zero-count groups whose window overflows a tile's
+    # shared buffer (the kernel's global-memory path), all counts 1 (a window
+    # of exactly T groups), one run longer than many tiles; each through the
+    # IDENTITY, AFFINE and STRGATHER maps
+    gp_geom = native_config("gp")
+    tile = gp_geom.S * gp_geom.C            # outputs of one sub-tile's window
+    zero = rng.integers(1, 4, 400_000)
+    zero[rng.random(zero.size) < 0.3] = 0
+    zero[100_000:200_000] = 0
+    gp_cases = {"zero-counts": (zero, lambda m: int(m.max()) > tile),
+                "all-ones": (np.ones(1_000_003, np.int64), lambda m: int(m.max()) == tile),
+                "long-run": (np.concatenate([rng.integers(1, 5, 3000), [50 * tile],
+                                             rng.integers(1, 5, 3000)]),
+                             lambda m: int((m == 1).sum()) >= 48)}
+    for label, (cnt, shows) in gp_cases.items():
+        presum = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
+        env = {"presum": torch.from_numpy(presum).cuda()}
+        for k in ("vals", "strides"):
+            env[k] = torch.from_numpy(rng.integers(-2**31, 2**31, cnt.size)
+                                      .astype(np.int32)).cuda()
+        windows = tile_windows(env["presum"], int(presum[-1]), tile)
+        if not shows(windows):
+            raise AssertionError(f"gp {label}: windows {windows.min()}..{windows.max()} "
+                                 f"do not show the case (tile {tile})")
+        env["words"] = torch.from_numpy(rng.integers(0, 1000, cnt.size)
+                                        .astype(np.int32)).cuda()
+        env["chars"] = torch.from_numpy(rng.integers(0, 256, 50_000)
+                                        .astype(np.uint8)).cuda()
+        env["offs"] = torch.from_numpy(np.sort(rng.integers(0, 49_000, 1001))
+                                       .astype(np.int32)).cuda()
+        for map_kind, names in ((IDENTITY, ("vals",)), (AFFINE, ("vals", "strides")),
+                                (STRGATHER, ("words",))):
+            extra = ("chars", "offs") if map_kind == STRGATHER else ()
+            st = GroupParallel(presum="presum", value_inputs=names,
+                               value_specs=(BufSpec("tile"),) * len(names),
+                               values=tuple((load(k),) for k in names),
+                               map_kind=map_kind, extra_inputs=extra, out="out",
+                               n_out=int(presum[-1]), n_groups=cnt.size,
+                               out_dtype=np.uint8 if extra else np.int32,
+                               name=f"{label} {map_kind}")
+            got = check(st, env, f"gp {label}", False)
+            if map_kind == IDENTITY:
+                same(got.cpu(), torch.from_numpy(np.repeat(env["vals"].cpu().numpy(), cnt)),
+                     f"gp {label} vs numpy.repeat")
+    text = long_words(200_000, rng)
+    enc = encode(make_plan("stringdict"), text)
+    out = walk(build_graph(enc), device_buffers(enc), "stringdict long words", timed=False)
+    same(out.cpu(), torch.from_numpy(text), "stringdict long words vs source")
     for chunk in NP_CHUNKS:
         for kind in NP_KINDS:
             for n in NP_NS:
@@ -304,10 +397,23 @@ def main() -> int:
         raise AssertionError(f"rule 4 did not fuse: {fused}")
     same(check(fused, env, "rule-4 tail", False).cpu(), torch.from_numpy(table[syms]),
          "rule-4 tail vs source")
+    # tables outside the packed layout (no encoder makes them) take kernel 3's
+    # three-table path; the output is garbage, the same in both versions
+    enc = encode(Plan("ans", params={"chunk_size": 1000}), ans_input("uint8", 100_003, rng))
+    env = device_buffers(enc)
+    (dec,) = build_graph(enc).stages
+    cum = env[dec.cum_tab].to(torch.int32).cpu().numpy()
+    cum[int(np.argmax(env[dec.freq_tab].to(torch.int32).cpu().numpy() > 3))] += 3
+    env[dec.cum_tab] = torch.from_numpy(cum.astype(np.uint16)).cuda()
+    if decode_table(env[dec.sym_tab], env[dec.freq_tab], env[dec.cum_tab])[1]:
+        raise AssertionError("the altered tables still fit the packed layout")
+    check(dec, env, "ans three-table path", False)
     print(f"compare: {compared} kernel launches bitwise equal to plain "
           f"({time.perf_counter() - t0:.1f} s)")
     for r in stages:
         lib = "" if r["library_ms"] is None else f" library_ms {r['library_ms']:.4f}"
+        lib += "".join(f" {k} {r[k]:.4f}" for k in ("profiler_ms",) + tuple(
+            f"ms_s{s_}" for s_ in NP_BLOCKS) if k in r)
         print(f"stage {r['kernel']:14s} {r['column']:16s} {r['stage']:28s} n {r['n']:9d} "
               f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
               f"{r['bound_ms']:.4f}{lib}")

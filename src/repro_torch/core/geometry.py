@@ -75,12 +75,15 @@ _HBM_GBPS_BY_SKU = (("H100 PCIe", 2000.0), ("H100 NVL", 3900.0), ("H100", 3350.0
 
 # Fixed per-pattern geometries for the card (no tuning yet).  FP: four loop
 # iterations of 256 threads, one element each, so a warp's loads and stores of
-# neighbouring elements are neighbouring words.  GP: one thread per output
-# element; the binary search dominates, more work per thread buys nothing.
-# NP: one chunk per thread in blocks of 64, so the ~1,500-3,000 chunks of an
-# SF-1 column spread over as many SMs as they can fill.
+# neighbouring elements are neighbouring words.  GP: four sub-tiles per block
+# of 256 threads with 16 bytes of output each (C = 4 at 4-byte outputs, 8 at
+# 2, 16 at 1), so a thread stores once per sub-tile, a sub-tile's window
+# (S*C + 2 presum entries) fits shared memory several times over per SM, and
+# one group search serves four sub-tiles (L = 1, 2 and 8 timed no faster).
+# NP: one chunk per thread in blocks of 64 (32 timed slower), so the
+# ~1,500-3,000 chunks of an SF-1 column spread over as many SMs as they can fill.
 _NATIVE: dict[str, dict[str, Geometry]] = {
-    "h100": {"fp": Geometry(4, 256, 1), "gp": Geometry(1, 256, 1),
+    "h100": {"fp": Geometry(4, 256, 1), "gp": Geometry(4, 256, 4),
              "np": Geometry(1, 64, 1)},
 }
 
@@ -104,6 +107,11 @@ def chip_from_device(device_index: int = 0, name: str = DEFAULT_CHIP) -> ChipSpe
         source=f"{p.name} (device properties); bandwidth: datasheet {sku[0]}")
 
 
-def native_config(pattern: str, chip: str = DEFAULT_CHIP) -> Geometry:
-    """The fixed geometry of ``pattern`` ("fp", "gp" or "np") on a chip."""
-    return _NATIVE[chip][pattern]
+def native_config(pattern: str, chip: str = DEFAULT_CHIP, out_width: int = 4) -> Geometry:
+    """The fixed geometry of ``pattern`` ("fp", "gp" or "np") on a chip.  For
+    "gp", ``out_width`` (bytes per output element) scales C so that a thread
+    always writes 16 bytes."""
+    geom = _NATIVE[chip][pattern]
+    if pattern == "gp":
+        geom = dataclasses.replace(geom, C=geom.C * 4 // out_width)
+    return geom

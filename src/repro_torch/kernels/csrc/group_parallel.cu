@@ -1,10 +1,10 @@
 // Kernel 2: Group-Parallel (balanced 1->N) expansion.
 //
 // Replaces src/repro/kernels/group_parallel.py:51 group_parallel_call (Pallas, TPU).
-// Output-centric: every thread produces whole output elements, so the work per
-// block is the same whatever the group sizes (the paper's load balance, §4).
-// For output i:
-//   g   = upper_bound(presum, i) - 1      binary search over the whole presum
+// Output-centric: every block produces L sub-tiles of S*C consecutive outputs,
+// so the work per block is the same whatever the group sizes (the paper's load
+// balance, §4).  For output i:
+//   g   = upper_bound(presum, i) - 1      (clamped to [0, n_groups))
 //   pos = i - presum[g]
 //   v   = values[0](g)                    IDENTITY (RLE)
 //       | values[0](g) + values[1](g)*pos AFFINE (DeltaStride), mod 2^32
@@ -13,11 +13,38 @@
 // Each value chain may hold an absorbed Fully-Parallel producer (fusion rule 2),
 // e.g. bit-packed RLE values decoded right here, never materialized.
 //
-// Bound on this card: bytes (1-4 bytes written per element, the presum and
-// value words read).  The search is log2(groups) dependent loads per element, but
-// neighbouring threads follow the same path, so those loads hit L1/L2.  The
-// reference's per-tile first-group scan and windowed search are a later
-// optimization.
+// A block, as the reference's tiles do (group_parallel.py:73-104), works on a
+// window of groups in fast memory instead of the whole presum:
+//  1. one warp finds the group of the block's first output, a 32-way search of
+//     the presum in global memory (about 5 rounds of one coalesced read for
+//     13.5M groups); no pre-pass launch and no host search.  Each later
+//     sub-tile starts from the previous one's last group, so one search serves
+//     L sub-tiles;
+//  2. per sub-tile, the block stages the presum from that group on, a row of
+//     S entries at a time, until an entry passes the sub-tile's last output
+//     (__syncthreads_count finds its last group), then evaluates the value
+//     chains once per group into shared memory (an absorbed bit-unpack, the
+//     AFFINE start and stride; for STRGATHER the word's offset
+//     offs[values[0](g)]);
+//  3. each thread owns C consecutive outputs: one binary search in the window
+//     (about 10-12 levels), then a walk forward across group boundaries;
+//  4. a thread's outputs leave in one 16-byte store (16, 8 or 4 outputs at 1,
+//     2 or 4 bytes), so a warp writes 512 contiguous bytes.  Without a tail the
+//     16 outputs are unrolled, so their loads (StringDict's 16 byte loads)
+//     are all in flight before the first is packed; a head before a 16-byte
+//     boundary, the tail at n and other C are stored element by element.
+// Counts of at least 1 (RLE and DeltaStride runs, StringDict tokens) bound a
+// sub-tile's window to S*C + 1 groups (S*C + 2 presum entries), the buffer's
+// size.  Zero counts (a hand-built stage; the plain version takes them) can
+// widen it: such a sub-tile searches for its last group and walks the presum
+// range in global memory, evaluating each group's values where it needs them.
+// The presum must be non-decreasing (counts >= 0), as searchsorted requires.
+//
+// Bound on this card: bytes (1-4 bytes written per output; the presum, value
+// and, for StringDict, word bytes read), with a few instructions per output.
+// What holds it back: the first search (dependent global rounds), the
+// per-group value chains (dependent gathers), and for StringDict one byte load
+// per output, scattered over the dictionary's words.
 #include "zf_chain.cuh"
 
 struct ZfGpArgs {
@@ -37,56 +64,244 @@ struct ZfGpArgs {
 
 static_assert(sizeof(ZfGpArgs) == 1112, "ZfGpArgs layout is shared with kernels/cuda.py");
 
-// First j in [0, len) with presum[j] > q, or len.
-__device__ __forceinline__ int64_t zf_upper_bound(const int32_t* presum, int64_t len, int64_t q) {
-  int64_t lo = 0, hi = len;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(presum[mid]) <= q) lo = mid + 1;
-    else hi = mid;
+#define ZF_GP_MAX_SMEM (96 * 1024)   // shared bytes a block's window may take
+
+// The group of output q, clamp(upper_bound(presum, q) - 1, 0, n_groups - 1),
+// found by one warp: 32 probes per round over the range [lo, hi) that holds
+// upper_bound (about 5 rounds for 13.5M groups).  Every lane returns it.
+__device__ __forceinline__ int64_t zf_find_group(const int32_t* presum, int64_t n_groups,
+                                                 int64_t q) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = n_groups + 1;
+  while (lo < hi) {   // warp-uniform
+    const int64_t len = hi - lo;
+    const int64_t p = lo + (static_cast<int64_t>(lane + 1) * len) / 33;
+    const int cnt = __popc(__ballot_sync(0xFFFFFFFFu, static_cast<int64_t>(presum[p]) <= q));
+    const int64_t lo2 = cnt ? lo + (static_cast<int64_t>(cnt) * len) / 33 + 1 : lo;
+    hi = cnt == 32 ? hi : lo + (static_cast<int64_t>(cnt + 1) * len) / 33;
+    lo = lo2;
   }
-  return lo;
+  const int64_t g = lo - 1;
+  return g < 0 ? 0 : (g >= n_groups ? n_groups - 1 : g);
 }
 
-__device__ __forceinline__ uint32_t zf_expand(const ZfGpArgs& a, int64_t i) {
-  int64_t g = zf_upper_bound(a.presum, a.n_groups + 1, i) - 1;
-  g = g < 0 ? 0 : (g >= a.n_groups ? a.n_groups - 1 : g);
-  const int64_t pos = i - static_cast<int64_t>(a.presum[g]);
-  uint32_t v = zf_eval(a.values[0], g);
-  if (a.map_kind == ZF_AFFINE) {
-    v += zf_eval(a.values[1], g) * static_cast<uint32_t>(pos);  // uint32: wraps
-  } else if (a.map_kind == ZF_STRGATHER) {
-    const int64_t w = zf_jnp_index(static_cast<int32_t>(v), a.offs.n);
-    const int64_t k = static_cast<int32_t>(zf_read(a.offs.a, a.offs.elem, w)) + pos;
-    v = zf_read(a.chars.a, a.chars.elem, zf_jnp_index(k, a.chars.n));
-  }
-  return zf_transforms(a.tail, 0, v);
+// values[0] at group g, and for STRGATHER the offset of the word it names.
+template <int kMap>
+__device__ __forceinline__ uint32_t zf_group_value(const ZfGpArgs& a, int64_t g) {
+  const uint32_t v = zf_eval(a.values[0], g);
+  if (kMap != ZF_STRGATHER) return v;
+  return zf_read(a.offs.a, a.offs.elem, zf_jnp_index(static_cast<int32_t>(v), a.offs.n));
 }
 
-__global__ void zf_group_parallel_kernel(const ZfGpArgs a) {
-  const int64_t S = blockDim.x;
-  const int64_t block0 = static_cast<int64_t>(blockIdx.x) * a.L * S * a.C;
-  for (int l = 0; l < a.L; ++l) {
-    const int64_t t0 = block0 + (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
-    for (int c = 0; c < a.C; ++c) {
-      const int64_t i = t0 + c;
-      if (i < a.n) zf_write(a.out, a.out_width, i, zf_expand(a, i));
+// A thread's walk over the groups m = g_hi - g_lo + 1 of its block's window:
+// ps[k] = presum[g_lo + k] for k <= m, in shared memory (kShared, with the
+// per-group values v0/v1 beside it) or in global memory (values evaluated here).
+template <int kMap, bool kShared>
+struct ZfCursor {
+  const ZfGpArgs& a;
+  const int32_t* ps;
+  const uint32_t* v0;
+  const uint32_t* v1;
+  int64_t g_lo, m;
+  int64_t k = 0, start = 0, next = 0, vk = -1;
+  uint32_t val0 = 0, val1 = 0;
+
+  __device__ __forceinline__ void load() {
+    start = ps[k];
+    next = k + 1 < m ? static_cast<int64_t>(ps[k + 1]) : INT64_MAX;
+  }
+  // The group of output i: the last k with ps[k] <= i, clamped to [0, m).
+  __device__ __forceinline__ void seek(int64_t i) {
+    int64_t lo = 0, hi = m + 1;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (static_cast<int64_t>(ps[mid]) <= i) lo = mid + 1;
+      else hi = mid;
     }
+    k = lo - 1 < 0 ? 0 : (lo - 1 >= m ? m - 1 : lo - 1);
+    load();
+  }
+  // map(values at the group of i, pos); the caller applies the tail.
+  __device__ __forceinline__ uint32_t mapped(int64_t i) {
+    while (next <= i) {
+      ++k;
+      load();
+    }
+    if (vk != k) {
+      vk = k;
+      if (kShared) {
+        val0 = v0[k];
+        if (kMap == ZF_AFFINE) val1 = v1[k];
+      } else {
+        val0 = zf_group_value<kMap>(a, g_lo + k);
+        if (kMap == ZF_AFFINE) val1 = zf_eval(a.values[1], g_lo + k);
+      }
+    }
+    const int64_t pos = i - start;
+    uint32_t v = val0;
+    if (kMap == ZF_AFFINE) {
+      v += val1 * static_cast<uint32_t>(pos);  // uint32: wraps
+    } else if (kMap == ZF_STRGATHER) {
+      const int64_t j = static_cast<int64_t>(static_cast<int32_t>(val0)) + pos;
+      v = zf_read(a.chars.a, a.chars.elem, zf_jnp_index(j, a.chars.n));
+    }
+    return v;
+  }
+};
+
+// Outputs [i0, i0 + nc) of one thread.  A full, aligned 16-byte group with no
+// tail (every main-path stage) is unrolled: its K values (for STRGATHER, K
+// independent byte loads) are all requested before the first is packed.
+// Anything else goes through zf_store_packed one output at a time.
+template <int W, class Cursor>
+__device__ __forceinline__ void zf_emit(const ZfGpArgs& a, Cursor& cur, int64_t i0,
+                                        int32_t nc) {
+  constexpr int K = 16 / W;
+  typename ZfOut<W>::T* o = static_cast<typename ZfOut<W>::T*>(a.out) + i0;
+  cur.seek(i0);
+  if (nc == K && a.tail.n_ops == 0 && (reinterpret_cast<uintptr_t>(o) & 15u) == 0) {
+    uint32_t v[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = cur.mapped(i0 + j);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < K; ++j) zf_pack<W>(w, j, v[j]);
+    *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+  int64_t i = i0;
+  zf_store_packed<W, false>(o, nc, [&] { return zf_transforms(a.tail, 0, cur.mapped(i++)); });
+}
+
+// A block covers L sub-tiles of S*C consecutive outputs, one after the other.
+// `cap`: groups the shared window holds (S*C + 1, or less where that exceeds
+// ZF_GP_MAX_SMEM); dynamic shared memory holds ps[cap + 1], v0[cap] (, v1[cap]).
+template <int W, int kMap>
+__global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
+  extern __shared__ int32_t smem[];
+  __shared__ int64_t win;
+  int32_t* ps = smem;
+  uint32_t* v0 = reinterpret_cast<uint32_t*>(ps + cap + 1);
+  uint32_t* v1 = v0 + cap;
+  const int64_t S = blockDim.x;
+  const int64_t sub = S * a.C;
+  const int64_t o_begin = static_cast<int64_t>(blockIdx.x) * a.L * sub;
+  if (threadIdx.x < 32) {
+    const int64_t g = zf_find_group(a.presum, a.n_groups, o_begin);
+    if (threadIdx.x == 0) win = g;
+  }
+  __syncthreads();
+  // gb: a group at or before the group of the sub-tile's first output, with
+  // presum[gb] <= that output unless gb == 0: the search's answer for the first
+  // sub-tile, the previous sub-tile's last group after it.
+  int64_t gb = win;
+  for (int l = 0; l < a.L; ++l) {
+    const int64_t o0 = o_begin + l * sub;
+    if (o0 >= a.n) break;
+    const int64_t o_last = (o0 + sub < a.n ? o0 + sub : a.n) - 1;
+    // Stage presum[gb ..] a row of S entries at a time until an entry exceeds
+    // o_last; cnt counts those that do not, so the group of o_last is
+    // gb + cnt - 1 (clamped).  No search.
+    int64_t cnt = 0, rows = 0;
+    for (bool more = true; more; rows += S) {
+      const int64_t k = rows + threadIdx.x;
+      int le = 0;
+      if (gb + k <= a.n_groups) {
+        const int32_t p = a.presum[gb + k];
+        if (k <= cap) ps[k] = p;
+        le = static_cast<int64_t>(p) <= o_last;
+      }
+      const int c = __syncthreads_count(le);
+      cnt += c;
+      more = c == S && gb + rows + S <= a.n_groups && rows + S <= cap;
+    }
+    int64_t g_hi = gb + cnt - 1;
+    g_hi = g_hi < 0 ? 0 : (g_hi >= a.n_groups ? a.n_groups - 1 : g_hi);
+    int64_t m = g_hi - gb + 1;
+    const bool staged = m <= cap && m < rows;
+    if (staged) {
+      for (int64_t k = threadIdx.x; k < m; k += S) {
+        v0[k] = zf_group_value<kMap>(a, gb + k);
+        if (kMap == ZF_AFFINE) v1[k] = zf_eval(a.values[1], gb + k);
+      }
+    } else {
+      // wider than the buffer (zero counts): the rows stopped early, so
+      // search for the group of o_last and walk [gb, g_hi] in global memory
+      if (threadIdx.x < 32) {
+        const int64_t g = zf_find_group(a.presum, a.n_groups, o_last);
+        if (threadIdx.x == 0) win = g;
+      }
+      __syncthreads();
+      g_hi = win;
+      m = g_hi - gb + 1;
+    }
+    __syncthreads();
+    const int64_t i0 = o0 + threadIdx.x * a.C;
+    if (i0 < a.n) {
+      const int32_t nc = static_cast<int32_t>(a.n - i0 < a.C ? a.n - i0 : a.C);
+      if (staged) {
+        ZfCursor<kMap, true> cur{a, ps, v0, v1, gb, m};
+        zf_emit<W>(a, cur, i0, nc);
+      } else {
+        ZfCursor<kMap, false> cur{a, a.presum + gb, nullptr, nullptr, gb, m};
+        zf_emit<W>(a, cur, i0, nc);
+      }
+    }
+    gb = g_hi;
+    __syncthreads();   // the window is rewritten for the next sub-tile
+  }
+}
+
+template <int W, int kMap>
+static cudaError_t zf_gp_launch(const ZfGpArgs& a, unsigned grid, int32_t threads,
+                                cudaStream_t stream) {
+  constexpr int64_t per_group = kMap == ZF_AFFINE ? 12 : 8;   // presum, values[0] (, [1])
+  const int64_t fit = (ZF_GP_MAX_SMEM - 4) / per_group;
+  // a sub-tile of outputs touches at most `sub` groups when counts are >= 1,
+  // and its window starts at most one group earlier (the previous sub-tile's last)
+  const int64_t sub = static_cast<int64_t>(threads) * a.C;
+  const int64_t cap = sub + 1 < fit ? sub + 1 : fit;
+  const size_t smem = static_cast<size_t>(4 + cap * per_group);
+  if (smem > 48 * 1024 - 64) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        zf_group_parallel_kernel<W, kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  zf_group_parallel_kernel<W, kMap><<<grid, threads, smem, stream>>>(a, cap);
+  return cudaGetLastError();
+}
+
+template <int W>
+static cudaError_t zf_gp_map(const ZfGpArgs& a, unsigned grid, int32_t threads,
+                             cudaStream_t s) {
+  switch (a.map_kind) {
+    case ZF_IDENTITY: return zf_gp_launch<W, ZF_IDENTITY>(a, grid, threads, s);
+    case ZF_AFFINE: return zf_gp_launch<W, ZF_AFFINE>(a, grid, threads, s);
+    case ZF_STRGATHER: return zf_gp_launch<W, ZF_STRGATHER>(a, grid, threads, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" int zf_group_parallel(const ZfGpArgs* args, int32_t threads, int32_t device,
                                  void* stream) {
   if (args->n <= 0) return 0;
-  if (args->n_groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (args->n_groups <= 0 || threads < 32)   // warp 0 searches the window
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tile = static_cast<int64_t>(args->L) * threads * args->C;
   const int64_t grid = (args->n + tile - 1) / tile;
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  zf_group_parallel_kernel<<<static_cast<unsigned>(grid), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned g = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (args->out_width) {
+    case 1: err = zf_gp_map<1>(*args, g, threads, s); break;
+    case 2: err = zf_gp_map<2>(*args, g, threads, s); break;
+    case 4: err = zf_gp_map<4>(*args, g, threads, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 ZF_EXPORT_HELPERS(ZfGpArgs)

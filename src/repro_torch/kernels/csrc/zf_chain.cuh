@@ -8,7 +8,8 @@
 // Buffers hold 8-, 16- or 32-bit elements: an op's ``elem`` gives the width of
 // its buffer ``a`` in bytes, negative for a signed narrow type, and a read
 // zero- or sign-extends the element to a word.  An output of 1, 2 or 4 bytes
-// per element takes the word's low bytes (``zf_write``).
+// per element takes the word's low bytes (``zf_write``, or 16 bytes at a time
+// through ``zf_store_packed``).
 #pragma once
 
 #include <cstdint>
@@ -134,6 +135,72 @@ __device__ __forceinline__ uint32_t zf_transforms(const ZfChain& ch, int first, 
 
 __device__ __forceinline__ uint32_t zf_eval(const ZfChain& ch, int64_t i) {
   return zf_transforms(ch, 1, zf_source(ch.ops[0], i));
+}
+
+// Element type of a W-byte output.
+template <int W> struct ZfOut;
+template <> struct ZfOut<1> { using T = uint8_t; };
+template <> struct ZfOut<2> { using T = uint16_t; };
+template <> struct ZfOut<4> { using T = uint32_t; };
+
+// Shift the low W bytes of v into the top of a 16-byte accumulator, so that
+// after 16 / W shifts acc holds the outputs in address order (no dynamic
+// register indexing, so the loop need not be unrolled).
+template <int W>
+__device__ __forceinline__ void zf_shift_in(uint4& acc, uint32_t v) {
+  if (W == 4) {
+    acc = make_uint4(acc.y, acc.z, acc.w, v);
+  } else {
+    constexpr int B = 8 * W;
+    const uint32_t top = W == 1 ? v << 24 : v << 16;
+    acc = make_uint4(acc.x >> B | acc.y << (32 - B), acc.y >> B | acc.z << (32 - B),
+                     acc.z >> B | acc.w << (32 - B), acc.w >> B | top);
+  }
+}
+
+// Place output j (of 16 / W) of a 16-byte group into its word: static
+// indices only, so w stays in registers.
+template <int W>
+__device__ __forceinline__ void zf_pack(uint32_t (&w)[4], int j, uint32_t v) {
+  if (W == 1) w[j >> 2] |= (v & 0xFFu) << (8 * (j & 3));
+  else if (W == 2) w[j >> 1] |= (v & 0xFFFFu) << (16 * (j & 1));
+  else w[j] = v;
+}
+
+// Store n outputs of `next()` at o: element by element up to the first 16-byte
+// boundary and after the last one, 16-byte stores between.  kUnroll unrolls
+// each 16-byte group (straight-line code the scheduler can overlap); without
+// it `next` has one call site, so a large body (a tail chain) is compiled once.
+template <int W, bool kUnroll, class Next>
+__device__ __forceinline__ void zf_store_packed(typename ZfOut<W>::T* o, int64_t n,
+                                                Next&& next) {
+  using T = typename ZfOut<W>::T;
+  constexpr int K = 16 / W;
+  int64_t head = static_cast<int64_t>(((16u - (reinterpret_cast<uintptr_t>(o) & 15u)) & 15u) / W);
+  head = head < n ? head : n;
+  const int64_t vend = head + (n - head) / K * K;
+  if (kUnroll) {
+    int64_t c = 0;
+    for (; c < head; ++c) o[c] = static_cast<T>(next());
+    for (; c < vend; c += K) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int j = 0; j < K; ++j) zf_pack<W>(w, j, next());
+      *reinterpret_cast<uint4*>(o + c) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    for (; c < n; ++c) o[c] = static_cast<T>(next());
+    return;
+  }
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t c = 0; c < n; ++c) {
+    const uint32_t v = next();
+    if (c < head || c >= vend) {
+      o[c] = static_cast<T>(v);
+    } else {
+      zf_shift_in<W>(acc, v);
+      if ((c - head) % K == K - 1) *reinterpret_cast<uint4*>(o + c + 1 - K) = acc;
+    }
+  }
 }
 
 // The error helpers every library exports (kernels/cuda.py reads them).

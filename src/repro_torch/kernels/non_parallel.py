@@ -2,12 +2,15 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/non_parallel.py:29
 non_parallel_call``.  One thread decodes one chunk: ``chunk_size`` dependent
-steps on a 32-bit state, with the alphabet tables in shared memory, striped
-uint16 stream words read only when the state renormalises, and each symbol sent
-through the stage's ``tail`` (fusion rule 4) before it is stored.  The CUDA
-source is ``csrc/non_parallel.cu`` (built for ``sm_90a``); what bounds it on the
-card is noted there.  The plain version is
-``repro_torch.kernels.ref.non_parallel_torch``.
+steps on a 32-bit state.  Each block packs the three alphabet tables into one
+32-bit entry per slot in shared memory (``decode_table`` gives the layout), so a
+step is one shared load and a multiply-add; each lane keeps its next 16 stream
+words requested through a ring in shared memory (``cp.async``), so no global
+load sits on the chain from state to state; and a lane stores 16 bytes of
+symbols at a time after sending each through the stage's ``tail`` (fusion
+rule 4).  What bounds it is the chain: ``chunk_size`` steps of a shared load and
+a few integer operations.  The CUDA source is ``csrc/non_parallel.cu`` (built
+for ``sm_90a``); the plain version is ``repro_torch.kernels.ref.non_parallel_torch``.
 """
 from __future__ import annotations
 
@@ -59,3 +62,18 @@ def non_parallel(stage: NonParallel, env: dict[str, torch.Tensor],
         KERNEL.launch(args, geom.S, device)
     out_dt = ref.torch_dtype(stage.out_dtype)
     return out if out.dtype == out_dt else out.to(out_dt)
+
+
+def decode_table(sym: torch.Tensor, freq: torch.Tensor,
+                 cum: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """The kernel's packed decode table, one 32-bit entry per slot (as int64):
+    ``sym | (freq[sym] - 1) << 8 | (slot - cum[sym]) << 20``, and whether the
+    tables fit that layout (``freq`` in 1..4096 and ``slot - cum`` in 0..4095, as
+    every encoder table does).  A block whose tables do not fit decodes with
+    the three tables instead, so the output is the same either way."""
+    s = sym.to(torch.int64)
+    slot = torch.arange(s.numel(), dtype=torch.int64, device=s.device)
+    f1 = freq.to(torch.int64)[s] - 1
+    bias = slot - cum.to(torch.int64)[s]
+    fits = bool(((f1 >= 0) & (f1 < 4096) & (bias >= 0) & (bias < 4096)).all())
+    return s | (f1 & 0xFFF) << 8 | (bias & 0xFFF) << 20, fits

@@ -12,15 +12,18 @@ import torch
 from repro_torch.core.compiler import build_graph, compile_blob, device_buffers
 from repro_torch.core.fusion import fuse
 from repro_torch.core.geometry import Geometry
-from repro_torch.core.patterns import BufSpec, FullyParallel, gather, load, load_bytes
+from repro_torch.core.geometry import native_config
+from repro_torch.core.patterns import (AFFINE, IDENTITY, STRGATHER, BufSpec,
+                                       FullyParallel, GroupParallel, gather, load,
+                                       load_bytes)
 from repro_torch.core.plan import Plan, encode, make_plan
 from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
 from repro_torch.data.tpch import generate
 from repro_torch.kernels import ref
 from repro_torch.kernels.fully_parallel import KERNEL as FP, fully_parallel
-from repro_torch.kernels.group_parallel import KERNEL as GP, group_parallel
-from repro_torch.kernels.non_parallel import KERNEL as NP, non_parallel
+from repro_torch.kernels.group_parallel import KERNEL as GP, group_parallel, tile_windows
+from repro_torch.kernels.non_parallel import KERNEL as NP, decode_table, non_parallel
 
 pytestmark = pytest.mark.cuda
 
@@ -149,16 +152,19 @@ def ans_sweep_input(kind: str, n: int, rng) -> np.ndarray:
         return rng.normal(0, 1e3, n).astype(np.float32)
     if kind == "int32":
         return rng.integers(-2**31, 2**31, n).astype(np.int32)
+    if kind == "uniform256":
+        return rng.integers(0, 256, n).astype(np.uint8)
     return rng.integers(0, 5, n).astype(np.uint8)
 
 
-@pytest.mark.parametrize("chunk", [256, 4096])
-@pytest.mark.parametrize("kind", ["uint8", "int32", "float32", "skewed", "one-symbol"])
+@pytest.mark.parametrize("chunk", [256, 1000, 4096])
+@pytest.mark.parametrize("kind", ["uint8", "int32", "float32", "skewed", "one-symbol",
+                                  "uniform256"])
 @pytest.mark.parametrize("n", [1, 4096 * 3, 1_000_003])
 def test_ans_kernel_matches_plain(kind, chunk, n, gpu):
     """Kernel 3 (and kernel 1's BYTES source for wider items) against the plain
     versions, and the source, bit for bit; n = 1_000_003 is not a multiple of
-    either chunk size."""
+    any chunk size, and 1000 is not a multiple of a 16-byte store."""
     arr = ans_sweep_input(kind, n, np.random.default_rng(n + chunk))
     enc = encode(Plan("ans", params={"chunk_size": chunk}), arr)
     before = NP.launches
@@ -269,3 +275,80 @@ def test_bytes_source_of_the_fp_kernel(gpu):
         want = raw.cpu().numpy().view({2: np.int16, 4: np.uint32, 8: np.int64}[itemsize])
         want = want.view(out_dtype) if itemsize == 4 else want.astype(out_dtype)
         assert np.array_equal(bits(got.cpu()).numpy(), bits(torch.from_numpy(want)).numpy())
+
+
+# ------------------------------------------------ kernel 2's windows, kernel 3's tables
+
+def _gp_counts(case: str, rng) -> np.ndarray:
+    tile = native_config("gp").S * native_config("gp").C
+    if case == "zero-counts":
+        counts = rng.integers(1, 4, 300_000)
+        counts[rng.random(counts.size) < 0.3] = 0
+        counts[100_000:180_000] = 0
+        return counts
+    if case == "all-ones":
+        return np.ones(500_003, np.int64)
+    return np.concatenate([rng.integers(1, 5, 2000), [40 * tile], rng.integers(1, 5, 2000)])
+
+
+@pytest.mark.parametrize("map_kind", [IDENTITY, AFFINE, STRGATHER])
+@pytest.mark.parametrize("case", ["zero-counts", "all-ones", "long-run"])
+def test_gp_windows(case, map_kind, gpu):
+    """Zero-count groups overflow a block's shared window (the kernel's global
+    path); all counts 1 fill a window exactly; one run spans many tiles; each
+    through the three maps."""
+    rng = np.random.default_rng(9)
+    counts = _gp_counts(case, rng)
+    presum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    names = {IDENTITY: ("vals",), AFFINE: ("vals", "strides"),
+             STRGATHER: ("words",)}[map_kind]
+    env = {"presum": torch.from_numpy(presum).to(gpu)}
+    for k in ("vals", "strides"):
+        env[k] = torch.from_numpy(rng.integers(-2**31, 2**31, counts.size)
+                                  .astype(np.int32)).to(gpu)
+    env["words"] = torch.from_numpy(rng.integers(0, 1000, counts.size)
+                                    .astype(np.int32)).to(gpu)
+    env["chars"] = torch.from_numpy(rng.integers(0, 256, 50_000).astype(np.uint8)).to(gpu)
+    env["offs"] = torch.from_numpy(np.sort(rng.integers(0, 49_000, 1001))
+                                   .astype(np.int32)).to(gpu)
+    tile = native_config("gp").S * native_config("gp").C
+    windows = tile_windows(env["presum"], int(presum[-1]), tile)
+    assert {"zero-counts": int(windows.max()) > tile, "all-ones": int(windows.max()) == tile,
+            "long-run": int((windows == 1).sum()) >= 38}[case]
+    st = GroupParallel(presum="presum", value_inputs=names,
+                       value_specs=(BufSpec("tile"),) * len(names),
+                       values=tuple((load(k),) for k in names), map_kind=map_kind,
+                       extra_inputs=("chars", "offs") if map_kind == STRGATHER else (),
+                       out_dtype=np.uint8 if map_kind == STRGATHER else np.int32,
+                       out="out", n_out=int(presum[-1]), n_groups=counts.size, name=case)
+    before = GP.launches
+    got = group_parallel(st, env)
+    assert GP.launches == before + 1
+    assert torch.equal(got, ref.group_parallel_torch(st, env))
+    if map_kind == IDENTITY:
+        want = np.repeat(env["vals"].cpu().numpy(), counts)
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def test_stringdict_words_longer_than_a_thread(gpu):
+    rng = np.random.default_rng(10)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    lens = rng.integers(17, 65, 50_000)
+    text = rng.choice(letters, int(lens.sum()) + lens.size)
+    text[np.cumsum(lens + 1) - 1] = ord(" ")
+    text = text.astype(np.uint8)
+    got, plain = decode_both(encode(make_plan("stringdict"), text), gpu)
+    assert torch.equal(got, plain) and torch.equal(got, torch.from_numpy(text))
+
+
+def test_ans_three_table_path(gpu):
+    """Tables outside the packed layout decode as the plain version does."""
+    arr = np.random.default_rng(11).integers(0, 5, 100_003).astype(np.uint8)
+    enc = encode(Plan("ans", params={"chunk_size": 1000}), arr)
+    env = device_buffers(enc, gpu)
+    (st,) = build_graph(enc).stages
+    cum = env[st.cum_tab].to(torch.int32).cpu().numpy()
+    cum[int(np.argmax(env[st.freq_tab].to(torch.int32).cpu().numpy() > 3))] += 3
+    env[st.cum_tab] = torch.from_numpy(cum.astype(np.uint16)).to(gpu)
+    assert not decode_table(env[st.sym_tab], env[st.freq_tab], env[st.cum_tab])[1]
+    assert torch.equal(non_parallel(st, env), ref.non_parallel_torch(st, env))

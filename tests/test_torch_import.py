@@ -95,14 +95,19 @@ def test_missing_nvcc_is_an_error(tmp_path, monkeypatch):
 
 
 def test_abi_structs_match_the_cuda_layout():
-    # static_asserts in csrc/zf_chain.cuh and the .cu files pin the same sizes
+    """Every ``static_assert(sizeof(T) == N)`` in ``csrc/`` names a struct that
+    ``kernels/cuda.py`` mirrors with ``ctypes`` at the same size, so a change of
+    the argument structs on one side cannot drift from the other."""
     import ctypes
+    import re
 
-    assert ctypes.sizeof(cuda.ZfOp) == 40
-    assert ctypes.sizeof(cuda.ZfChain) == 328
-    assert ctypes.sizeof(cuda.ZfFpArgs) == 360
-    assert ctypes.sizeof(cuda.ZfGpArgs) == 1112
-    assert ctypes.sizeof(cuda.ZfNpArgs) == 416
+    sizes = {}
+    for f in sorted(cuda.CSRC.glob("*.cu*")):
+        for name, n in re.findall(r"static_assert\(\s*sizeof\((\w+)\)\s*==\s*(\d+)",
+                                  f.read_text()):
+            sizes[name] = int(n)
+    assert set(sizes) == {"ZfOp", "ZfChain", "ZfFpArgs", "ZfGpArgs", "ZfNpArgs"}
+    assert {k: ctypes.sizeof(getattr(cuda, k)) for k in sizes} == sizes
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
