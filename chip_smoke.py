@@ -16,9 +16,15 @@ non-zero before the final line:
      producers inside rule-5 Aux stages included) on the same inputs, timed
      beside their plain versions (the plain rANS decode, a Python loop of
      ``chunk_size`` steps, with fewer reps) and, for RLE expansion,
-     ``torch.repeat_interleave``; each GP and NP launch also by
-     ``torch.profiler``, and kernel 3 at blocks of 32 and 64 threads; an FP
-     bit-width x length sweep; GP on skewed run lengths, on zero-count groups
+     ``torch.repeat_interleave`` (for byte-reassemble, the bytes viewed as
+     32-bit words and cloned); each launch also by ``torch.profiler``, and
+     kernel 3 at blocks of 32 and 64 threads; an FP bit-width x length sweep;
+     kernel 1 at every bit width 0-32 around its tile, on packed buffers cut
+     short (the clamp) at every 16-byte misalignment, at bit widths above 32
+     (its per-element path), on uint8 and uint16 gathers, on gathers from a
+     large table, from a uint8 table at an odd address and behind another
+     transform, on BYTES items of 1-5 bytes, and on LOAD -> SPAN and UNPACK ->
+     GATHER -> UNZIGZAG; GP on skewed run lengths, on zero-count groups
      whose window overflows a block's shared buffer, on all counts 1, on one
      run longer than many tiles and on StringDict words longer than a
      thread's 16 bytes; an rANS sweep (chunk sizes 256, 1000 and 4096; uint8,
@@ -145,21 +151,35 @@ def long_words(n_words: int, rng) -> np.ndarray:
     return text.astype(np.uint8)
 
 
-def profiled_ms(fn, kernel: str, flush: torch.Tensor, reps: int = 5) -> float:
-    """Median device time of ``kernel``'s launches in ``reps`` calls of fn, as
-    ``torch.profiler`` reads it (no launch latency, unlike CUDA events)."""
-    fn()
+def profiled_ms(calls, flush: torch.Tensor, reps: int = 5) -> list[float]:
+    """Median device time of each ``(fn, kernel)`` of ``calls`` over ``reps``
+    calls of fn, as ``torch.profiler`` reads it (no launch latency, unlike CUDA
+    events).  All of them run under one profiler session (a process's later
+    sessions can miss the card's events), and a kernel's launches are matched
+    to the calls in launch order, so each fn must launch its kernel once."""
+    for fn, _ in calls:
+        fn()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
+        for fn, _ in calls:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
         torch.cuda.synchronize()
-    ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if len(ts) != reps:
-        raise AssertionError(f"profiler saw {len(ts)} launches of {kernel}, not {reps}")
-    return float(np.median(ts))
+    gpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {k: [e.time_range.elapsed_us() / 1e3
+                for e in sorted((e for e in gpu if k in e.name),
+                                key=lambda e: e.time_range.start)]
+            for k in {k for _, k in calls}}
+    out = []
+    for fn, k in calls:
+        ts, seen[k] = seen[k][:reps], seen[k][reps:]
+        if len(ts) != reps:
+            raise AssertionError(f"profiler missed launches of {k}")
+        out.append(float(np.median(ts)))
+    if any(seen.values()):
+        raise AssertionError("profiler saw more launches than were made")
+    return out
 
 
 def main() -> int:
@@ -180,10 +200,11 @@ def main() -> int:
     from repro_torch.core.executor import StreamingExecutor
     from repro_torch.core.geometry import Geometry, chip_from_device, native_config
     from repro_torch.core.fusion import fuse
-    from repro_torch.core.patterns import (AFFINE, IDENTITY, LOAD, STRGATHER, Aux,
-                                           BufSpec, FullyParallel,
-                                           GroupParallel, NonParallel, gather, load,
-                                           stage_inputs)
+    from repro_torch.algos.bitpack import pack_np
+    from repro_torch.core.patterns import (AFFINE, BYTES, IDENTITY, LOAD, STRGATHER,
+                                           Aux, BufSpec, FullyParallel, GroupParallel,
+                                           NonParallel, gather, load, load_bytes, span,
+                                           stage_inputs, unpack, unzigzag)
     from repro_torch.core.plan import Encoded, Plan, encode, make_plan
     from repro_torch.data.columns import TABLE2_PLANS
     from repro_torch.data.loader import ColumnPipeline
@@ -210,7 +231,10 @@ def main() -> int:
     cuda.build(libs)
     for lib in libs:
         lib.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {FP.path().parent}")
+    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs
+                     if lib.build_s is not None)
+    print(f"build: {time.perf_counter() - t0:.2f} s ({built or 'cached'}) -> "
+          f"{FP.path().parent}")
     for lib in libs:
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -231,6 +255,7 @@ def main() -> int:
     err = {k: 0.0 for k in KERNELS}
     compared = {k: 0 for k in KERNELS}
     stages = []
+    profiled = []   # (record, fn, kernel) of each timed stage, profiled at once
 
     def check(st, env, col, timed):
         """Kernel vs plain on one FP/GP/NP stage; env holds plain-version inputs."""
@@ -256,9 +281,7 @@ def main() -> int:
                    "ms": timer.ms(lambda: kfn(st, env)),
                    "plain_ms": timer.ms(lambda: pfn(st, env), plain_reps),
                    "library_ms": None}
-            if kname != "fully_parallel":
-                rec["profiler_ms"] = profiled_ms(lambda: kfn(st, env), f"zf_{kname}",
-                                                 timer.flush)
+            profiled.append((rec, lambda: kfn(st, env), f"zf_{kname}"))
             if kname == "non_parallel":
                 for s_ in NP_BLOCKS:
                     rec[f"ms_s{s_}"] = timer.ms(lambda: kfn(st, env, Geometry(1, s_, 1)))
@@ -277,6 +300,13 @@ def main() -> int:
                                                     output_size=st.n_out))
                 same(torch.repeat_interleave(vals, counts, output_size=st.n_out)
                      .to(plain.dtype), plain, f"{col}:{st.name} repeat_interleave")
+            if (isinstance(st, FullyParallel) and len(st.chain) == 1
+                    and st.chain[0].kind == BYTES and st.chain[0].imm == 4
+                    and plain.element_size() == 4):
+                raw = env[st.chain[0].bufs[0]][:4 * st.n_out]
+                rec["library_ms"] = timer.ms(lambda: raw.view(torch.int32).clone())
+                same(raw.view(torch.int32).clone().view(plain.dtype), plain,
+                     f"{col}:{st.name} view-and-clone")
             stages.append(rec)
         return plain
 
@@ -294,6 +324,10 @@ def main() -> int:
     t0 = time.perf_counter()
     for col in columns:
         walk(pipe.executor.graph(col), device_buffers(pipe.encoded(col)), col)
+    for (rec, _, _), ms in zip(profiled, profiled_ms([c[1:] for c in profiled],
+                                                      timer.flush)):
+        rec["profiler_ms"] = ms
+    profiled = None
     rng = np.random.default_rng(args.seed)
     for bw in FP_BWS:
         for n in FP_NS:
@@ -303,6 +337,81 @@ def main() -> int:
             out = walk(build_graph(enc), device_buffers(enc), f"sweep bw={bw} n={n}",
                        timed=False)
             same(out.cpu(), torch.from_numpy(arr), f"sweep bw={bw} n={n} vs source")
+    # kernel 1's paths, each case counted on the compare line
+    fp_tile = native_config("fp").tile
+    fp_cases: dict[str, int] = {}
+
+    def fp_case(label, chain, inputs, env, n, out_dtype=np.int32):
+        st = FullyParallel(chain=chain, inputs=inputs,
+                           specs=tuple(BufSpec("full") for _ in inputs), out="o",
+                           n_out=n, out_dtype=out_dtype, elementwise=False, name=label)
+        fp_cases[label] = fp_cases.get(label, 0) + 1
+        return check(st, env, f"fp {label}", False)
+
+    def packed(bw, n, cut=0, offset=0):
+        """Bit-packed values of bw bits, ``cut`` words dropped from the end, the
+        buffer ``offset`` words into its allocation; the env and the values."""
+        vals = rng.integers(0, 1 << bw, n, dtype=np.int64) if bw else np.zeros(n, np.int64)
+        words = (pack_np(vals, bw) if bw else np.zeros(2, np.uint32))
+        words = words[:max(1, words.size - cut)].view(np.int32)
+        buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), words])).cuda()
+        base = int(rng.integers(-2**31, 2**31))
+        env = {"p": buf[offset:], "bw": torch.tensor([bw], dtype=torch.int32).cuda(),
+               "base": torch.tensor([base], dtype=torch.int32).cuda()}
+        return env, (vals + base + 2**31) % 2**32 - 2**31
+
+    unp, unp_in = (unpack("p", "bw", "base"),), ("p", "bw", "base")
+    for bw in range(33):
+        for n in (1, 31, 32, 127, 128, fp_tile - 1, fp_tile, fp_tile + 1, 1_000_003):
+            env, want = packed(bw, n)
+            got = fp_case("bw 0-32", unp, unp_in, env, n)
+            if not np.array_equal(got.cpu().numpy().astype(np.int64), want):
+                raise AssertionError(f"fp bw={bw} n={n}: plain differs from the source")
+    for bw in (1, 7, 13, 31, 32):
+        for n in (127, fp_tile + 1, 2 * fp_tile + 5):
+            for cut in (1, 2, 9, 10**9):          # the guard word, then more
+                for offset in range(4):           # every 16-byte misalignment
+                    fp_case("short buffer", unp, unp_in, packed(bw, n, cut, offset)[0], n)
+    for bw in (33, 40, 64, 100):
+        env = packed(31, 300_001)[0]
+        env["bw"] = torch.tensor([bw], dtype=torch.int32).cuda()
+        fp_case("bw > 32", unp, unp_in, env, 300_001)
+    n = 1_000_003
+    env = packed(9, n)[0]
+    env["x"] = torch.from_numpy(rng.integers(-5, 600, n).astype(np.int16)).cuda()
+    for dt in (np.uint8, np.uint16):
+        env["t"] = torch.from_numpy(rng.integers(0, np.iinfo(dt).max + 1, 513)
+                                    .astype(dt)).cuda()
+        fp_case(f"{np.dtype(dt).name} gather", unp + (gather("t"),), unp_in + ("t",),
+                env, n, dt)
+        fp_case(f"{np.dtype(dt).name} gather", (load("x"), gather("t")), ("x", "t"),
+                env, n, dt)
+    raw = torch.from_numpy(rng.integers(0, 256, 5 * 300_007 + 8).astype(np.uint8)).cuda()
+    for itemsize in range(1, 6):
+        for offset in range(4):
+            for m in (1, 31, 300_007):
+                for dt in ((np.int32, np.uint32, np.float32) if itemsize == 4
+                           else (np.int32,)):
+                    fp_case("bytes 1-5", (load_bytes("b", itemsize),), ("b",),
+                            {"b": raw[offset:offset + m * itemsize]}, m, dt)
+    env["t"] = torch.from_numpy(rng.integers(-2**31, 2**31, 2048).astype(np.int32)).cuda()
+    env["offs"] = torch.from_numpy(np.sort(rng.integers(0, 10**7, 5000))
+                                   .astype(np.int32)).cuda()
+    fp_case("unpack-gather-unzigzag", unp + (gather("t"), unzigzag()), unp_in + ("t",),
+            env, n)
+    raw8 = torch.from_numpy(rng.integers(0, 256, 4000).astype(np.uint8)).cuda()
+    env["big"] = torch.from_numpy(rng.integers(-2**31, 2**31, 5000).astype(np.int32)).cuda()
+    env["u8"] = raw8[3:3 + 1001]              # odd address, not whole words
+    for chain in ((gather("big"),), (gather("u8"),), (unzigzag(), gather("t")),
+                  (gather("big"), unzigzag(), gather("t"))):
+        ins = tuple(dict.fromkeys(b for op in chain for b in op.bufs))
+        fp_case("tables", unp + chain, unp_in + ins, env, n,
+                np.uint8 if chain[-1].bufs == ("u8",) else np.int32)
+    for dt in (np.int32, np.int16, np.int8, np.uint8):
+        info = np.iinfo(dt)
+        env["x"] = torch.from_numpy(rng.integers(max(info.min, -50), min(info.max, 6000),
+                                                 n).astype(dt)).cuda()
+        fp_case("load-span", (load("x"), span("offs")), ("x", "offs"), env, n)
     counts = np.where(rng.random(200_000) < 0.01, rng.integers(2, 300, 200_000), 1)
     counts[1234] = 3_000_000                      # one run far longer than a tile
     vals = rng.integers(-2**31, 2**31 - 1, counts.size).astype(np.int32)
@@ -408,8 +517,8 @@ def main() -> int:
     if decode_table(env[dec.sym_tab], env[dec.freq_tab], env[dec.cum_tab])[1]:
         raise AssertionError("the altered tables still fit the packed layout")
     check(dec, env, "ans three-table path", False)
-    print(f"compare: {compared} kernel launches bitwise equal to plain "
-          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"compare: {compared} kernel launches bitwise equal to plain, of them "
+          f"kernel-1 cases {fp_cases} ({time.perf_counter() - t0:.1f} s)")
     for r in stages:
         lib = "" if r["library_ms"] is None else f" library_ms {r['library_ms']:.4f}"
         lib += "".join(f" {k} {r[k]:.4f}" for k in ("profiler_ms",) + tuple(
@@ -508,7 +617,8 @@ def main() -> int:
             "n": big["n"], "launches_per_run": launches[kname] // len(makespans),
             "main_path_ms": sum(r["ms"] for r in mine),
             "main_path_plain_ms": sum(r["plain_ms"] for r in mine),
-            "main_path_bound_ms": sum(r["bound_ms"] for r in mine)})
+            "main_path_bound_ms": sum(r["bound_ms"] for r in mine),
+            "main_path_profiler_ms": sum(r["profiler_ms"] for r in mine)})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": name, "stages": stages,

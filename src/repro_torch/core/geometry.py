@@ -20,6 +20,7 @@ pattern for the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 
@@ -73,9 +74,12 @@ DEFAULT_CHIP = "h100"
 # device-memory bandwidth by SKU name, GB/s (NVIDIA data sheets); first match wins
 _HBM_GBPS_BY_SKU = (("H100 PCIe", 2000.0), ("H100 NVL", 3900.0), ("H100", 3350.0))
 
-# Fixed per-pattern geometries for the card (no tuning yet).  FP: four loop
-# iterations of 256 threads, one element each, so a warp's loads and stores of
-# neighbouring elements are neighbouring words.  GP: four sub-tiles per block
+# Fixed per-pattern geometries for the card (no tuning yet).  FP: 256 threads
+# with 16 bytes of output each per iteration (C = 4 at 4-byte outputs, 8 at 2,
+# 16 at 1) and L = out_width iterations, so every block covers 4,096 outputs:
+# a multiple of 128, so a tile of bit-packed words starts on a 16-byte
+# boundary at every bit width, and its staged words (at most 16 KB, at 32
+# bits) leave room for eight blocks per SM.  GP: four sub-tiles per block
 # of 256 threads with 16 bytes of output each (C = 4 at 4-byte outputs, 8 at
 # 2, 16 at 1), so a thread stores once per sub-tile, a sub-tile's window
 # (S*C + 2 presum entries) fits shared memory several times over per SM, and
@@ -83,7 +87,7 @@ _HBM_GBPS_BY_SKU = (("H100 PCIe", 2000.0), ("H100 NVL", 3900.0), ("H100", 3350.0
 # NP: one chunk per thread in blocks of 64 (32 timed slower), so the
 # ~1,500-3,000 chunks of an SF-1 column spread over as many SMs as they can fill.
 _NATIVE: dict[str, dict[str, Geometry]] = {
-    "h100": {"fp": Geometry(4, 256, 1), "gp": Geometry(4, 256, 4),
+    "h100": {"fp": Geometry(4, 256, 4), "gp": Geometry(4, 256, 4),
              "np": Geometry(1, 64, 1)},
 }
 
@@ -107,11 +111,16 @@ def chip_from_device(device_index: int = 0, name: str = DEFAULT_CHIP) -> ChipSpe
         source=f"{p.name} (device properties); bandwidth: datasheet {sku[0]}")
 
 
+@functools.cache   # a few keys; called per launch, and Geometry is frozen
 def native_config(pattern: str, chip: str = DEFAULT_CHIP, out_width: int = 4) -> Geometry:
     """The fixed geometry of ``pattern`` ("fp", "gp" or "np") on a chip.  For
-    "gp", ``out_width`` (bytes per output element) scales C so that a thread
-    always writes 16 bytes."""
+    "fp" and "gp", ``out_width`` (bytes per output element) scales C so that a
+    thread always writes 16 bytes; for "fp" it scales L the other way, so a
+    block's tile stays the same number of outputs."""
     geom = _NATIVE[chip][pattern]
     if pattern == "gp":
         geom = dataclasses.replace(geom, C=geom.C * 4 // out_width)
+    elif pattern == "fp":
+        geom = dataclasses.replace(geom, L=geom.L * out_width // 4,
+                                   C=geom.C * 4 // out_width)
     return geom

@@ -6,13 +6,42 @@
 // in each of L main-loop iterations, C contiguous elements.  Threads past n write
 // nothing, so the output is exactly (n,) (the TPU's padded tile has no counterpart).
 //
-// Bound on this card: bytes.  A chain does a handful of integer operations per
-// element against 1-4 bytes written and up to 4 read, far below the H100's
-// operations-per-byte balance point.  The design keeps every intermediate of a
-// fused chain in registers (one read of the packed words, one write of the
-// output), and with C = 1 neighbouring threads touch neighbouring words, so a
-// warp's loads and stores coalesce.  The ``BYTES`` source (rANS byte-reassemble)
-// reads an item's bytes one by one; a warp still reads one contiguous span.
+// What bounds it on this card: bytes.  A chain does a handful of integer
+// operations per element against 1-4 bytes written and up to 4 read, far below
+// the H100's operations-per-byte balance point, so the kernel must keep enough
+// bytes in flight and spend few instructions per element.  The design:
+//  - Scalars once.  The bit width, base and every I2F_DIV scale are read into
+//    registers at the start of a thread, so no store forces a reload per
+//    element (the compiler cannot prove that the output does not alias them).
+//  - 16 bytes out per thread.  The native geometry gives a thread C = 16 /
+//    out_width outputs per iteration (<4,256,4> at 4 bytes; geometry.py), and
+//    a full, aligned group leaves in one 16-byte store.
+//  - UNPACK from shared memory.  Element i starts at bit i*bw of a continuous
+//    stream, so a block's tile of outputs reads one contiguous run of words.
+//    The block copies that run into shared memory with 16-byte cp.async (all
+//    issued before one wait), starting at the word of its first bit aligned
+//    down to 16 bytes, so a tile may start at any element; words past the
+//    buffer's last are staged as copies of the last, which reproduces the
+//    reference's clamp.  Each thread then walks its C values with a funnel
+//    shift, one shared load per value.  A bit width outside [0, 32] (no
+//    encoder makes one; the plain version takes it) or a window wider than the
+//    buffer takes the per-element global-memory path in the same kernel.
+//  - LOAD and BYTES as wide loads.  When a thread's C items are its 16 bytes
+//    (item size = output width) and aligned, one 16-byte load fetches them
+//    (staging them in shared memory as well was slower on word-lengths: the
+//    block's wait delays its gathers); otherwise BYTES items come from the
+//    aligned 4-byte words that hold them, and byte by byte only at the
+//    buffer's ragged edges.
+//  - Transforms op by op.  At 4-byte outputs a thread's 4 values go through
+//    the shared interpreter together, one op at a time (zf_transforms_k), so
+//    their loads (a GATHER's, a SPAN's) are in flight together (the `rolled`
+//    variant of scripts/kernel_variants.py applies them value by value).  At
+//    1- and 2-byte outputs only a chain that is its source alone unrolls; the
+//    rest roll through one call of zf_transforms, so the build stays in
+//    seconds.
+//  - The kernel is specialised on the source and the output width (9
+//    instances).  No launch bounds: with __launch_bounds__(1024) ptxas
+//    spilled to stay at 32 registers.
 #include "zf_chain.cuh"
 
 struct ZfFpArgs {
@@ -21,35 +50,274 @@ struct ZfFpArgs {
   int64_t n;
   int32_t L;
   int32_t C;
-  int32_t out_width;   // bytes per output element: 1, 2 or 4
-  int32_t pad;
+  int32_t out_width;    // bytes per output element: 1, 2 or 4
+  int32_t stage_words;  // UNPACK: words the shared staging buffer holds (multiple of 4)
 };
 
 static_assert(sizeof(ZfFpArgs) == 360, "ZfFpArgs layout is shared with kernels/cuda.py");
 
+#define ZF_FP_MAX_SMEM (96 * 1024)   // shared bytes a block's staged words may take
+
+// Copy 16 bytes global -> shared without passing through registers.
+__device__ __forceinline__ void zf_cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void zf_cp_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Drop the low W bytes of a 16-byte register (the mirror of zf_shift_in).
+template <int W>
+__device__ __forceinline__ uint4 zf_shift_out(uint4 q) {
+  if constexpr (W == 4) {
+    return make_uint4(q.y, q.z, q.w, 0u);
+  } else {
+    constexpr int B = 8 * W;
+    return make_uint4(q.x >> B | q.y << (32 - B), q.y >> B | q.z << (32 - B),
+                      q.z >> B | q.w << (32 - B), q.w >> B);
+  }
+}
+
+// The low W bytes of v as a word, extended as element code `elem` says.
+template <int W>
+__device__ __forceinline__ uint32_t zf_widen(uint32_t v, int32_t elem) {
+  if (W == 1) return elem < 0 ? static_cast<uint32_t>(static_cast<int32_t>(static_cast<int8_t>(v)))
+                              : v & 0xFFu;
+  if (W == 2) return elem < 0 ? static_cast<uint32_t>(static_cast<int32_t>(static_cast<int16_t>(v)))
+                              : v & 0xFFFFu;
+  return v;
+}
+
+// BYTES item i (zf_bytes) from the aligned 4-byte words that hold it; byte by
+// byte where such a word would reach outside the buffer.
+__device__ __forceinline__ uint32_t zf_bytes_words(const ZfOp& op, int64_t i) {
+  const uintptr_t buf = reinterpret_cast<uintptr_t>(op.a);
+  const uintptr_t p = buf + static_cast<uintptr_t>(i * op.imm);
+  const uint32_t need = op.imm < 4 ? op.imm : 4;
+  const uint32_t sh = static_cast<uint32_t>(p & 3u);
+  const uintptr_t al = p - sh;
+  const bool two = sh + need > 4;
+  if (al < buf || al + (two ? 8u : 4u) > buf + static_cast<uintptr_t>(op.n))
+    return zf_bytes(op, i);
+  const uint32_t w0 = __ldg(reinterpret_cast<const uint32_t*>(al));
+  const uint32_t w1 = two ? __ldg(reinterpret_cast<const uint32_t*>(al + 4)) : 0u;
+  const uint32_t v = __funnelshift_r(w0, w1, 8 * sh);
+  return need == 4 ? v : v & ((1u << (8 * need)) - 1u);
+}
+
+// Cursors: each call gives the source value of the next element of a thread;
+// fast() does the same where zf_fp_emit's fast path holds.
+
+// UNPACK.  Staged (bw in [0, 32]): element j of the block starts at bit b of
+// the staged words s, and the next one in the same word or the next.  Else
+// element i from global memory.
+struct ZfBits {
+  const uint32_t* s;
+  uint32_t b, bw, mask, base;
+  uint32_t k, lo;   // word of bit b, and its value
+  const uint32_t* packed;
+  int64_t last, i;
+  bool staged;
+
+  __device__ __forceinline__ uint32_t fast() {   // staged holds
+    const uint32_t hi = s[k + 1];
+    const uint32_t v = __funnelshift_r(lo, hi, b);
+    b += bw;
+    const uint32_t nk = b >> 5;
+    lo = nk == k ? lo : hi;
+    k = nk;
+    return (v & mask) + base;
+  }
+  __device__ __forceinline__ uint32_t operator()() {
+    if (staged) return fast();
+    return zf_unpack_at(packed, last, static_cast<int32_t>(bw), base, i++);
+  }
+};
+
+// LOAD or BYTES items from item i: out of q (the thread's 16 bytes, fetched in
+// one load, items of W bytes) when `pre`, else one by one.
+template <int kSrc, int W>
+struct ZfItems {
+  const ZfOp& op;
+  int64_t i;
+  uint4 q;
+  bool pre;
+
+  __device__ __forceinline__ uint32_t fast() {   // pre holds
+    const uint32_t v = zf_widen<W>(q.x, kSrc == ZF_LOAD ? op.elem : 0);
+    q = zf_shift_out<W>(q);
+    return v;
+  }
+  __device__ __forceinline__ uint32_t operator()() {
+    if (pre) return fast();
+    const uint32_t v = kSrc == ZF_LOAD ? zf_read(op.a, op.elem, i) : zf_bytes_words(op, i);
+    ++i;
+    return v;
+  }
+};
+
+// A thread's nc outputs at o.  `fast`: nc fills 16 aligned bytes and the
+// cursor has its values at hand.  Then the K = 16 / W values are fetched
+// unrolled, the transforms run op by op over all of them (at K = 4; at larger
+// K only a chain that is its source alone takes this path), and one 16-byte
+// store writes them.  Everything else is a rolled loop with one call of the
+// shared interpreter (zf_store_packed still stores 16 bytes at a time where
+// it can).
+template <int W, class Src>
+__device__ __forceinline__ void zf_fp_emit(const ZfChain& ch, const float (&scale)[ZF_MAX_OPS],
+                                           typename ZfOut<W>::T* __restrict__ o, int32_t nc,
+                                           bool fast, Src& src) {
+  constexpr int K = 16 / W;
+  const auto scale_of = [&](int k) { return scale[k]; };
+  if (fast && (K <= 4 || ch.n_ops == 1)) {
+    uint32_t v[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = src.fast();
+    if constexpr (K <= 4) zf_transforms_k(ch, 1, v, scale_of);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < K; ++j) zf_pack<W>(w, j, v[j]);
+    *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+  zf_store_packed<W, false>(o, nc, [&] { return zf_transforms(ch, 1, src(), scale_of); });
+}
+
+template <int kSrc, int W>
 __global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
+  extern __shared__ uint4 zf_fp_stage[];   // UNPACK: the block's words
+  using T = typename ZfOut<W>::T;
+  const ZfChain& ch = a.chain;
+  const ZfOp& src = ch.ops[0];
   const int64_t S = blockDim.x;
-  const int64_t block0 = static_cast<int64_t>(blockIdx.x) * a.L * S * a.C;
-  for (int l = 0; l < a.L; ++l) {
-    const int64_t t0 = block0 + (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
-    for (int c = 0; c < a.C; ++c) {
-      const int64_t i = t0 + c;
-      if (i < a.n) zf_write(a.out, a.out_width, i, zf_eval(a.chain, i));
+  const int64_t tile = static_cast<int64_t>(a.L) * S * a.C;
+  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t m = a.n - e0 < tile ? a.n - e0 : tile;   // outputs of this block
+  T* __restrict__ out = static_cast<T*>(a.out) + e0;
+  float scale[ZF_MAX_OPS];
+#pragma unroll
+  for (int k = 0; k < ZF_MAX_OPS; ++k)
+    scale[k] = k < ch.n_ops && ch.ops[k].kind == ZF_I2F_DIV
+                   ? __ldg(static_cast<const float*>(ch.ops[k].a)) : 0.f;
+
+  if constexpr (kSrc == ZF_UNPACK) {
+    const uint32_t* __restrict__ packed = static_cast<const uint32_t*>(src.a);
+    const int64_t last = src.n - 1;
+    const int32_t bw = __ldg(static_cast<const int32_t*>(src.b));
+    const uint32_t base = static_cast<uint32_t>(__ldg(static_cast<const int32_t*>(src.c)));
+    // The block's window: words [a0, a0 + 4 * nvec), a0 the word of bit e0*bw
+    // aligned down to 16 bytes (shift words before it), through the word after
+    // the one holding the last element's first bit.
+    bool staged = bw >= 0 && bw <= 32;
+    int64_t a0 = 0, nvec = 0;
+    uint32_t shift = 0, off0 = 0;
+    if (staged) {
+      const int64_t bit0 = e0 * bw;
+      const int64_t w_lo = bit0 >> 5;
+      off0 = static_cast<uint32_t>(bit0 & 31);
+      shift = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(packed + w_lo) >> 2) & 3u;
+      a0 = w_lo - shift;
+      nvec = (shift + ((off0 + (m - 1) * bw) >> 5) + 2 + 3) >> 2;
+      staged = 4 * nvec <= a.stage_words;
     }
+    uint32_t* words = reinterpret_cast<uint32_t*>(zf_fp_stage);
+    if (staged) {   // block-uniform
+      for (int64_t v = threadIdx.x; v < nvec; v += S) {
+        const int64_t w = a0 + 4 * v;
+        if (w >= 0 && w + 3 <= last) {
+          zf_cp_async16(zf_fp_stage + v, packed + w);
+        } else {   // the buffer's edges: clamp each word into [0, last]
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int64_t c = w + q < 0 ? 0 : (w + q > last ? last : w + q);
+            words[4 * v + q] = __ldg(packed + c);
+          }
+        }
+      }
+      zf_cp_wait_all();
+      __syncthreads();
+    }
+    const uint32_t mask = bw >= 32 ? 0xFFFFFFFFu : ((1u << (bw & 31)) - 1u);
+    for (int l = 0; l < a.L; ++l) {
+      const int64_t j0 = (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
+      if (j0 >= m) break;
+      const int32_t nc = static_cast<int32_t>(m - j0 < a.C ? m - j0 : a.C);
+      T* o = out + j0;
+      const bool full = nc * W == 16 && (reinterpret_cast<uintptr_t>(o) & 15u) == 0;
+      const uint32_t b = off0 + static_cast<uint32_t>(j0) * static_cast<uint32_t>(bw);
+      ZfBits cur{words + shift, b, static_cast<uint32_t>(bw), mask, base, b >> 5, 0u,
+                 packed, last, e0 + j0, staged};
+      if (staged) cur.lo = cur.s[cur.k];
+      zf_fp_emit<W>(ch, scale, o, nc, full && staged, cur);
+    }
+  } else {
+    // LOAD or BYTES: item size E bytes, the thread's items contiguous.  Items
+    // of the output's width from a 16-byte aligned tile come in one 16-byte
+    // load per thread; a thread whose 16 bytes are not whole (the tail at n)
+    // and other item sizes read item by item.
+    const int32_t E = kSrc == ZF_LOAD ? (src.elem < 0 ? -src.elem : src.elem) : src.imm;
+    const uint8_t* in0 = static_cast<const uint8_t*>(src.a) + e0 * E;
+    const bool wide = E == W && (reinterpret_cast<uintptr_t>(in0) & 15u) == 0;   // block-uniform
+    for (int l = 0; l < a.L; ++l) {
+      const int64_t j0 = (static_cast<int64_t>(l) * S + threadIdx.x) * a.C;
+      if (j0 >= m) break;
+      const int32_t nc = static_cast<int32_t>(m - j0 < a.C ? m - j0 : a.C);
+      T* o = out + j0;
+      const bool full = nc * W == 16 && (reinterpret_cast<uintptr_t>(o) & 15u) == 0;
+      ZfItems<kSrc, W> cur{src, e0 + j0, make_uint4(0u, 0u, 0u, 0u), wide && full};
+      if (cur.pre) cur.q = __ldg(reinterpret_cast<const uint4*>(in0 + j0 * E));
+      zf_fp_emit<W>(ch, scale, o, nc, cur.pre, cur);
+    }
+  }
+}
+
+template <int kSrc, int W>
+static cudaError_t zf_fp_launch(const ZfFpArgs& a, unsigned grid, int32_t threads,
+                                cudaStream_t stream) {
+  const size_t smem = kSrc == ZF_UNPACK ? static_cast<size_t>(a.stage_words) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        zf_fully_parallel_kernel<kSrc, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  zf_fully_parallel_kernel<kSrc, W><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kSrc>
+static cudaError_t zf_fp_width(const ZfFpArgs& a, unsigned grid, int32_t threads,
+                               cudaStream_t s) {
+  switch (a.out_width) {
+    case 1: return zf_fp_launch<kSrc, 1>(a, grid, threads, s);
+    case 2: return zf_fp_launch<kSrc, 2>(a, grid, threads, s);
+    case 4: return zf_fp_launch<kSrc, 4>(a, grid, threads, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" int zf_fully_parallel(const ZfFpArgs* args, int32_t threads, int32_t device,
                                  void* stream) {
   if (args->n <= 0) return 0;
+  if (args->chain.n_ops < 1 || args->stage_words < 0 || args->stage_words % 4 != 0 ||
+      static_cast<int64_t>(args->stage_words) * 4 > ZF_FP_MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tile = static_cast<int64_t>(args->L) * threads * args->C;
   const int64_t grid = (args->n + tile - 1) / tile;
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  zf_fully_parallel_kernel<<<static_cast<unsigned>(grid), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned g = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (args->chain.ops[0].kind) {
+    case ZF_UNPACK: err = zf_fp_width<ZF_UNPACK>(*args, g, threads, s); break;
+    case ZF_LOAD: err = zf_fp_width<ZF_LOAD>(*args, g, threads, s); break;
+    case ZF_BYTES: err = zf_fp_width<ZF_BYTES>(*args, g, threads, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 ZF_EXPORT_HELPERS(ZfFpArgs)

@@ -67,15 +67,13 @@ __device__ __forceinline__ int64_t zf_jnp_index(int64_t j, int64_t n) {
   return j < 0 ? 0 : (j >= n ? n - 1 : j);
 }
 
-// Bit-unpack element i (algos/bitpack.py).  The bit position is split as
-// (i>>5)*bw + ((i&31)*bw)>>5 in 64 bits; shifts by 32 are undefined in C++, so
-// off == 0 and bw >= 32 are selected explicitly, as the reference does.
-__device__ __forceinline__ uint32_t zf_unpack(const ZfOp& op, int64_t i) {
-  const uint32_t* packed = static_cast<const uint32_t*>(op.a);
-  const int32_t bw = *static_cast<const int32_t*>(op.b);
-  const uint32_t base = static_cast<uint32_t>(*static_cast<const int32_t*>(op.c));
+// Bit-unpack element i (algos/bitpack.py) of `packed` (last + 1 words), its bit
+// width and base given.  The bit position is split as (i>>5)*bw + ((i&31)*bw)>>5
+// in 64 bits; shifts by 32 are undefined in C++, so off == 0 and bw >= 32 are
+// selected explicitly, as the reference does.
+__device__ __forceinline__ uint32_t zf_unpack_at(const uint32_t* packed, int64_t last,
+                                                 int32_t bw, uint32_t base, int64_t i) {
   const int64_t frac = (i & 31) * static_cast<int64_t>(bw);
-  const int64_t last = op.n - 1;
   int64_t w = (i >> 5) * static_cast<int64_t>(bw) + (frac >> 5);
   w = w < last ? w : last;
   const uint32_t off = static_cast<uint32_t>(frac & 31);
@@ -83,6 +81,13 @@ __device__ __forceinline__ uint32_t zf_unpack(const ZfOp& op, int64_t i) {
   const uint32_t hi = off == 0 ? 0u : packed[w + 1 < last ? w + 1 : last] << (32u - off);
   const uint32_t mask = bw >= 32 ? 0xFFFFFFFFu : ((1u << (bw & 31)) - 1u);
   return ((lo | hi) & mask) + base;  // int32 add, wrapping
+}
+
+// The same with the bit width and base read from the op's device scalars.
+__device__ __forceinline__ uint32_t zf_unpack(const ZfOp& op, int64_t i) {
+  return zf_unpack_at(static_cast<const uint32_t*>(op.a), op.n - 1,
+                      *static_cast<const int32_t*>(op.b),
+                      static_cast<uint32_t>(*static_cast<const int32_t*>(op.c)), i);
 }
 
 // Item i of a byte buffer, little-endian: bytes past the fourth would shift out
@@ -101,7 +106,10 @@ __device__ __forceinline__ uint32_t zf_source(const ZfOp& op, int64_t i) {
   return zf_read(op.a, op.elem, i);  // ZF_LOAD
 }
 
-__device__ __forceinline__ uint32_t zf_transform(const ZfOp& op, uint32_t v) {
+// `scale()` gives an I2F_DIV op's divisor: kernels 2 and 3 read it from the
+// op's scalar at each use, kernel 1 passes the value it read once.
+template <class Scale>
+__device__ __forceinline__ uint32_t zf_transform(const ZfOp& op, uint32_t v, Scale&& scale) {
   switch (op.kind) {
     case ZF_GATHER:
       return zf_read(op.a, op.elem, zf_jnp_index(static_cast<int32_t>(v), op.n));
@@ -114,7 +122,7 @@ __device__ __forceinline__ uint32_t zf_transform(const ZfOp& op, uint32_t v) {
     case ZF_I2F_DIV: {
       // correctly rounded int32 -> float32 and float32 divide (no fast math)
       const float x = __int2float_rn(static_cast<int32_t>(v));
-      return __float_as_uint(__fdiv_rn(x, *static_cast<const float*>(op.a)));
+      return __float_as_uint(__fdiv_rn(x, scale()));
     }
     case ZF_UNZIGZAG:
       return (v >> 1) ^ (0u - (v & 1u));
@@ -123,14 +131,36 @@ __device__ __forceinline__ uint32_t zf_transform(const ZfOp& op, uint32_t v) {
   }
 }
 
-// Apply ops [first, n_ops) to v.  The loop is unrolled over the fixed bound so
-// the op array is indexed statically and stays in the kernel's parameter space.
-__device__ __forceinline__ uint32_t zf_transforms(const ZfChain& ch, int first, uint32_t v) {
+// Apply ops [first, n_ops) to v; `scale(k)` is op k's I2F_DIV divisor.  The
+// loop is unrolled over the fixed bound so the op array is indexed statically
+// and stays in the kernel's parameter space.
+template <class Scale>
+__device__ __forceinline__ uint32_t zf_transforms(const ZfChain& ch, int first, uint32_t v,
+                                                  Scale&& scale) {
 #pragma unroll
   for (int k = 0; k < ZF_MAX_OPS; ++k) {
-    if (k >= first && k < ch.n_ops) v = zf_transform(ch.ops[k], v);
+    if (k >= first && k < ch.n_ops) v = zf_transform(ch.ops[k], v, [&] { return scale(k); });
   }
   return v;
+}
+
+__device__ __forceinline__ uint32_t zf_transforms(const ZfChain& ch, int first, uint32_t v) {
+  return zf_transforms(ch, first, v,
+                       [&](int k) { return *static_cast<const float*>(ch.ops[k].a); });
+}
+
+// zf_transforms over K values at once, op by op, so that the K values' loads
+// (a GATHER's, a SPAN's) are in flight together.
+template <int K, class Scale>
+__device__ __forceinline__ void zf_transforms_k(const ZfChain& ch, int first, uint32_t (&v)[K],
+                                                Scale&& scale) {
+#pragma unroll
+  for (int k = 0; k < ZF_MAX_OPS; ++k) {
+    if (k >= first && k < ch.n_ops) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = zf_transform(ch.ops[k], v[j], [&] { return scale(k); });
+    }
+  }
 }
 
 __device__ __forceinline__ uint32_t zf_eval(const ZfChain& ch, int64_t i) {

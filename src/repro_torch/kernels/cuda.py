@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -56,7 +57,7 @@ class ZfChain(ctypes.Structure):
 class ZfFpArgs(ctypes.Structure):
     _fields_ = [("chain", ZfChain), ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
                 ("L", ctypes.c_int32), ("C", ctypes.c_int32),
-                ("out_width", ctypes.c_int32), ("pad", ctypes.c_int32)]
+                ("out_width", ctypes.c_int32), ("stage_words", ctypes.c_int32)]
 
 
 class ZfGpArgs(ctypes.Structure):
@@ -115,6 +116,7 @@ class KernelLib:
         self.entry = entry
         self.args_type = args_type
         self.launches = 0
+        self.build_s: float | None = None   # wall time of this process's nvcc
         self._lib: ctypes.CDLL | None = None
 
     def path(self) -> Path:
@@ -171,11 +173,18 @@ def build(libs) -> None:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = lib.compile_cmd(tmp)
             log = open(out.with_suffix(".log"), "w")
-            procs.append((lib, tmp, log, subprocess.Popen(
+            procs.append((lib, tmp, log, time.perf_counter(), subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT)))
+        running = list(procs)
+        while running:   # each library's own build time, not its place in line
+            for lib, _, _, t0, proc in running:
+                if proc.poll() is not None:
+                    lib.build_s = time.perf_counter() - t0
+            running = [p for p in running if p[4].returncode is None]
+            time.sleep(0.05)
         failed = []
-        for lib, tmp, log, proc in procs:
-            rc = proc.wait()
+        for lib, tmp, log, _, proc in procs:
+            rc = proc.returncode
             log.close()
             if rc != 0:
                 failed.append(f"{lib.name}: nvcc exit {rc}\n"

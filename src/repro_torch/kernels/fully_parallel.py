@@ -3,10 +3,12 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/fully_parallel.py:35
 fully_parallel_call``.  One launch evaluates a stage's whole op chain (e.g.
 ``UNPACK -> GATHER`` for dictionary|bitpack) per element in registers, so a fused
-chain reads its packed words once and writes the output once.  The CUDA source is
-``csrc/fully_parallel.cu`` (built for ``sm_90a``); what bounds it on the card and
-how it is laid out is noted there.  The plain version is
-``repro_torch.kernels.ref.fully_parallel_torch``.
+chain reads its packed words once and writes the output once.  A block stages
+the bit-packed words of its tile in shared memory, and each thread writes its
+16 bytes of outputs in one store (``native_config("fp", out_width=...)``).
+The CUDA source is ``csrc/fully_parallel.cu`` (built for ``sm_90a``); what
+bounds it on the card and how it is laid out is noted there.  The plain version
+is ``repro_torch.kernels.ref.fully_parallel_torch``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,17 @@ from repro_torch.core.patterns import FullyParallel
 from repro_torch.kernels import cuda, ref
 
 KERNEL = cuda.KernelLib("fully_parallel", "zf_fully_parallel", cuda.ZfFpArgs)
+MAX_STAGE_BYTES = 96 * 1024   # ZF_FP_MAX_SMEM in csrc/fully_parallel.cu
+
+
+def stage_words(geom: Geometry) -> int:
+    """Words of the shared buffer a block stages its bit-packed words in: a
+    tile of ``L*S*C`` outputs at up to 32 bits starts at most 3 words after a
+    16-byte boundary and reads one word past its last element's first, so
+    ``tile + 4`` words, in whole 16-byte vectors, hold it at every bit width.
+    Capped at ``MAX_STAGE_BYTES``; a wider window takes the kernel's
+    per-element path."""
+    return min((geom.tile + 4 + 3) // 4 * 4, MAX_STAGE_BYTES // 4)
 
 
 def stage_device(names, env: dict[str, torch.Tensor]) -> torch.device:
@@ -36,13 +49,14 @@ def fully_parallel(stage: FullyParallel, env: dict[str, torch.Tensor],
         return ref.fully_parallel_torch(stage, env)
     if device.type != "cuda":
         raise ValueError(f"no Fully-Parallel kernel for device {device}")
-    geom = geom or native_config("fp")
     out = torch.empty(stage.n_out, dtype=ref.chain_dtype(stage.chain, env),
                       device=device)
+    geom = geom or native_config("fp", out_width=cuda.out_width(out))
     if stage.n_out:
         args = cuda.ZfFpArgs(chain=cuda.pack_chain(stage.chain, env, device,
                                                    stage.n_out),
                              out=out.data_ptr(), n=stage.n_out, L=geom.L, C=geom.C,
-                             out_width=cuda.out_width(out))
+                             out_width=cuda.out_width(out),
+                             stage_words=stage_words(geom))
         KERNEL.launch(args, geom.S, device)
     return ref.to_out(out, stage.chain, stage.out_dtype)

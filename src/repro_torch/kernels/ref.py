@@ -34,6 +34,16 @@ _TORCH_DTYPES = {
 }
 
 
+# torch indexes no uint16 or uint32 tensor on CUDA: index a signed view of the bits
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]`` for every element type the kernels read."""
+    signed = _SIGNED_VIEW.get(t.dtype)
+    return t[idx] if signed is None else t.view(signed)[idx].view(t.dtype)
+
+
 def torch_dtype(dt) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(dt)]
 
@@ -79,7 +89,7 @@ def _source(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Te
     if op.kind == UNPACK:
         return _unpack(op, idx, env)
     if op.kind == LOAD:
-        return env[op.bufs[0]][idx]
+        return take(env[op.bufs[0]], idx)
     if op.kind == BYTES:
         return _bytes(op, idx, env)
     raise ValueError(f"{op} is not a source op")
@@ -93,12 +103,12 @@ def jnp_index(j: torch.Tensor, n: int) -> torch.Tensor:
 def _transform(op: Op, v: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
     if op.kind == GATHER:
         table = env[op.bufs[0]]
-        return table[jnp_index(v.to(torch.int64), table.numel())]
+        return take(table, jnp_index(v.to(torch.int64), table.numel()))
     if op.kind == SPAN:
         offs = env[op.bufs[0]]
         j = v.to(torch.int32).to(torch.int64)   # the index is int32; j + 1 wraps
-        hi = offs[jnp_index(wrap_i32(j + 1).to(torch.int64), offs.numel())]
-        lo = offs[jnp_index(j, offs.numel())]
+        hi = take(offs, jnp_index(wrap_i32(j + 1).to(torch.int64), offs.numel()))
+        lo = take(offs, jnp_index(j, offs.numel()))
         return wrap_i32(hi.to(torch.int64) - lo.to(torch.int64))
     if op.kind == I2F_DIV:
         # int32 -> float32 (round to nearest even), then an IEEE float32 divide

@@ -5,6 +5,8 @@ machine with a card (no JAX needed there):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -13,9 +15,10 @@ from repro_torch.core.compiler import build_graph, compile_blob, device_buffers
 from repro_torch.core.fusion import fuse
 from repro_torch.core.geometry import Geometry
 from repro_torch.core.geometry import native_config
+from repro_torch.algos.bitpack import pack_np
 from repro_torch.core.patterns import (AFFINE, IDENTITY, STRGATHER, BufSpec,
                                        FullyParallel, GroupParallel, gather, load,
-                                       load_bytes)
+                                       load_bytes, span, unpack, unzigzag)
 from repro_torch.core.plan import Plan, encode, make_plan
 from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
@@ -352,3 +355,145 @@ def test_ans_three_table_path(gpu):
     env[st.cum_tab] = torch.from_numpy(cum.astype(np.uint16)).to(gpu)
     assert not decode_table(env[st.sym_tab], env[st.freq_tab], env[st.cum_tab])[1]
     assert torch.equal(non_parallel(st, env), ref.non_parallel_torch(st, env))
+
+
+# ------------------------------------------------ kernel 1's staged and wide paths
+
+def _fp(chain, inputs, n, out_dtype=np.int32):
+    return FullyParallel(chain=chain, inputs=inputs,
+                         specs=tuple(BufSpec("full") for _ in inputs), out="o", n_out=n,
+                         out_dtype=out_dtype, elementwise=False, name="case")
+
+
+def _packed(bw: int, n: int, rng, gpu, cut: int = 0, offset: int = 0):
+    """Bit-packed uniform values of ``bw`` bits (the encoder's layout, guard word
+    included) with ``cut`` words dropped from the end and the buffer starting
+    ``offset`` words into its allocation; returns the env and the values."""
+    vals = rng.integers(0, 1 << bw, n, dtype=np.int64) if bw else np.zeros(n, np.int64)
+    words = pack_np(vals, bw) if bw else np.zeros(2, np.uint32)
+    words = words[:max(1, words.size - cut)].view(np.int32)
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), words])).to(gpu)
+    base = int(rng.integers(-2**31, 2**31))
+    env = {"p": buf[offset:], "bw": torch.tensor([bw], dtype=torch.int32, device=gpu),
+           "base": torch.tensor([base], dtype=torch.int32, device=gpu)}
+    return env, (vals + base + 2**31) % 2**32 - 2**31
+
+
+UNPACK_OP = (unpack("p", "bw", "base"),)
+FP_TILE = native_config("fp").tile
+
+
+def _fp_check(st, env, geom=None):
+    before = FP.launches
+    got = fully_parallel(st, env, geom)
+    assert FP.launches == before + 1
+    want = ref.fully_parallel_torch(st, env)
+    assert got.dtype == want.dtype and torch.equal(bits(got), bits(want))
+    return got
+
+
+@pytest.mark.parametrize("bw", range(33))
+def test_fp_unpack_every_bit_width(bw, gpu):
+    """Every bit width 0-32 at lengths around a warp, a 16-byte group and a
+    block's tile: the staged path against the plain version and the source."""
+    rng = np.random.default_rng(bw)
+    for n in (1, 31, 32, 127, 128, FP_TILE - 1, FP_TILE, FP_TILE + 1, 1_000_003):
+        env, want = _packed(bw, n, rng, gpu)
+        got = _fp_check(_fp(UNPACK_OP, ("p", "bw", "base"), n), env)
+        assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("bw", [1, 7, 13, 31, 32])
+def test_fp_unpack_clamps_a_short_buffer(bw, gpu):
+    """No guard word, or words missing past it, at every 16-byte misalignment
+    of the buffer: reads past the last word take the last word, as the plain
+    version's clamp does."""
+    rng = np.random.default_rng(100 + bw)
+    for n, cut, offset in itertools.product((127, FP_TILE + 1, 2 * FP_TILE + 5),
+                                            (1, 2, 9, 10**9), range(4)):
+        env, _ = _packed(bw, n, rng, gpu, cut=cut, offset=offset)
+        _fp_check(_fp(UNPACK_OP, ("p", "bw", "base"), n), env)
+
+
+@pytest.mark.parametrize("bw", [33, 40, 64, 100])
+def test_fp_unpack_bit_width_outside_the_encoders(bw, gpu):
+    """A bit-width operand above 32 takes the kernel's per-element global path."""
+    env, _ = _packed(31, 300_001, np.random.default_rng(bw), gpu)
+    env["bw"] = torch.tensor([bw], dtype=torch.int32, device=gpu)
+    _fp_check(_fp(UNPACK_OP, ("p", "bw", "base"), 300_001), env)
+
+
+@pytest.mark.parametrize("geom", [Geometry(3, 96, 5), Geometry(32, 256, 4)], ids=str)
+def test_fp_unpack_at_tiles_off_the_native_one(geom, gpu):
+    """A tile that is not a multiple of 128 (blocks start mid-word) and one
+    whose window at wide bit widths overflows the staging buffer."""
+    rng = np.random.default_rng(12)
+    for bw in (0, 3, 17, 32):
+        env, _ = _packed(bw, 3 * geom.tile + 13, rng, gpu)
+        _fp_check(_fp(UNPACK_OP, ("p", "bw", "base"), 3 * geom.tile + 13), env, geom)
+
+
+@pytest.mark.parametrize("source", ["unpack", "load"])
+@pytest.mark.parametrize("table", [np.uint8, np.uint16])
+def test_fp_narrow_gathers(source, table, gpu):
+    """GATHER of uint8 and uint16 tables: 1- and 2-byte outputs, 16 and 8 per
+    thread."""
+    rng = np.random.default_rng(13)
+    n = 1_000_003
+    env, _ = _packed(9, n, rng, gpu)
+    env["x"] = torch.from_numpy(rng.integers(-5, 600, n).astype(np.int16)).to(gpu)
+    top = np.iinfo(table).max + 1
+    env["t"] = torch.from_numpy(rng.integers(0, top, 513).astype(table)).to(gpu)
+    chain = (UNPACK_OP if source == "unpack" else (load("x"),)) + (gather("t"),)
+    ins = ("p", "bw", "base", "t") if source == "unpack" else ("x", "t")
+    got = _fp_check(_fp(chain, ins, n, table), env)
+    assert got.dtype == ref.torch_dtype(table)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 3, 4, 5])
+def test_fp_bytes_item_sizes(itemsize, gpu):
+    """BYTES items of 1-5 bytes, from an aligned buffer and from one that starts
+    1-3 bytes past a word (the aligned-word path and its ragged edges)."""
+    rng = np.random.default_rng(14)
+    raw = torch.from_numpy(rng.integers(0, 256, 5 * 300_007 + 8).astype(np.uint8)).to(gpu)
+    for offset, n in itertools.product(range(4), (1, 31, 300_007)):
+        b = raw[offset:offset + n * itemsize]
+        for out_dtype in ((np.int32, np.uint32, np.float32) if itemsize == 4 else (np.int32,)):
+            _fp_check(_fp((load_bytes("b", itemsize),), ("b",), n, out_dtype), {"b": b})
+
+
+def test_fp_load_span_and_unpack_gather_unzigzag(gpu):
+    """The word-lengths chain (LOAD -> SPAN) and the PS_SUPPKEY chain (UNPACK ->
+    GATHER -> UNZIGZAG) at a length off the tile, with signed narrow LOADs."""
+    rng = np.random.default_rng(15)
+    n = 1_000_003
+    env, _ = _packed(11, n, rng, gpu)
+    env["t"] = torch.from_numpy(rng.integers(-2**31, 2**31, 2048).astype(np.int32)).to(gpu)
+    env["offs"] = torch.from_numpy(np.sort(rng.integers(0, 10**7, 5000)).astype(np.int32)).to(gpu)
+    _fp_check(_fp(UNPACK_OP + (gather("t"), unzigzag()), ("p", "bw", "base", "t"), n), env)
+    for dt in (np.int32, np.int16, np.int8, np.uint8):
+        info = np.iinfo(dt)
+        env["x"] = torch.from_numpy(rng.integers(max(info.min, -50), min(info.max, 6000), n)
+                                    .astype(dt)).to(gpu)
+        _fp_check(_fp((load("x"), span("offs")), ("x", "offs"), n), env)
+
+
+def test_fp_gather_tables(gpu):
+    """Gathers from a table larger than L1 holds for a block's warps, from a
+    uint8 table at an odd address whose size is not a multiple of 4, and from
+    tables behind other transforms (op by op over a thread's 4 values)."""
+    rng = np.random.default_rng(16)
+    n = 300_007
+    env, _ = _packed(14, n, rng, gpu)
+    raw8 = torch.from_numpy(rng.integers(0, 256, 4000).astype(np.uint8)).to(gpu)
+    env.update({"big": torch.from_numpy(rng.integers(-2**31, 2**31, 5000)
+                                        .astype(np.int32)).to(gpu),
+                "u8": raw8[3:3 + 1001],
+                "t": torch.from_numpy(rng.integers(-2**31, 2**31, 999).astype(np.int32))
+                .to(gpu)})
+    for chain, out_dtype in ((UNPACK_OP + (gather("big"),), np.int32),
+                             (UNPACK_OP + (gather("u8"),), np.uint8),
+                             (UNPACK_OP + (unzigzag(), gather("t")), np.int32),
+                             (UNPACK_OP + (gather("big"), unzigzag(), gather("t")), np.int32)):
+        ins = tuple(dict.fromkeys(b for op in chain for b in op.bufs))
+        _fp_check(_fp(chain, ins, n, out_dtype), env)

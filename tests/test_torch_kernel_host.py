@@ -1,5 +1,9 @@
-"""Host-side pieces of kernels 2 and 3, on the CPU.
+"""Host-side pieces of kernels 1, 2 and 3, on the CPU.
 
+  * kernel 1's native geometry gives every thread 16 bytes of output in a tile
+    of a multiple of 128 outputs at every output width, and its staging buffer
+    (``fully_parallel.stage_words``) holds the packed words any tile reads, at
+    every bit width 0-32, wherever the tile starts;
   * kernel 3's packed decode table (``non_parallel.decode_table``) unpacks to
     the encoder's ``sym``, ``freq`` and ``cum`` for every alphabet of the
     ``chip_smoke.py`` sweep, the one-symbol ``freq = 4096`` case included, and
@@ -14,13 +18,16 @@ import pytest
 import torch
 
 from repro_torch.core.compiler import build_graph, device_buffers
-from repro_torch.core.geometry import native_config
+from repro_torch.core.geometry import Geometry, native_config
 from repro_torch.core.patterns import BufSpec, GroupParallel, load
 from repro_torch.core.plan import Plan, encode
 from repro_torch.kernels import ref
+from repro_torch.kernels.fully_parallel import MAX_STAGE_BYTES, stage_words
 from repro_torch.kernels.group_parallel import tile_windows
 from repro_torch.kernels.non_parallel import decode_table
 
+FP_GEOMS = (native_config("fp", out_width=1), native_config("fp", out_width=2),
+            native_config("fp"), Geometry(3, 96, 5), Geometry(1, 32, 1))
 NP_KINDS = ("uint8", "int32", "float32", "skewed", "one-symbol", "uniform256")
 
 
@@ -124,3 +131,41 @@ def test_plain_gp_on_zero_counts_equals_numpy_repeat(layout, rng):
                        name="zero-counts")
     got = ref.group_parallel_torch(st, env)
     assert torch.equal(got, torch.from_numpy(np.repeat(vals, counts)))
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_native_fp_geometry_stores_16_bytes_per_thread(width):
+    geom = native_config("fp", out_width=width)
+    assert geom.C * width == 16 and geom.S % 32 == 0
+    assert geom.tile % 128 == 0
+    assert native_config("fp") == native_config("fp", out_width=4) == Geometry(4, 256, 4)
+    # the buffer a native block stages at 32 bits: 16 KB and a vector
+    assert stage_words(geom) * 4 == 16 * 1024 + 16
+
+
+@pytest.mark.parametrize("bw", range(33))
+def test_stage_words_hold_every_tile_window(bw):
+    """Count, with numpy, the words each element's bits touch, from the word of
+    the tile's first bit aligned down to 16 bytes (a buffer may start at any
+    word, so 0-3 words before it), through the last element's second word;
+    in whole 16-byte vectors that is what the kernel stages, and it must fit.
+    Tiles start at block boundaries and, as a chunk of a column may, off them."""
+    for geom in FP_GEOMS:
+        cap = stage_words(geom)
+        assert cap % 4 == 0 and 0 < cap * 4 <= MAX_STAGE_BYTES
+        for e0 in (0, geom.tile, 777 * geom.tile, 5, 12_345_679):
+            i = np.arange(e0, e0 + geom.tile, dtype=np.int64)
+            first = (i * bw) >> 5                  # the word holding an element's first bit
+            last_bit = i * bw + max(bw, 1) - 1
+            assert np.all((last_bit >> 5) <= first + 1)   # its bits lie in two words
+            for shift in range(4):
+                slots = int((first + 1).max()) - (int(first[0]) - shift) + 1
+                assert (slots + 3) // 4 * 4 <= cap, (geom, e0, shift)
+
+
+def test_stage_words_cap_wide_tiles():
+    """A tile whose words at 32 bits exceed the cap stages up to the cap (the
+    kernel takes its per-element path for wider windows)."""
+    geom = Geometry(32, 256, 4)
+    assert stage_words(geom) * 4 == MAX_STAGE_BYTES
+    assert geom.tile * 4 > MAX_STAGE_BYTES
