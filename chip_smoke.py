@@ -30,12 +30,24 @@ non-zero before the final line:
      thread's 16 bytes; an rANS sweep (chunk sizes 256, 1000 and 4096; uint8,
      int32 and float32 items; a skewed, a one-symbol and a uniform 256-symbol
      alphabet; lengths that are not a multiple of the chunk size; a rule-4
-     tail; tables outside the packed layout);
+     tail; tables outside the packed layout).  Then the chunk and span entries
+     at 1 MiB chunks: one element chunk of each column that splits (kernel 1),
+     every span of L_ORDERKEY under the reference's ``rle`` candidate plan and
+     of O_ORDERKEY under ``deltastride`` (kernel 2), and L_RETURNFLAG's rANS
+     spans (kernel 3; two of them against the plain version, which takes
+     about a second a call, all of them through the column's equality with
+     its whole decode), each timed beside the whole-column launch;
   4. the main path: ``ColumnPipeline(..., device="cuda").run()`` once cold and
      ``WARM_RUNS`` times warm, with the launch counts zeroed just before; every
      column must equal its source bitwise.  Then the same blobs through the
-     plain backend, and one more warm run under ``torch.profiler`` for the
-     device's busy time by kind;
+     plain backend, and one more warm run of this path and of the 1 MiB
+     chunked path under one ``torch.profiler`` session for the device's busy
+     time by kind.  Then the plain-copy yardstick (the plain
+     columns copied from pinned memory on the executor's copy stream), and the
+     chunked paths: ``ColumnPipeline(..., chunk_bytes=1 << 20,
+     chunk_decode=True)`` and the same at 4 MiB, each cold and ``WARM_RUNS``
+     times warm with the counts zeroed just before, every column equal to its
+     source; and the same for the two kernel-2 span columns;
   5. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line,
      the card's name and power limit from ``nvidia-smi``, and last
      ``{"ok": true, "device": {...}}``.
@@ -76,6 +88,14 @@ WARM_RUNS = 5
 # (33.5 TOP/s, Hopper architecture white paper)
 NP_OPS_PER_SYMBOL = 12
 INT32_OPS_PER_S = 33.5e12
+CHUNK_SIZES = (1 << 20, 4 << 20)  # chunk_bytes of the chunked paths
+# kernel 2's span columns: the reference's candidate plans of the key columns
+# (no Table-2 column reaches a Group-Parallel span at SF 1)
+SPAN_PLANS = {"L_ORDERKEY": "rle", "O_ORDERKEY": "deltastride"}
+# decode units per run the reference's ``StreamingExecutor.chunk_schedule``
+# gives the 24 Table-2 columns at SF 1, seed 0
+REF_UNITS_SF1 = {1 << 20: 109, 4 << 20: 41}
+NP_PLAIN_SPANS = 2                # rANS spans held against the plain version
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -151,6 +171,26 @@ def long_words(n_words: int, rng) -> np.ndarray:
     return text.astype(np.uint8)
 
 
+def mib(chunk_bytes: int) -> str:
+    """A chunk size as a label: 1MiB, 4MiB, 64KiB."""
+    return f"{chunk_bytes >> 20}MiB" if chunk_bytes >= 1 << 20 else f"{chunk_bytes >> 10}KiB"
+
+
+def unit_env(enc, sched, k: int, whole_env: dict, device="cuda") -> dict:
+    """What chunk k of ``sched`` reads, on the card: the whole buffers and its
+    own slices of the sliced leaves (row-capped stripes included)."""
+    from repro_torch.core.compiler import device_layout
+    from repro_torch.core.plan import host_operands
+
+    ops = host_operands(enc)
+    env = {n: (torch.from_numpy(device_layout(sched.host_push[n])).to(device)
+               if n in sched.host_push else whole_env[n]) for n in sched.whole}
+    for leaf in sched.slices:
+        env[leaf] = torch.from_numpy(device_layout(
+            sched.piece(np.asarray(ops[leaf]), leaf, k))).to(device)
+    return env
+
+
 def profiled_ms(calls, flush: torch.Tensor, reps: int = 5) -> list[float]:
     """Median device time of each ``(fn, kernel)`` of ``calls`` over ``reps``
     calls of fn, as ``torch.profiler`` reads it (no launch latency, unlike CUDA
@@ -196,9 +236,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.compiler import build_graph, device_buffers
+    from repro_torch.core.compiler import build_graph, device_buffers, span_stage
     from repro_torch.core.executor import StreamingExecutor
     from repro_torch.core.geometry import Geometry, chip_from_device, native_config
+    from repro_torch.core.ir import group_chunk_layout
     from repro_torch.core.fusion import fuse
     from repro_torch.algos.bitpack import pack_np
     from repro_torch.core.patterns import (AFFINE, BYTES, IDENTITY, LOAD, STRGATHER,
@@ -517,8 +558,109 @@ def main() -> int:
     if decode_table(env[dec.sym_tab], env[dec.freq_tab], env[dec.cum_tab])[1]:
         raise AssertionError("the altered tables still fit the packed layout")
     check(dec, env, "ans three-table path", False)
+
+    # the chunk and span entries, at the shapes the chunked path gives them
+    chunk_pipes = {cb: ColumnPipeline(dict(TABLE2_PLANS), device="cuda", chunk_bytes=cb,
+                                      chunk_decode=True) for cb in CHUNK_SIZES}
+    span_pipes = {cb: ColumnPipeline({c: make_plan(p) for c, p in SPAN_PLANS.items()},
+                                     device="cuda", chunk_bytes=cb, chunk_decode=True)
+                  for cb in CHUNK_SIZES}
+    for cb in CHUNK_SIZES:
+        chunk_pipes[cb].load({c: pipe.encoded(c) for c in columns})
+        if cb == CHUNK_SIZES[0]:
+            span_pipes[cb].compress({c: cols[c] for c in SPAN_PLANS})
+        else:
+            span_pipes[cb].load({c: span_pipes[CHUNK_SIZES[0]].encoded(c)
+                                 for c in SPAN_PLANS})
+    entries = []          # one record per timed chunk or span entry
+
+    def entry(kname, col, what, n, call, whole_call, whole_n, plain_call=None,
+              plain_reps=None):
+        rec = {"kernel": kname, "column": col, "entry": what, "n": n,
+               "ms": timer.ms(call), "whole_n": whole_n, "whole_ms": timer.ms(whole_call),
+               "plain_ms": None if plain_call is None else timer.ms(plain_call, plain_reps)}
+        entries.append(rec)
+
+    def check_entries(p_, col):
+        sched = p_.executor.chunk_schedule(col)
+        if sched is None:
+            return
+        enc, graph = p_.encoded(col), p_.executor.graph(col)
+        whole_env = device_buffers(enc)
+        want = torch.from_numpy(cols[col])
+        out = torch.empty(graph.n_out, dtype=ref.torch_dtype(graph.out_dtype), device="cuda")
+        K = sched.n_chunks
+        if sched.kind == "element":
+            (st,) = graph.stages           # one fused chain on every Table-2 column
+            k = K // 2
+            env = unit_env(enc, sched, k, whole_env)
+            s, n = sched.out_starts[k], sched.out_sizes[k]
+            fully_parallel(st, env, n=n, out=out[s:s + n])
+            err["fully_parallel"] = max(err["fully_parallel"], same(
+                out[s:s + n], ref.fully_parallel_torch(st, env, n), f"{col} chunk {k}"))
+            compared["fully_parallel"] += 1
+            same(out[s:s + n].cpu(), want[s:s + n], f"{col} chunk {k} vs source")
+            entry("fully_parallel", col, f"chunk {k}/{K}", n,
+                  lambda: fully_parallel(st, env, n=n, out=out[s:s + n]),
+                  lambda: fully_parallel(st, whole_env), st.n_out,
+                  lambda: ref.fully_parallel_torch(st, env, n))
+            return
+        layout = group_chunk_layout(graph)
+        if graph.stages[layout.stage_index + 1:]:
+            raise AssertionError(f"{col}: a stage after the group stage")
+        pro = p_.executor.cache.get_group_prologue(graph, "kernel")
+        resident = pro(unit_env(enc, sched, 0, whole_env)) if pro is not None else {}
+        st, gst = span_stage(graph), graph.stages[layout.stage_index]
+        envs = [{**unit_env(enc, sched, k, whole_env), **resident} for k in range(K)]
+        whole = {**whole_env, **resident}
+        for k, env in enumerate(envs):
+            s, n, g0, gz = (sched.out_starts[k], sched.out_sizes[k], sched.g_starts[k],
+                            sched.g_sizes[k])
+            if layout.kind == "gp":
+                group_parallel(st, env, out=out[s:s + n], out_start=s, g_start=g0,
+                               n_valid=n, g_size=gz)
+                err["group_parallel"] = max(err["group_parallel"], same(
+                    out[s:s + n], ref.group_parallel_torch(st, env, s, g0, n),
+                    f"{col} span {k}"))
+                compared["group_parallel"] += 1
+            else:
+                non_parallel(st, env, n_chunks=gz, n=n, out=out[s:s + n])
+                if k in (0, K - 1)[:NP_PLAIN_SPANS]:
+                    err["non_parallel"] = max(err["non_parallel"], same(
+                        out[s:s + n], ref.non_parallel_torch(st, env, gz, n),
+                        f"{col} span {k}"))
+                    compared["non_parallel"] += 1
+        kname = "group_parallel" if layout.kind == "gp" else "non_parallel"
+        same(out, run_stage(gst, whole, "kernel"), f"{col}: {K} spans vs whole decode")
+        same(out.cpu(), want, f"{col}: {K} spans vs source")
+        s, n, g0, gz = (sched.out_starts[0], sched.out_sizes[0], sched.g_starts[0],
+                        sched.g_sizes[0])
+        if layout.kind == "gp":
+            entry(kname, col, f"span 0/{K}", n,
+                  lambda: group_parallel(st, envs[0], out=out[s:s + n], out_start=s,
+                                         g_start=g0, n_valid=n, g_size=gz),
+                  lambda: group_parallel(gst, whole), gst.n_out,
+                  lambda: ref.group_parallel_torch(st, envs[0], s, g0, n))
+        else:
+            entry(kname, col, f"span 0/{K}", n,
+                  lambda: non_parallel(st, envs[0], n_chunks=gz, n=n, out=out[s:s + n]),
+                  lambda: non_parallel(gst, whole), gst.n_out,
+                  lambda: ref.non_parallel_torch(st, envs[0], gz, n), 1)
+
+    for col in columns:
+        check_entries(chunk_pipes[CHUNK_SIZES[0]], col)
+    for col in SPAN_PLANS:
+        check_entries(span_pipes[CHUNK_SIZES[0]], col)
+    for kname in KERNELS:
+        if not any(r["kernel"] == kname for r in entries):
+            raise AssertionError(f"no chunk or span entry of {kname} was checked")
     print(f"compare: {compared} kernel launches bitwise equal to plain, of them "
           f"kernel-1 cases {fp_cases} ({time.perf_counter() - t0:.1f} s)")
+    for r in entries:
+        plain = "" if r["plain_ms"] is None else f" plain_ms {r['plain_ms']:.4f}"
+        print(f"entry {r['kernel']:14s} {r['column']:16s} {r['entry']:12s} n {r['n']:9d} "
+              f"ms {r['ms']:.4f} whole_n {r['whole_n']:9d} whole_ms {r['whole_ms']:.4f}"
+              f"{plain}")
     for r in stages:
         lib = "" if r["library_ms"] is None else f" library_ms {r['library_ms']:.4f}"
         lib += "".join(f" {k} {r[k]:.4f}" for k in ("profiler_ms",) + tuple(
@@ -553,32 +695,123 @@ def main() -> int:
     pres = None
     for r in res.values():
         r.array = None  # keep the records, free the columns before the traced run
-    # one more warm run under the profiler: where the device's time goes
+    # one more warm run under the profiler, and one of the chunked path at
+    # 1 MiB (warmed up first), in one session: where the device's time goes
+    chunk_trace = chunk_pipes[CHUNK_SIZES[0]]
+    chunk_trace.run()
+    marks = {"whole": pipe, f"chunked {mib(CHUNK_SIZES[0])}": chunk_trace}
+    traced_ms = {}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        traced = pipe.run()
-    device_ms = {"h2d_copy": 0.0, **{k: 0.0 for k in KERNELS}, "torch_ops": 0.0}
-    spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = ("h2d_copy" if "Memcpy" in e.name else
-                "fully_parallel" if "zf_fully_parallel" in e.name else
-                "group_parallel" if "zf_group_parallel" in e.name else
-                "non_parallel" if "zf_non_parallel" in e.name else "torch_ops")
-        device_ms[kind] += e.time_range.elapsed_us() / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
-    busy_us, reach = 0.0, float("-inf")
-    for a, b in sorted(spans):          # union of device intervals
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    traced_ms = pipe.makespan_s * 1e3
-    if sum(device_ms.values()) <= 0:
-        raise AssertionError("the profiled run shows no device work")
-    print("device " + " ".join(f"{k}_ms {v:.4f}" for k, v in device_ms.items())
-          + f" busy_ms {busy_us / 1e3:.4f} traced_makespan_ms {traced_ms:.4f} "
-          f"busy_share {busy_us / 1e3 / traced_ms:.4f}")
-    traced = None
+        for label, p_ in marks.items():
+            with torch.profiler.record_function(f"run {label}"):
+                traced = p_.run()
+            traced_ms[label] = p_.makespan_s * 1e3
+            traced = None
+    events = prof.events()
+    for label in marks:
+        (m,) = [e for e in events if e.name == f"run {label}"
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        device_ms = {"h2d_copy": 0.0, **{k: 0.0 for k in KERNELS}, "torch_ops": 0.0}
+        spans = []
+        for e in events:
+            # the device timeline also carries each record_function range (a
+            # user annotation per stream, named like it), which is not work
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("run ") \
+                    or not m.time_range.start <= e.time_range.start <= m.time_range.end:
+                continue
+            kind = ("h2d_copy" if "Memcpy" in e.name else
+                    "fully_parallel" if "zf_fully_parallel" in e.name else
+                    "group_parallel" if "zf_group_parallel" in e.name else
+                    "non_parallel" if "zf_non_parallel" in e.name else "torch_ops")
+            device_ms[kind] += e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+        busy_us, reach = 0.0, float("-inf")
+        for a, b in sorted(spans):          # union of device intervals
+            busy_us += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+        if sum(device_ms.values()) <= 0:
+            raise AssertionError(f"the profiled {label} run shows no device work")
+        print(f"device {label} " + " ".join(f"{k}_ms {v:.4f}" for k, v in device_ms.items())
+              + f" busy_ms {busy_us / 1e3:.4f} traced_makespan_ms {traced_ms[label]:.4f} "
+              f"busy_share {busy_us / 1e3 / traced_ms[label]:.4f}")
+
+    # the plain-copy yardstick: the plain columns from pinned memory to the card
+    # on the executor's copy stream, what moving them uncompressed would take
+    stream = pipe.executor.copy_stream
+    host_plain = [torch.from_numpy(cols[c].reshape(-1).view(np.uint8)).pin_memory()
+                  for c in columns]
+    dev_plain = [torch.empty_like(h, device="cuda") for h in host_plain]
+    copy_ms = []
+    for _ in range(WARM_RUNS + 1):       # the first copy warms up
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            a.record(stream)
+            for h, d in zip(host_plain, dev_plain):
+                d.copy_(h, non_blocking=True)
+            b.record(stream)
+        b.synchronize()
+        copy_ms.append(a.elapsed_time(b))
+    for c, d in zip(columns, dev_plain):
+        same(d.cpu(), torch.from_numpy(cols[c].reshape(-1).view(np.uint8)), f"plain copy {c}")
+    plain_copy_ms = float(np.median(copy_ms[1:]))
+    host_plain = dev_plain = None
+
+    # the chunked paths: per-chunk decode at 1 MiB and 4 MiB, and kernel 2's
+    # span columns, each driven with the counts zeroed just before
+    chunked = {}
+
+    def drive(p_, names, label):
+        for lib in libs:
+            lib.launches = 0
+        spans, hosts, out = [], [], None
+        for run in ("cold",) + ("warm",) * WARM_RUNS:
+            out = None
+            t0 = time.perf_counter()
+            out = p_.run()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            for col in names:
+                same(bits(out[col].array.cpu()), bits(torch.from_numpy(cols[col])),
+                     f"{label} {run} run {col} vs source")
+            spans.append(p_.makespan_s * 1e3)
+        counts = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+        for col in names:
+            r = out[col]
+            sched = p_.executor.chunk_schedule(col)
+            if sched is not None and r.decode_launches < sched.n_chunks:
+                raise AssertionError(f"{label} {col}: {r.decode_launches} decode units "
+                                     f"for {sched.n_chunks} chunks")
+            print(f"chunked {label:22s} {col:16s} n_chunks {r.n_chunks:4d} decode_launches "
+                  f"{r.decode_launches:4d} chunk_decoded {int(r.chunk_decoded)} transfer_ms "
+                  f"{r.transfer_s * 1e3:.4f} decode_ms {r.decode_s * 1e3:.4f} "
+                  f"kernel_launches {r.kernel_launches}")
+        units = sum(out[c].decode_launches for c in names)
+        rec = {"makespan_ms": float(np.median(spans[1:])),
+               "makespan_ms_cold": spans[0], "makespan_ms_warm_min": min(spans[1:]),
+               "makespan_ms_warm_max": max(spans[1:]),
+               "host_run_ms": float(np.median(hosts[1:])), "decode_units_per_run": units,
+               "kernel_launches_per_run": sum(counts.values()) // len(spans),
+               "launches": counts}
+        print(f"chunked {label} totals " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items() if k != "launches") + f" launches {counts}")
+        return rec
+
+    for cb in CHUNK_SIZES:
+        rec = drive(chunk_pipes[cb], columns, f"table2 {mib(cb)}")
+        if min(rec["launches"].values()) <= 0:
+            raise AssertionError(f"a kernel did not run on the chunked path: {rec}")
+        if args.scale == 1.0 and args.seed == 0 \
+                and rec["decode_units_per_run"] != REF_UNITS_SF1[cb]:
+            raise AssertionError(f"{rec['decode_units_per_run']} decode units at "
+                                 f"{mib(cb)}, the reference's schedule gives "
+                                 f"{REF_UNITS_SF1[cb]}")
+        chunked[f"table2 {mib(cb)}"] = rec
+        span = drive(span_pipes[cb], tuple(SPAN_PLANS), f"span columns {mib(cb)}")
+        if span["launches"]["group_parallel"] <= 0:
+            raise AssertionError(f"kernel 2 did not run on the span path: {span}")
+        chunked[f"span columns {mib(cb)}"] = span
+        chunk_pipes[cb] = span_pipes[cb] = None
 
     # ---------------------------------------------------------------- phase 5
     makespan = float(np.median(makespans[1:]))
@@ -601,14 +834,24 @@ def main() -> int:
               "makespan_ms_warm_max": max(makespans[1:]) * 1e3,
               "host_run_ms": float(np.median(host_ms[1:])),
               "plain_backend_makespan_ms": plain_exec.last_makespan_s * 1e3,
-              "effective_plain_gbps": plain_b / makespan / 1e9}
+              "effective_plain_gbps": plain_b / makespan / 1e9,
+              "plain_copy_ms": plain_copy_ms,
+              "plain_copy_gbps": plain_b / plain_copy_ms / 1e6,
+              "launches_per_run": sum(launches.values()) // len(makespans)}
+    for cb in CHUNK_SIZES:
+        rec = chunked[f"table2 {mib(cb)}"]
+        totals[f"chunked_{mib(cb)}_makespan_ms"] = rec["makespan_ms"]
+        totals[f"chunked_{mib(cb)}_host_run_ms"] = rec["host_run_ms"]
+        totals[f"chunked_{mib(cb)}_decode_units"] = rec["decode_units_per_run"]
+        totals[f"chunked_{mib(cb)}_launches_per_run"] = rec["kernel_launches_per_run"]
     print("totals " + " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                                for k, v in totals.items()))
-    entries = []
+    kernels = []
     for kname, (source, replaces) in KERNELS.items():
         mine = [r for r in stages if r["kernel"] == kname]
         big = max(mine, key=lambda r: (r["library_ms"] is not None, r["bytes"]))
-        entries.append({
+        ent = max((r for r in entries if r["kernel"] == kname), key=lambda r: r["n"])
+        kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": err[kname],
             "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
@@ -618,13 +861,18 @@ def main() -> int:
             "main_path_ms": sum(r["ms"] for r in mine),
             "main_path_plain_ms": sum(r["plain_ms"] for r in mine),
             "main_path_bound_ms": sum(r["bound_ms"] for r in mine),
-            "main_path_profiler_ms": sum(r["profiler_ms"] for r in mine)})
+            "main_path_profiler_ms": sum(r["profiler_ms"] for r in mine),
+            "chunked_launches_per_run": {k: v["launches"][kname] // (WARM_RUNS + 1)
+                                         for k, v in chunked.items()},
+            "entry": {k: ent[k] for k in ("column", "entry", "n", "ms", "whole_n",
+                                          "whole_ms", "plain_ms")}})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": name, "stages": stages,
                                         "columns": rows, "totals": totals,
-                                        "kernels": entries}, indent=1))
-    print(json.dumps({"kernels": entries}))
+                                        "entries": entries, "chunked": chunked,
+                                        "kernels": kernels}, indent=1))
+    print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)

@@ -27,11 +27,13 @@ main-path stages that run them:
             only); ``search+stage`` (and the window staged, no outputs)
 
 With ``--baseline CSRC_DIR`` (the ``csrc`` directory of another tree, e.g. the
-parent commit unpacked beside this one) that tree's kernel 1 is built as
-variant ``baseline`` and run at the native geometry kernel 1 had before its
-redesign, <4,256,1>, and every kernel-1 launch of all 24 columns' main path is
-timed for ``committed`` and ``baseline`` by CUDA events and by
-``torch.profiler``.
+parent commit unpacked beside this one) that tree's three kernels are built as
+variant ``baseline`` and run at this tree's native geometry beside the
+committed ones on every stage above, and every kernel-1 launch of all 24
+columns' main path is timed for ``committed`` and ``baseline`` by CUDA events
+and by ``torch.profiler``.  An older kernel whose argument struct is a prefix
+of today's (fields are only ever appended) loads as it is: kernel 2's span
+fields ``out_start`` and ``g_start`` are zero on a whole column.
 
 The committed kernels (and the baseline) must equal the plain versions
 bitwise; the variants compute something else and are only timed.  Times: CUDA
@@ -61,8 +63,6 @@ FP_SOURCE_ONLY = "  if (fast && ch.n_ops == 1) {\n"
 FP_TRANSFORMS_K = "    if constexpr (K <= 4) zf_transforms_k(ch, 1, v, scale_of);\n"
 FP_DIVIDE = "      return __float_as_uint(__fdiv_rn(x, scale()));\n"
 FP_MULTIPLY = "      return __float_as_uint(x * scale());\n"
-# the baseline runs at the native geometry kernel 1 had before its redesign
-BASELINE_GEOM_LSC = (4, 256, 1)
 GP_NP_COLS = ("L_RETURNFLAG", "O_COMMENT", "L_ORDERKEY")
 FP_STAGES = {("L_PARTKEY", "bitpack"), ("L_SHIPDATE", "bitpack+dict-lookup"),
              ("L_EXTENDEDPRICE", "bitpack+f2i-scale"), ("O_COMMENT", "word-lengths"),
@@ -76,8 +76,8 @@ NP_STORE = "  zf_store_packed<W, !kTail>(static_cast<typename ZfOut<W>::T*>(a.ou
 NP_FOLD = ("  uint32_t fold = 0;\n  for (int32_t t = 0; t < steps; ++t) fold ^= step();\n"
            "  if (fold == 0x12345678u) static_cast<uint8_t*>(a.out)[first] = 1;\n")
 GP_SEARCHED = "  int64_t gb = win;\n"
-GP_EMIT = "    const int64_t i0 = o0 + threadIdx.x * a.C;\n"
-GP_NO_EMIT = GP_EMIT + "    if (i0 >= 0) {\n      gb = g_hi;\n      __syncthreads();\n      continue;\n    }\n"
+GP_EMIT = "    const int64_t t0 = o0 + threadIdx.x * a.C;\n"
+GP_NO_EMIT = GP_EMIT + "    if (hi > lo) {\n      gb = g_hi;\n      __syncthreads();\n      continue;\n    }\n"
 VARIANTS = {
     "fully_parallel": {"staging": [(FP_OUTPUTS, "    if (a.n > 0) return;\n" + FP_OUTPUTS)],
                        "global": [(FP_STAGED, "      staged = false;\n"),
@@ -96,7 +96,7 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="csrc directory whose fully_parallel.cu is timed as 'baseline'")
+                    help="csrc directory whose kernels are timed as 'baseline'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
@@ -133,7 +133,8 @@ def main() -> int:
                 (d / f).write_text(text)
             sources[kname, vname] = d / f"{kname}.cu"
     if args.baseline is not None:
-        sources["fully_parallel", "baseline"] = args.baseline / "fully_parallel.cu"
+        for kname in VARIANTS:
+            sources[kname, "baseline"] = args.baseline / f"{kname}.cu"
     procs = {}
     for (kname, vname), src in sources.items():
         so = work / f"lib{kname}-{vname}.so"
@@ -160,7 +161,6 @@ def main() -> int:
 
     timer = Timer()
     ms = timer.ms
-    base_geom = Geometry(*BASELINE_GEOM_LSC)
     fp_all = args.baseline is not None      # every kernel-1 launch of the main path
     cols = tuple(TABLE2_PLANS) if fp_all else GP_NP_COLS + tuple(
         sorted({c for c, _ in FP_STAGES} - set(GP_NP_COLS)))
@@ -189,8 +189,8 @@ def main() -> int:
         elif named:
             c = 16 // plain.element_size()
             runs += [("committed", Geometry(L, 256, c)) for L in (1, 2, 4, 8)]
-        if kname == "fully_parallel" and ("fully_parallel", "baseline") in libs:
-            runs.append(("baseline", base_geom))
+        if (kname, "baseline") in libs:
+            runs.append(("baseline", None))
         times = {}
         for vname, geom in runs + runs[::-1]:
             mod.KERNEL = libs[kname, vname]
@@ -205,7 +205,7 @@ def main() -> int:
                      **{k: float(np.median(v)) for k, v in times.items()}})
         if kname == "fully_parallel":
             for vname, geom in runs:
-                if vname in ("committed", "baseline") and geom in (None, base_geom):
+                if vname in ("committed", "baseline") and geom is None:
                     profiled.append((rows[-1], vname, libs[kname, vname],
                                      lambda geom=geom: fn(st, env, geom)))
         mod.KERNEL = libs[kname, "committed"]
@@ -238,11 +238,17 @@ def main() -> int:
         row[f"profiler {vname}"] = t_ms
     fpm.KERNEL = libs["fully_parallel", "committed"]
     mine = [r for r in rows if r["kernel"] == "fully_parallel"]
-    for key, events in (("committed", "committed"), ("baseline", f"baseline {base_geom}")):
+    for key in ("committed", "baseline"):
         if fp_all:
             print(f"fully_parallel {key}: {len(mine)} launches, events_ms "
-                  f"{sum(r[events] for r in mine):.4f} profiler_ms "
+                  f"{sum(r[key] for r in mine):.4f} profiler_ms "
                   f"{sum(r['profiler ' + key] for r in mine):.4f}")
+    for kname in ("group_parallel", "non_parallel"):
+        theirs = [r for r in rows if r["kernel"] == kname and "baseline" in r]
+        if theirs:
+            print(f"{kname}: {len(theirs)} launches, events_ms committed "
+                  f"{sum(r['committed'] for r in theirs):.4f} baseline "
+                  f"{sum(r['baseline'] for r in theirs):.4f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()

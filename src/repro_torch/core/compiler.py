@@ -15,6 +15,13 @@ Backends:
 PyTorch runs eagerly, so a program is the fused stage list and its backend; the
 one-time cost of a structure is building the CUDA libraries, done once per
 process (``repro_torch.kernels.cuda``).
+
+Streamed decode adds three programs, cached per structure like the whole one:
+``ChunkProgram`` (one element chunk), ``PrologueProgram`` (what precedes a
+graph's group stage, once per column) and ``GroupChunkProgram`` (one span of
+whole groups).  Each calls the stages' chunk or span entries through
+``kernels/ops.run_stage`` with its offsets and writes its range of the
+column's output in place, so no concatenation follows.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ import torch
 
 from repro_torch.core import fusion as fusion_mod
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.ir import DecodeGraph
+from repro_torch.core.ir import DecodeGraph, element_chunk_layout, group_chunk_layout
+from repro_torch.core.patterns import LOAD, GroupParallel
 from repro_torch.kernels.ops import BACKENDS, run_stage
 
 
@@ -54,11 +62,174 @@ class Program:
         return out
 
 
-def compile_graph(graph: DecodeGraph, backend: str = "torch") -> Program:
-    """Compile a DecodeGraph to a Program (no caching -- see ProgramCache)."""
+def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+
+
+def compile_graph(graph: DecodeGraph, backend: str = "torch") -> Program:
+    """Compile a DecodeGraph to a Program (no caching -- see ProgramCache)."""
+    _check_backend(backend)
     return Program(graph=graph, backend=backend)
+
+
+@dataclasses.dataclass
+class ChunkProgram:
+    """Per-chunk decode of an element-chunkable graph: one call decodes output
+    elements ``[out_start, out_start + chunk_elems)`` from the chunk's slices of
+    the tiled leaves (plus the whole-resident tables and meta operands) into
+    that range of ``out``.  Chunk boundaries are multiples of the layout's
+    ``align``, so every slice starts at the chunk's first element and each
+    stage runs over local indices ``0 .. chunk_elems``."""
+
+    graph: DecodeGraph
+    chunk_elems: int
+    backend: str
+    calls: int = 0
+
+    def __call__(self, bufs: dict[str, torch.Tensor], out_start: int,
+                 out: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        env = dict(bufs)
+        n = self.chunk_elems
+        last = len(self.graph.stages) - 1
+        for k, st in enumerate(self.graph.stages):
+            dst = out[out_start:out_start + n] if k == last else None
+            env[st.out] = run_stage(st, env, self.backend, n=n, out=dst)
+        return out
+
+
+def compile_chunk_graph(graph: DecodeGraph, chunk_elems: int,
+                        backend: str = "torch") -> ChunkProgram:
+    _check_backend(backend)
+    if element_chunk_layout(graph) is None:
+        raise ValueError(f"graph {graph.nesting!r} is not element-chunkable")
+    return ChunkProgram(graph=graph, chunk_elems=int(chunk_elems), backend=backend)
+
+
+@dataclasses.dataclass
+class PrologueProgram:
+    """One decode of everything before a graph's group stage (presum Aux ops,
+    nested child decodes) over whole-resident leaves; returns the resident
+    intermediates the span launches read."""
+
+    graph: DecodeGraph
+    backend: str
+    calls: int = 0
+
+    def __call__(self, bufs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        self.calls += 1
+        layout = group_chunk_layout(self.graph)
+        env = dict(bufs)
+        for st in self.graph.stages[:layout.stage_index]:
+            env[st.out] = run_stage(st, env, self.backend)
+        return {nm: env[nm] for nm in layout.resident}
+
+
+def _has_prologue(graph: DecodeGraph) -> bool:
+    """Whether the spans read anything that precedes the group stage."""
+    layout = group_chunk_layout(graph)
+    if layout is None:
+        raise ValueError(f"graph {graph.nesting!r} is not group-chunkable")
+    return layout.stage_index > 0 and bool(layout.resident)
+
+
+def compile_group_prologue(graph: DecodeGraph,
+                           backend: str = "torch") -> PrologueProgram | None:
+    """None when nothing the spans read precedes the group stage."""
+    _check_backend(backend)
+    return PrologueProgram(graph=graph, backend=backend) if _has_prologue(graph) else None
+
+
+def span_stage(graph: DecodeGraph):
+    """The group stage as each span runs it.  A value input the layout grafts
+    (``span_graft``: StringDict's index, also read by the word-length prologue
+    the host-pushed presum replaces) is re-evaluated from its Fully-Parallel
+    producer: the producer's chain replaces the value chain's ``LOAD``, as
+    fusion rule 2 would have done had the index had one consumer, so the
+    kernel decodes it at ``g - g_start`` from the span's slice of the packed
+    leaf."""
+    layout = group_chunk_layout(graph)
+    gst = graph.stages[layout.stage_index]
+    if not layout.span_graft:
+        return gst
+    values, inputs, specs = [], [], []
+    for chain in gst.values:
+        src = chain[0]
+        if src.kind == LOAD and src.bufs[0] in layout.span_graft:
+            chain = graph.stages[layout.span_graft[src.bufs[0]]].chain + chain[1:]
+        values.append(chain)
+    for name, spec in zip(gst.value_inputs, gst.value_specs):
+        if name in layout.span_graft:
+            prod = graph.stages[layout.span_graft[name]]
+            pairs = zip(prod.inputs, prod.specs)
+        else:
+            pairs = ((name, spec),)
+        for nm, sp in pairs:
+            if nm not in inputs:
+                inputs.append(nm)
+                specs.append(sp)
+    return dataclasses.replace(gst, values=tuple(values), value_inputs=tuple(inputs),
+                               value_specs=tuple(specs), identity_values=False)
+
+
+@dataclasses.dataclass
+class GroupChunkProgram:
+    """Per-span decode of a group-chunkable graph: one call decodes the
+    ``g_size`` whole groups from ``g_start``, the ``n_valid`` outputs from
+    ``out_start``, into that range of ``out``.
+
+    A Group-Parallel span searches the whole-resident presum at global output
+    indices and evaluates its value chains at ``g - g_start`` over its slices
+    (kernel 2's span entry); a Non-Parallel span decodes its own stripe of the
+    rANS streams (kernel 3 with ``n_chunks = g_size`` and the stripe's row cap
+    as ``max_words``), cut at the end of the stream.  Trailing Fully-Parallel
+    stages run over the span's local intermediates.  The reference pads a
+    span's launch to ``pad_elems`` and trims; writing the ``n_valid`` outputs in
+    place gives the same bits.  ``pad_elems`` stays in the cache key, so body
+    spans share one program and the tail gets a second, as in the reference."""
+
+    graph: DecodeGraph
+    g_size: int
+    pad_elems: int
+    backend: str
+    calls: int = 0
+
+    def __post_init__(self):
+        layout = group_chunk_layout(self.graph)
+        self._stage = span_stage(self.graph)
+        self._post = self.graph.stages[layout.stage_index + 1:]
+
+    def __call__(self, bufs: dict[str, torch.Tensor], out_start: int, g_start: int,
+                 n_valid: int, out: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        env = dict(bufs)
+        gst = self._stage
+        final = out[out_start:out_start + n_valid]
+        dst = None if self._post else final
+        if isinstance(gst, GroupParallel):
+            env[gst.out] = run_stage(gst, env, self.backend, out=dst,
+                                     out_start=out_start, g_start=g_start,
+                                     n_valid=n_valid, g_size=self.g_size)
+        else:
+            # symbols (bytes) of this span, the last span cut at the stream's end
+            cs = gst.chunk_size
+            n_sym = min(self.g_size * cs, gst.n_out - g_start * cs)
+            env[gst.out] = run_stage(gst, env, self.backend, out=dst,
+                                     n_chunks=self.g_size, n=n_sym)
+        for k, st in enumerate(self._post):
+            dst = final if k == len(self._post) - 1 else None
+            env[st.out] = run_stage(st, env, self.backend, n=n_valid, out=dst)
+        return out
+
+
+def compile_group_chunk_graph(graph: DecodeGraph, g_size: int, pad_elems: int,
+                              backend: str = "torch") -> GroupChunkProgram:
+    _check_backend(backend)
+    if group_chunk_layout(graph) is None:
+        raise ValueError(f"graph {graph.nesting!r} is not group-chunkable")
+    return GroupChunkProgram(graph=graph, g_size=int(g_size), pad_elems=int(pad_elems),
+                             backend=backend)
 
 
 class ProgramCache:
@@ -124,6 +295,29 @@ class ProgramCache:
     def get(self, graph: DecodeGraph, backend: str = "torch") -> Program:
         key = (graph.signature, backend)
         return self._get(key, lambda: compile_graph(graph, backend=backend))
+
+    def get_chunk(self, graph: DecodeGraph, chunk_elems: int,
+                  backend: str = "torch") -> ChunkProgram:
+        """One per (structure, chunk size): every body chunk of every column of
+        the structure shares it, and an uneven tail gets a second."""
+        key = (graph.signature, "chunk", int(chunk_elems), backend)
+        return self._get(key, lambda: compile_chunk_graph(graph, chunk_elems, backend))
+
+    def get_group_chunk(self, graph: DecodeGraph, g_size: int, pad_elems: int,
+                        backend: str = "torch") -> GroupChunkProgram:
+        """One per (structure, groups per span, padded span shape)."""
+        key = (graph.signature, "gchunk", int(g_size), int(pad_elems), backend)
+        return self._get(key, lambda: compile_group_chunk_graph(
+            graph, g_size, pad_elems, backend))
+
+    def get_group_prologue(self, graph: DecodeGraph,
+                           backend: str = "torch") -> PrologueProgram | None:
+        """The prologue of a group-chunkable graph; None when the group stage
+        reads nothing a prologue makes (nothing is cached then)."""
+        if not _has_prologue(graph):
+            return None
+        key = (graph.signature, "gprologue", backend)
+        return self._get(key, lambda: compile_group_prologue(graph, backend))
 
 
 def build_graph(enc: plan_mod.Encoded) -> DecodeGraph:

@@ -24,11 +24,17 @@ ColumnResult = ColumnExec
 
 
 class ColumnPipeline:
-    """Transfer + decompress a set of columns through the streaming executor
-    (whole-column FIFO streaming)."""
+    """Transfer + decompress a set of columns through the streaming executor.
+
+    ``chunk_bytes`` and ``chunk_decode`` are the reference's: None (the
+    default) moves each column in one copy and decodes it whole (FIFO); a size
+    moves every leaf in pieces of at most that many bytes; ``chunk_decode=True``
+    also decodes each chunk (element chunk or span of whole groups) of a
+    column that splits in its own launch while later chunks are in flight."""
 
     def __init__(self, plans: dict[str, Plan], device: torch.device | str | None = None,
-                 backend: str | None = None):
+                 backend: str | None = None, chunk_bytes: int | None = None,
+                 chunk_decode: bool = False):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ColumnPipeline runs on CUDA by default and no CUDA "
@@ -48,7 +54,9 @@ class ColumnPipeline:
             cuda.build([FP, GP, NP])
             for lib in (FP, GP, NP):
                 lib.load()
-        self.executor = StreamingExecutor(backend=self.backend, device=device)
+        self.executor = StreamingExecutor(backend=self.backend, device=device,
+                                          chunk_bytes=chunk_bytes,
+                                          chunk_decode=chunk_decode)
         self._encoded: dict[str, plan_mod.Encoded] = {}
 
     def compress(self, columns: dict[str, np.ndarray]) -> dict[str, float]:
@@ -57,10 +65,16 @@ class ColumnPipeline:
         ratios = {}
         for name, arr in columns.items():
             enc = plan_mod.encode(self.plans[name], arr)
-            self._encoded[name] = enc
-            self.executor.compile(name, enc)
+            self.load({name: enc})
             ratios[name] = enc.ratio
         return ratios
+
+    def load(self, encoded: dict[str, plan_mod.Encoded]) -> None:
+        """Stage blobs encoded earlier (by another pipeline's ``compress``, or
+        read back from storage) for transfer, without encoding them again."""
+        for name, enc in encoded.items():
+            self._encoded[name] = enc
+            self.executor.compile(name, enc)
 
     def encoded(self, name: str) -> plan_mod.Encoded:
         return self._encoded[name]
@@ -78,5 +92,6 @@ class ColumnPipeline:
     def run(self, order: list[str] | None = None,
             window: int = 2) -> dict[str, ColumnResult]:
         """Stream + decode the compressed columns (all, or ``order``) in order,
-        ``window`` columns in flight."""
+        ``window`` decode units (columns, or chunks of a per-chunk column) in
+        flight."""
         return self.executor.run(order=order, window=window)

@@ -40,6 +40,17 @@
 // range in global memory, evaluating each group's values where it needs them.
 // The presum must be non-decreasing (counts >= 0), as searchsorted requires.
 //
+// Spans (group-boundary streamed decode).  A launch writes the n_valid outputs
+// [out_start, out_start + n_valid) of the column, out[0] being output
+// out_start.  The presum is the whole column's, searched at global output
+// indices, so g and pos are the whole-column values; the value chains read a
+// span's own slices of their leaves, so they are evaluated at g - g_start.
+// Blocks tile the global index space from the output whose address is 16-byte
+// aligned at or before out[0], so every thread's C outputs keep the alignment
+// of the whole-column launch; the threads at the span's two ends store only
+// their part (zf_store_packed's head and tail).  A whole column is the span
+// out_start = g_start = 0, n_valid = n.
+//
 // Bound on this card: bytes (1-4 bytes written per output; the presum, value
 // and, for StringDict, word bytes read), with a few instructions per output.
 // What holds it back: the first search (dependent global rounds), the
@@ -56,13 +67,15 @@ struct ZfGpArgs {
   ZfOp offs;              // STRGATHER: word offsets
   int32_t map_kind;       // ZF_IDENTITY, ZF_AFFINE or ZF_STRGATHER
   int32_t out_width;      // bytes per output element: 1, 2 or 4
-  void* out;
-  int64_t n;
+  void* out;              // output out_start (a span's first)
+  int64_t n;              // n_valid: outputs written
   int32_t L;
   int32_t C;
+  int64_t out_start;      // global index of out[0] (appended: older kernels load as a prefix)
+  int64_t g_start;        // first group of the value leaves' slices
 };
 
-static_assert(sizeof(ZfGpArgs) == 1112, "ZfGpArgs layout is shared with kernels/cuda.py");
+static_assert(sizeof(ZfGpArgs) == 1128, "ZfGpArgs layout is shared with kernels/cuda.py");
 
 #define ZF_GP_MAX_SMEM (96 * 1024)   // shared bytes a block's window may take
 
@@ -85,10 +98,11 @@ __device__ __forceinline__ int64_t zf_find_group(const int32_t* presum, int64_t 
   return g < 0 ? 0 : (g >= n_groups ? n_groups - 1 : g);
 }
 
-// values[0] at group g, and for STRGATHER the offset of the word it names.
+// values[0] at (global) group g, and for STRGATHER the offset of the word it
+// names; the chains' leaves are the span's slices, which start at g_start.
 template <int kMap>
 __device__ __forceinline__ uint32_t zf_group_value(const ZfGpArgs& a, int64_t g) {
-  const uint32_t v = zf_eval(a.values[0], g);
+  const uint32_t v = zf_eval(a.values[0], g - a.g_start);
   if (kMap != ZF_STRGATHER) return v;
   return zf_read(a.offs.a, a.offs.elem, zf_jnp_index(static_cast<int32_t>(v), a.offs.n));
 }
@@ -134,7 +148,7 @@ struct ZfCursor {
         if (kMap == ZF_AFFINE) val1 = v1[k];
       } else {
         val0 = zf_group_value<kMap>(a, g_lo + k);
-        if (kMap == ZF_AFFINE) val1 = zf_eval(a.values[1], g_lo + k);
+        if (kMap == ZF_AFFINE) val1 = zf_eval(a.values[1], g_lo + k - a.g_start);
       }
     }
     const int64_t pos = i - start;
@@ -149,7 +163,7 @@ struct ZfCursor {
   }
 };
 
-// Outputs [i0, i0 + nc) of one thread.  A full, aligned 16-byte group with no
+// Global outputs [i0, i0 + nc) of one thread.  A full, aligned 16-byte group with no
 // tail (every main-path stage) is unrolled: its K values (for STRGATHER, K
 // independent byte loads) are all requested before the first is packed.
 // Anything else goes through zf_store_packed one output at a time.
@@ -157,7 +171,7 @@ template <int W, class Cursor>
 __device__ __forceinline__ void zf_emit(const ZfGpArgs& a, Cursor& cur, int64_t i0,
                                         int32_t nc) {
   constexpr int K = 16 / W;
-  typename ZfOut<W>::T* o = static_cast<typename ZfOut<W>::T*>(a.out) + i0;
+  typename ZfOut<W>::T* o = static_cast<typename ZfOut<W>::T*>(a.out) + (i0 - a.out_start);
   cur.seek(i0);
   if (nc == K && a.tail.n_ops == 0 && (reinterpret_cast<uintptr_t>(o) & 15u) == 0) {
     uint32_t v[K];
@@ -173,11 +187,12 @@ __device__ __forceinline__ void zf_emit(const ZfGpArgs& a, Cursor& cur, int64_t 
   zf_store_packed<W, false>(o, nc, [&] { return zf_transforms(a.tail, 0, cur.mapped(i++)); });
 }
 
-// A block covers L sub-tiles of S*C consecutive outputs, one after the other.
+// A block covers L sub-tiles of S*C consecutive outputs, one after the other,
+// from `org` (the output at the aligned address at or before out[0]) on.
 // `cap`: groups the shared window holds (S*C + 1, or less where that exceeds
 // ZF_GP_MAX_SMEM); dynamic shared memory holds ps[cap + 1], v0[cap] (, v1[cap]).
 template <int W, int kMap>
-__global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
+__global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap, int64_t org) {
   extern __shared__ int32_t smem[];
   __shared__ int64_t win;
   int32_t* ps = smem;
@@ -185,9 +200,10 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
   uint32_t* v1 = v0 + cap;
   const int64_t S = blockDim.x;
   const int64_t sub = S * a.C;
-  const int64_t o_begin = static_cast<int64_t>(blockIdx.x) * a.L * sub;
+  const int64_t lo = a.out_start, hi = a.out_start + a.n;   // the outputs written
+  const int64_t o_begin = org + static_cast<int64_t>(blockIdx.x) * a.L * sub;
   if (threadIdx.x < 32) {
-    const int64_t g = zf_find_group(a.presum, a.n_groups, o_begin);
+    const int64_t g = zf_find_group(a.presum, a.n_groups, o_begin > lo ? o_begin : lo);
     if (threadIdx.x == 0) win = g;
   }
   __syncthreads();
@@ -197,8 +213,8 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
   int64_t gb = win;
   for (int l = 0; l < a.L; ++l) {
     const int64_t o0 = o_begin + l * sub;
-    if (o0 >= a.n) break;
-    const int64_t o_last = (o0 + sub < a.n ? o0 + sub : a.n) - 1;
+    if (o0 >= hi) break;
+    const int64_t o_last = (o0 + sub < hi ? o0 + sub : hi) - 1;
     // Stage presum[gb ..] a row of S entries at a time until an entry exceeds
     // o_last; cnt counts those that do not, so the group of o_last is
     // gb + cnt - 1 (clamped).  No search.
@@ -222,7 +238,7 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
     if (staged) {
       for (int64_t k = threadIdx.x; k < m; k += S) {
         v0[k] = zf_group_value<kMap>(a, gb + k);
-        if (kMap == ZF_AFFINE) v1[k] = zf_eval(a.values[1], gb + k);
+        if (kMap == ZF_AFFINE) v1[k] = zf_eval(a.values[1], gb + k - a.g_start);
       }
     } else {
       // wider than the buffer (zero counts): the rows stopped early, so
@@ -236,9 +252,11 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
       m = g_hi - gb + 1;
     }
     __syncthreads();
-    const int64_t i0 = o0 + threadIdx.x * a.C;
-    if (i0 < a.n) {
-      const int32_t nc = static_cast<int32_t>(a.n - i0 < a.C ? a.n - i0 : a.C);
+    const int64_t t0 = o0 + threadIdx.x * a.C;
+    const int64_t i0 = t0 > lo ? t0 : lo;                    // the span's first thread
+    const int64_t i1 = t0 + a.C < hi ? t0 + a.C : hi;
+    if (i0 < i1) {
+      const int32_t nc = static_cast<int32_t>(i1 - i0);
       if (staged) {
         ZfCursor<kMap, true> cur{a, ps, v0, v1, gb, m};
         zf_emit<W>(a, cur, i0, nc);
@@ -254,7 +272,7 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap) {
 
 template <int W, int kMap>
 static cudaError_t zf_gp_launch(const ZfGpArgs& a, unsigned grid, int32_t threads,
-                                cudaStream_t stream) {
+                                int64_t org, cudaStream_t stream) {
   constexpr int64_t per_group = kMap == ZF_AFFINE ? 12 : 8;   // presum, values[0] (, [1])
   const int64_t fit = (ZF_GP_MAX_SMEM - 4) / per_group;
   // a sub-tile of outputs touches at most `sub` groups when counts are >= 1,
@@ -268,17 +286,22 @@ static cudaError_t zf_gp_launch(const ZfGpArgs& a, unsigned grid, int32_t thread
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  zf_group_parallel_kernel<W, kMap><<<grid, threads, smem, stream>>>(a, cap);
+  zf_group_parallel_kernel<W, kMap><<<grid, threads, smem, stream>>>(a, cap, org);
   return cudaGetLastError();
 }
 
 template <int W>
-static cudaError_t zf_gp_map(const ZfGpArgs& a, unsigned grid, int32_t threads,
-                             cudaStream_t s) {
+static cudaError_t zf_gp_map(const ZfGpArgs& a, int32_t threads, cudaStream_t s) {
+  // tile from the output at the 16-byte boundary at or before out[0]
+  const int64_t org = a.out_start - static_cast<int64_t>((reinterpret_cast<uintptr_t>(a.out) & 15u) / W);
+  const int64_t tile = static_cast<int64_t>(a.L) * threads * a.C;
+  const int64_t grid = (a.out_start + a.n - org + tile - 1) / tile;
+  if (grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  const unsigned g = static_cast<unsigned>(grid);
   switch (a.map_kind) {
-    case ZF_IDENTITY: return zf_gp_launch<W, ZF_IDENTITY>(a, grid, threads, s);
-    case ZF_AFFINE: return zf_gp_launch<W, ZF_AFFINE>(a, grid, threads, s);
-    case ZF_STRGATHER: return zf_gp_launch<W, ZF_STRGATHER>(a, grid, threads, s);
+    case ZF_IDENTITY: return zf_gp_launch<W, ZF_IDENTITY>(a, g, threads, org, s);
+    case ZF_AFFINE: return zf_gp_launch<W, ZF_AFFINE>(a, g, threads, org, s);
+    case ZF_STRGATHER: return zf_gp_launch<W, ZF_STRGATHER>(a, g, threads, org, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -286,19 +309,15 @@ static cudaError_t zf_gp_map(const ZfGpArgs& a, unsigned grid, int32_t threads,
 extern "C" int zf_group_parallel(const ZfGpArgs* args, int32_t threads, int32_t device,
                                  void* stream) {
   if (args->n <= 0) return 0;
-  if (args->n_groups <= 0 || threads < 32)   // warp 0 searches the window
+  if (args->n_groups <= 0 || threads < 32 || args->out_start < 0)   // warp 0 searches
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tile = static_cast<int64_t>(args->L) * threads * args->C;
-  const int64_t grid = (args->n + tile - 1) / tile;
-  if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned g = static_cast<unsigned>(grid);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (args->out_width) {
-    case 1: err = zf_gp_map<1>(*args, g, threads, s); break;
-    case 2: err = zf_gp_map<2>(*args, g, threads, s); break;
-    case 4: err = zf_gp_map<4>(*args, g, threads, s); break;
+    case 1: err = zf_gp_map<1>(*args, threads, s); break;
+    case 2: err = zf_gp_map<2>(*args, threads, s); break;
+    case 4: err = zf_gp_map<4>(*args, threads, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

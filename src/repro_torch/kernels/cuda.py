@@ -66,7 +66,9 @@ class ZfGpArgs(ctypes.Structure):
                 ("chars", ZfOp), ("offs", ZfOp),
                 ("map_kind", ctypes.c_int32), ("out_width", ctypes.c_int32),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
-                ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
+                ("L", ctypes.c_int32), ("C", ctypes.c_int32),
+                # appended, so an older kernel's struct is a prefix of this one
+                ("out_start", ctypes.c_int64), ("g_start", ctypes.c_int64)]
 
 
 class ZfNpArgs(ctypes.Structure):

@@ -171,25 +171,34 @@ def to_out(v: torch.Tensor, chain: Chain, out_dtype) -> torch.Tensor:
     return v.to(dt)
 
 
-def fully_parallel_torch(stage: FullyParallel,
-                         env: dict[str, torch.Tensor]) -> torch.Tensor:
-    """out[i] = chain(i) for every i < n_out."""
+def fully_parallel_torch(stage: FullyParallel, env: dict[str, torch.Tensor],
+                         n: int | None = None) -> torch.Tensor:
+    """out[i] = chain(i) for every i < n (default ``n_out``).  A chunk passes
+    its own slices of the tiled leaves and its length: its boundaries are
+    multiples of the tiles' alignment, so local index i reads what the whole
+    column's index ``out_start + i`` reads."""
     device = env[stage.inputs[0]].device
-    idx = torch.arange(stage.n_out, dtype=torch.int64, device=device)
+    idx = torch.arange(stage.n_out if n is None else n, dtype=torch.int64,
+                       device=device)
     return to_out(eval_chain(stage.chain, idx, env), stage.chain, stage.out_dtype)
 
 
-def group_parallel_torch(stage: GroupParallel,
-                         env: dict[str, torch.Tensor]) -> torch.Tensor:
-    """out[i] = tail(map(values at g, pos)), g the group owning i."""
+def group_parallel_torch(stage: GroupParallel, env: dict[str, torch.Tensor],
+                         out_start: int = 0, g_start: int = 0,
+                         n_valid: int | None = None) -> torch.Tensor:
+    """out[i] = tail(map(values at g, pos)), g the group owning i, for the
+    ``n_valid`` outputs from ``out_start`` (default: the whole column).  A span
+    searches the whole presum at global output indices and evaluates the value
+    chains at ``g - g_start`` over its own slices of the value leaves."""
     presum = env[stage.presum].to(torch.int64)
     out_dt = torch_dtype(stage.out_dtype)
-    if stage.n_out == 0:
+    n = stage.n_out if n_valid is None else n_valid
+    if n == 0:
         return torch.empty(0, dtype=out_dt, device=presum.device)
-    i = torch.arange(stage.n_out, dtype=torch.int64, device=presum.device)
+    i = out_start + torch.arange(n, dtype=torch.int64, device=presum.device)
     g = (torch.searchsorted(presum, i, right=True) - 1).clamp(0, stage.n_groups - 1)
     pos = i - presum[g]
-    vals = [eval_chain(c, g, env) for c in stage.values]
+    vals = [eval_chain(c, g - g_start, env) for c in stage.values]
     if stage.map_kind == AFFINE:
         start = vals[0].to(torch.int32).to(torch.int64)
         stride = vals[1].to(torch.int32).to(torch.int64)
@@ -197,24 +206,28 @@ def group_parallel_torch(stage: GroupParallel,
     elif stage.map_kind == STRGATHER:
         chars, offs = (env[k] for k in stage.extra_inputs)
         j = jnp_index(vals[0].to(torch.int32).to(torch.int64), offs.numel())
-        v = chars[jnp_index(offs[j].to(torch.int64) + pos, chars.numel())]
+        v = take(chars, jnp_index(take(offs, j).to(torch.int64) + pos, chars.numel()))
     else:
         v = vals[0]
     return apply_ops(stage.tail, v, env).to(out_dt)
 
 
-def non_parallel_torch(stage: NonParallel,
-                       env: dict[str, torch.Tensor]) -> torch.Tensor:
+def non_parallel_torch(stage: NonParallel, env: dict[str, torch.Tensor],
+                       n_chunks: int | None = None,
+                       n: int | None = None) -> torch.Tensor:
     """Lockstep rANS decode (``algos/ans.py decode_chunks_np``): a loop over the
     ``chunk_size`` serial steps, each vectorised across the chunks; uint32
-    arithmetic in int64 masked to 32 bits.  Returns the first ``n_out``
-    symbols through the tail."""
+    arithmetic in int64 masked to 32 bits.  Returns the first ``n`` (default
+    ``n_out``) symbols through the tail.  A span passes its stripe
+    ``streams[:row_cap, g0:g1]``, ``states[g0:g1]``, ``n_chunks = g1 - g0`` and
+    its valid symbol count."""
     streams = env[stage.streams].to(torch.int64)
     x = u32(env[stage.states])
     sym = env[stage.sym_tab].to(torch.int64)
     freq = env[stage.freq_tab].to(torch.int64)
     cum = env[stage.cum_tab].to(torch.int64)
-    n_chunks, cs = stage.n_chunks, stage.chunk_size
+    n_chunks = stage.n_chunks if n_chunks is None else n_chunks
+    cs = stage.chunk_size
     lanes = torch.arange(n_chunks, device=x.device)
     cur = torch.zeros(n_chunks, dtype=torch.int64, device=x.device)
     cap = streams.shape[0] - 1
@@ -228,5 +241,5 @@ def non_parallel_torch(stage: NonParallel,
         w = streams[cur.clamp(0, cap), lanes]
         x = torch.where(need, ((x << 16) | w) & MASK32, x)
         cur += need
-    flat = out.reshape(-1)[: stage.n_out]
+    flat = out.reshape(-1)[: stage.n_out if n is None else n]
     return apply_ops(stage.tail, flat, env).to(torch_dtype(stage.out_dtype))

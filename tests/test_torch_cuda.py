@@ -5,6 +5,7 @@ machine with a card (no JAX needed there):
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import itertools
 
 import numpy as np
@@ -19,7 +20,8 @@ from repro_torch.algos.bitpack import pack_np
 from repro_torch.core.patterns import (AFFINE, IDENTITY, STRGATHER, BufSpec,
                                        FullyParallel, GroupParallel, gather, load,
                                        load_bytes, span, unpack, unzigzag)
-from repro_torch.core.plan import Plan, encode, make_plan
+from repro_torch.core.executor import StreamingExecutor
+from repro_torch.core.plan import Plan, encode, host_operands, make_plan
 from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
 from repro_torch.data.tpch import generate
@@ -497,3 +499,195 @@ def test_fp_gather_tables(gpu):
                              (UNPACK_OP + (gather("big"), unzigzag(), gather("t")), np.int32)):
         ins = tuple(dict.fromkeys(b for op in chain for b in op.bufs))
         _fp_check(_fp(chain, ins, n, out_dtype), env)
+
+
+# ------------------------------------- chunk and span entries (streamed decode)
+
+WIDTH_TABLES = {1: np.uint8, 2: np.uint16, 4: np.int32}
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_fp_chunk_entry_writes_its_range_in_place(width, gpu):
+    """Kernel 1's chunk entry: a chunk of ``n`` outputs decoded from its own
+    slice of the packed words (from word 0, at chunk starts that are multiples
+    of 32) into its range of the column, at every output width; LOAD chunks at
+    any start, so their range is off the 16-byte boundary; tails of 1-15."""
+    rng = np.random.default_rng(40 + width)
+    total = 200_000
+    dt = WIDTH_TABLES[width]
+    env, _ = _packed(13, total, rng, gpu)
+    env["t"] = torch.from_numpy(rng.integers(0, np.iinfo(dt).max, 8192).astype(dt)).to(gpu)
+    env["x"] = torch.from_numpy(rng.integers(0, 8192, total).astype(np.int32)).to(gpu)
+    unp = _fp(UNPACK_OP + (gather("t"),), ("p", "bw", "base", "t"), total, dt)
+    lod = _fp((load("x"), gather("t")), ("x", "t"), total, dt)
+    for st, starts, align in ((unp, range(0, total - 64, 32 * 997), 32),
+                              (lod, range(3, total - 64, 4099), 1)):
+        whole = ref.fully_parallel_torch(st, env)
+        for s in starts:
+            for n in list(range(1, 16)) + [33, 4096 + 7, min(3 * FP_TILE + 5, total - s)]:
+                n = min(n, total - s)
+                local = dict(env)
+                if st is unp:
+                    local["p"] = env["p"][s * 13 // 32:]
+                else:
+                    local["x"] = env["x"][s:s + n]
+                out = torch.full((total,), 7, dtype=whole.dtype, device=gpu)
+                before = FP.launches
+                got = fully_parallel(st, local, n=n, out=out[s:s + n])
+                assert FP.launches == before + 1 and got.data_ptr() == out[s:].data_ptr()
+                assert torch.equal(out[s:s + n], whole[s:s + n]), (s, n, align)
+                assert torch.equal(out[:s], torch.full_like(out[:s], 7))
+                assert torch.equal(out[s + n:], torch.full_like(out[s + n:], 7))
+                plain = ref.fully_parallel_torch(st, local, n)
+                assert torch.equal(plain, whole[s:s + n])
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("map_kind", [IDENTITY, AFFINE, STRGATHER])
+def test_gp_span_entry_writes_its_range_in_place(map_kind, width, gpu):
+    """Kernel 2's span entry: the whole presum, the span's slices of the value
+    leaves (values at g - g_start), outputs written from ``out_start`` in place,
+    at out offsets off the 16-byte boundary, spans of 1-15 outputs, a span
+    cut inside a group (``n_valid`` below the span's outputs) and long spans
+    through the unrolled 16-byte stores; each map at each output width."""
+    rng = np.random.default_rng(50 + width)
+    counts = rng.integers(1, 40, 30_000)
+    counts[rng.random(counts.size) < 0.2] = 0
+    presum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    n_out = int(presum[-1])
+    names = {IDENTITY: ("vals",), AFFINE: ("vals", "strides"), STRGATHER: ("words",)}[map_kind]
+    dt = WIDTH_TABLES[width]
+    env = {"presum": torch.from_numpy(presum).to(gpu),
+           "vals": torch.from_numpy(rng.integers(0, 1000, counts.size).astype(np.int32)).to(gpu),
+           "strides": torch.from_numpy(rng.integers(-9, 9, counts.size).astype(np.int32)).to(gpu),
+           "words": torch.from_numpy(rng.integers(0, 1000, counts.size).astype(np.int32)).to(gpu),
+           "chars": torch.from_numpy(rng.integers(0, 256, 50_000).astype(np.uint8)).to(gpu),
+           "offs": torch.from_numpy(np.sort(rng.integers(0, 49_000, 1001)).astype(np.int32)).to(gpu),
+           "t": torch.from_numpy(rng.integers(0, np.iinfo(dt).max, 1 << 16).astype(dt)).to(gpu)}
+    st = GroupParallel(presum="presum", value_inputs=names,
+                       value_specs=(BufSpec("tile"),) * len(names),
+                       values=tuple((load(k),) for k in names), map_kind=map_kind,
+                       tail=(gather("t"),) if width != (1 if map_kind == STRGATHER else 4) else (),
+                       extra_inputs=("chars", "offs") if map_kind == STRGATHER else (),
+                       out_dtype=dt, out="out", n_out=n_out, n_groups=counts.size, name="span")
+    whole = ref.group_parallel_torch(st, env)
+    spans = [(int(g0), int(g1)) for g0, g1 in rng.integers(0, counts.size, (40, 2))
+             if g0 < g1] + [(0, counts.size), (17, 18), (counts.size - 3, counts.size)]
+    for g0, g1 in spans:
+        start, stop = int(presum[g0]), int(presum[g1])
+        for n_valid in {stop - start, max(1, (stop - start) // 3), 1, 7, 15}:
+            n_valid = min(n_valid, stop - start)
+            if n_valid <= 0:
+                continue
+            local = dict(env)
+            for k in names:
+                local[k] = env[k][g0:g1]
+            out = torch.full((n_out,), 3, dtype=whole.dtype, device=gpu)
+            before = GP.launches
+            group_parallel(st, local, out=out[start:start + n_valid], out_start=start,
+                           g_start=g0, n_valid=n_valid, g_size=g1 - g0)
+            assert GP.launches == before + 1
+            assert torch.equal(out[start:start + n_valid], whole[start:start + n_valid]), \
+                (g0, g1, n_valid)
+            assert torch.equal(out[:start], torch.full_like(out[:start], 3))
+            assert torch.equal(out[start + n_valid:], torch.full_like(out[start + n_valid:], 3))
+            plain = ref.group_parallel_torch(st, local, start, g0, n_valid)
+            assert torch.equal(plain, whole[start:start + n_valid])
+
+
+@pytest.mark.parametrize("kind", ["uint8", "int32"])
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_np_span_entry_on_row_capped_stripes(kind, width, gpu):
+    """Kernel 3's span entry: each span's stripe ``streams[:row_cap, g0:g1]``
+    (``max_words`` = its own rows), its states, its symbols written in place
+    from ``g0 * chunk_size``, the last span cut at the end of the stream; a
+    rule-4 tail gives 2- and 4-byte outputs."""
+    rng = np.random.default_rng(60 + width)
+    arr = ans_sweep_input(kind, 300_001, rng)
+    enc = encode(Plan("ans", params={"chunk_size": 1000}), arr)
+    ex = StreamingExecutor("torch", "cpu", chunk_bytes=20_000, chunk_decode=True)
+    ex.compile("c", enc)
+    sched = ex.chunk_schedule("c")
+    st = ex.graph("c").stages[0]
+    assert sched is not None and sched.n_chunks > 3
+    env = device_buffers(enc, gpu)
+    dt = WIDTH_TABLES[width]
+    if width != 1:
+        env["t"] = torch.from_numpy(rng.integers(0, np.iinfo(dt).max, 256).astype(dt)).to(gpu)
+        st = dataclasses.replace(st, tail=(gather("t"),), out_dtype=dt)
+    whole = ref.non_parallel_torch(st, env)
+    ops = host_operands(enc)
+    for k in range(sched.n_chunks):
+        local = dict(env)
+        for leaf in (st.streams, st.states):
+            piece = np.ascontiguousarray(sched.piece(np.asarray(ops[leaf]), leaf, k))
+            local[leaf] = torch.from_numpy(piece.view(np.int32) if piece.dtype == np.uint32
+                                           else piece).to(gpu)
+        g0, gz = sched.g_starts[k], sched.g_sizes[k]
+        s = g0 * st.chunk_size
+        n = min(gz * st.chunk_size, st.n_out - s)
+        for off in (0, 1, 5):           # the span's range off the 16-byte boundary
+            out = torch.full((st.n_out + off,), 9, dtype=whole.dtype, device=gpu)
+            before = NP.launches
+            non_parallel(st, local, n_chunks=gz, n=n, out=out[off + s:off + s + n])
+            assert NP.launches == before + 1
+            assert torch.equal(out[off + s:off + s + n], whole[s:s + n]), (k, off)
+            assert torch.equal(out[:off + s], torch.full_like(out[:off + s], 9))
+        assert torch.equal(ref.non_parallel_torch(st, local, gz, n), whole[s:s + n])
+
+
+def test_strgather_uint16_offsets_on_the_card(gpu):
+    """A uint16 offsets buffer: the plain version indexes it through
+    ``ref.take`` (torch has no CUDA indexing for uint16), and the kernel reads
+    it at its own width."""
+    rng = np.random.default_rng(70)
+    chars = torch.from_numpy(rng.integers(0, 256, 3000).astype(np.uint8)).to(gpu)
+    offs = np.sort(rng.integers(0, 2900, 60))
+    words = rng.integers(0, 59, 400).astype(np.int32)
+    counts = np.diff(offs)[words]
+    presum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    st = GroupParallel(presum="presum", value_inputs=("words",),
+                       value_specs=(BufSpec("tile"),), values=((load("words"),),),
+                       map_kind=STRGATHER, extra_inputs=("chars", "offs"), out="out",
+                       n_out=int(presum[-1]), n_groups=words.size, out_dtype=np.uint8)
+    env = {"presum": torch.from_numpy(presum).to(gpu),
+           "words": torch.from_numpy(words).to(gpu), "chars": chars,
+           "offs": torch.from_numpy(offs.astype(np.uint16)).to(gpu)}
+    want = torch.cat([chars[int(offs[w]):int(offs[w + 1])] for w in words.tolist()])
+    plain = ref.group_parallel_torch(st, env)
+    assert torch.equal(plain, want)
+    assert torch.equal(group_parallel(st, env), want)
+
+
+@pytest.mark.parametrize("chunk_bytes", [256, 4096])
+def test_chunked_pipeline_on_the_card(chunk_bytes, gpu):
+    """All 24 Table-2 columns through ``ColumnPipeline(chunk_decode=True)``:
+    element chunks on kernel 1, L_RETURNFLAG's spans on kernel 3, every column
+    equal to its source, as many decode units as the schedules give."""
+    cols = {k: v for k, v in generate(0.002, seed=0).items() if k in TABLE2_PLANS}
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device=gpu, chunk_bytes=chunk_bytes,
+                          chunk_decode=True)
+    pipe.compress(cols)
+    before = (FP.launches, NP.launches)
+    res = pipe.run()
+    assert FP.launches > before[0] and NP.launches > before[1]
+    for k, arr in cols.items():
+        assert torch.equal(bits(res[k].array.cpu()), bits(torch.from_numpy(arr))), k
+        sched = pipe.executor.chunk_schedule(k)
+        assert res[k].decode_launches == (1 if sched is None else sched.n_chunks)
+    assert res["L_RETURNFLAG"].chunk_decoded == (chunk_bytes == 256)
+
+
+def test_group_span_pipeline_on_the_card(gpu):
+    """Kernel 2's span entry on the executor's path: the reference's RLE and
+    DeltaStride candidate plans of the key columns, streamed in spans."""
+    cols = generate(0.002, seed=0)
+    plans = {"L_ORDERKEY": make_plan("rle"), "O_ORDERKEY": make_plan("deltastride")}
+    pipe = ColumnPipeline(plans, device=gpu, chunk_bytes=1024, chunk_decode=True)
+    pipe.compress({k: cols[k] for k in plans})
+    before = GP.launches
+    res = pipe.run()
+    assert GP.launches > before + 2
+    for k in plans:
+        assert res[k].chunk_decoded and res[k].decode_launches > 2
+        assert torch.equal(res[k].array.cpu(), torch.from_numpy(cols[k]))
