@@ -8,7 +8,9 @@ non-zero before the final line:
 
   1. fail unless CUDA is available;
   2. build the three hand-written kernels from ``src/repro_torch/kernels/csrc``
-     (``nvcc``, ``sm_90a``, one process per source, all at once), then generate
+     (``nvcc``, ``sm_90a``, one process per source, all at once) and load
+     every kernel of them on the card (``preload`` line: the time CUDA's lazy
+     module loading would otherwise add to first launches), then generate
      TPC-H at ``--scale`` (default SF 1) and encode all 24 Table-2 columns
      (set-up);
   3. kernel vs plain PyTorch version on the card, bitwise: every Fully-Parallel,
@@ -36,8 +38,17 @@ non-zero before the final line:
      of O_ORDERKEY under ``deltastride`` (kernel 2), and L_RETURNFLAG's rANS
      spans (kernel 3; two of them against the plain version, which takes
      about a second a call, all of them through the column's equality with
-     its whole decode), each timed beside the whole-column launch;
-  4. the main path: ``ColumnPipeline(..., device="cuda").run()`` once cold and
+     its whole decode), each timed beside the whole-column launch.  Then the
+     batched entries, at K = 2, 8 and one above each kernel's per-launch limit
+     (the split): kernel 1 on L_DISCOUNT + L_TAX, kernel 2 on two RLE columns
+     of one structure whose runs differ, kernel 3 on L_RETURNFLAG and a copy
+     with its rANS chunks in another order; each held bitwise against its
+     plain batched version and against K single launches, and timed at K = 2
+     beside the two single launches;
+  4. the FIFO whole-column path as it ran before the planner (``policy="fifo"``,
+     ``chunk_bytes=None``, ``batch_columns=False``, passed explicitly, planned
+     once outside the timed runs at the fixed window of 2 decode units):
+     ``ColumnPipeline(..., device="cuda").run(plan=...)`` once cold and
      ``WARM_RUNS`` times warm, with the launch counts zeroed just before; every
      column must equal its source bitwise.  Then the same blobs through the
      plain backend, and one more warm run of this path and of the 1 MiB
@@ -45,10 +56,27 @@ non-zero before the final line:
      time by kind.  Then the plain-copy yardstick (the plain
      columns copied from pinned memory on the executor's copy stream), and the
      chunked paths: ``ColumnPipeline(..., chunk_bytes=1 << 20,
-     chunk_decode=True)`` and the same at 4 MiB, each cold and ``WARM_RUNS``
-     times warm with the counts zeroed just before, every column equal to its
-     source; and the same for the two kernel-2 span columns;
-  5. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line,
+     chunk_decode=True)`` and the same at 4 MiB (FIFO, no batching, planned
+     once at window 2, as for the whole path), each cold and ``WARM_RUNS`` times warm with the counts zeroed just before,
+     every column equal to its source; and the same for the two kernel-2 span
+     columns.  Then the host time of one whole-column and one chunked 1 MiB
+     run (``run(window=2)``, so each plans inside the run, as a caller's does)
+     split by ``torch.profiler``'s Python tracer into planning, argument
+     packing, the launch calls, views, events, cache lookups, copies and the
+     rest (``host_split`` lines);
+  5. the planner's paths: ``ColumnPipeline(plans, device="cuda")`` under the
+     reference's defaults (chunk-johnson, 1 MiB transfer chunks, batching),
+     then ``policy="adaptive", chunk_bytes="auto", chunk_decode=True`` planned
+     from the seeded chip model and again after those runs calibrated the
+     cost model; each plan run cold and ``WARM_RUNS`` times warm with the
+     counts zeroed just before, every column equal to its source; at SF 1 and
+     seed 0 the reference-default plan must batch L_DISCOUNT + L_TAX, with one
+     batched kernel-1 launch a run and no other batched launch.  ``planner``
+     lines give the modeled and measured makespans, the baselines, the
+     decisions by mode, decode units and launches per run, the batched groups
+     and their batched-entry launches, and the calibrated
+     ``launch_overhead_s`` beside the host time per added decode unit;
+  6. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line,
      the card's name and power limit from ``nvidia-smi``, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +125,46 @@ SPAN_PLANS = {"L_ORDERKEY": "rle", "O_ORDERKEY": "deltastride"}
 # gives the 24 Table-2 columns at SF 1, seed 0
 REF_UNITS_SF1 = {1 << 20: 109, 4 << 20: 41}
 NP_PLAIN_SPANS = 2                # rANS spans held against the plain version
+# the FIFO whole-column configuration the phases before the planner's run in
+FIFO_WHOLE = {"policy": "fifo", "chunk_bytes": None, "batch_columns": False}
+
+
+def host_part(name: str) -> str | None:
+    """The part of the host's work a ``torch.profiler`` event of a run belongs
+    to: Python calls are named ``path(line): function``, torch ops ``aten::...``;
+    None for the rest (the executor's own loop, dict and list work)."""
+    m = re.match(r"(.*)\((\d+)\): (\S+)$", name)
+    path, fn = (m.group(1), m.group(3)) if m else ("", "")
+    if path.endswith(("core/planner.py", "core/scheduler.py")) or \
+            (path.endswith("core/executor.py") and fn in ("plan", "issue_order")):
+        return "planning"
+    if path.endswith("core/costmodel.py"):
+        return "cost_model"
+    if path.endswith("kernels/cuda.py"):
+        return "launch_call" if fn in ("launch", "launch_batched") else "arg_packing"
+    if fn in ("_launch_args", "kernel_out", "finish", "into", "stage_device",
+              "batch_device", "chain_dtype", "gp_dtype", "np_dtype", "native_config"):
+        return "arg_packing"
+    if path.endswith("core/executor.py") and fn == "views":
+        return "views"
+    if "torch/cuda/" in path:
+        return "events_streams"
+    if (path.endswith("core/compiler.py") and fn in ("_get", "_lookup", "get", "get_chunk",
+                                                     "get_group_chunk", "get_group_prologue")) \
+            or (path.endswith("core/executor.py") and fn in ("_staging", "_column", "_units",
+                                                             "chunk_schedule")):
+        return "cache_lookup"
+    if name.startswith("aten::copy_"):
+        return "copies"
+    if name.startswith("aten::empty"):
+        return "allocation"
+    if name.startswith("aten::"):
+        return "torch_ops"          # the Aux ops' launches and other tensor work
+    return None
+
+
+HOST_PARTS = ("planning", "cost_model", "arg_packing", "launch_call", "views",
+              "events_streams", "cache_lookup", "copies", "allocation", "torch_ops")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -251,10 +320,12 @@ def main() -> int:
     from repro_torch.data.loader import ColumnPipeline
     from repro_torch.data.tpch import generate
     from repro_torch.kernels import cuda, ref
-    from repro_torch.kernels.fully_parallel import KERNEL as FP, fully_parallel
+    from repro_torch.kernels.fully_parallel import (KERNEL as FP, fully_parallel,
+                                                    fully_parallel_batched)
     from repro_torch.kernels.group_parallel import (KERNEL as GP, group_parallel,
-                                                    tile_windows)
-    from repro_torch.kernels.non_parallel import KERNEL as NP, decode_table, non_parallel
+                                                    group_parallel_batched, tile_windows)
+    from repro_torch.kernels.non_parallel import (KERNEL as NP, decode_table, non_parallel,
+                                                  non_parallel_batched)
     from repro_torch.kernels.ops import run_stage
 
     columns = tuple(TABLE2_PLANS)
@@ -271,11 +342,13 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda.build(libs)
     for lib in libs:
-        lib.load()
+        lib.load(torch.device("cuda", 0))    # every kernel loaded on the card now
     built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs
                      if lib.build_s is not None)
     print(f"build: {time.perf_counter() - t0:.2f} s ({built or 'cached'}) -> "
           f"{FP.path().parent}")
+    print("preload: " + " ".join(f"{lib.name}_ms {lib.preload_s[0] * 1e3:.4f}"
+                                 for lib in libs))
     for lib in libs:
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -285,7 +358,7 @@ def main() -> int:
     cols = generate(args.scale, seed=args.seed)
     cols = {k: cols[k] for k in columns}
     t_gen = time.perf_counter() - t0
-    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda")
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", **FIFO_WHOLE)
     t0 = time.perf_counter()
     ratios = pipe.compress(cols)
     print(f"setup: generate(scale={args.scale}) {t_gen:.1f} s, encode "
@@ -560,10 +633,12 @@ def main() -> int:
     check(dec, env, "ans three-table path", False)
 
     # the chunk and span entries, at the shapes the chunked path gives them
+    fifo = {"policy": "fifo", "batch_columns": False}
     chunk_pipes = {cb: ColumnPipeline(dict(TABLE2_PLANS), device="cuda", chunk_bytes=cb,
-                                      chunk_decode=True) for cb in CHUNK_SIZES}
+                                      chunk_decode=True, **fifo) for cb in CHUNK_SIZES}
     span_pipes = {cb: ColumnPipeline({c: make_plan(p) for c, p in SPAN_PLANS.items()},
-                                     device="cuda", chunk_bytes=cb, chunk_decode=True)
+                                     device="cuda", chunk_bytes=cb, chunk_decode=True,
+                                     **fifo)
                   for cb in CHUNK_SIZES}
     for cb in CHUNK_SIZES:
         chunk_pipes[cb].load({c: pipe.encoded(c) for c in columns})
@@ -654,6 +729,84 @@ def main() -> int:
     for kname in KERNELS:
         if not any(r["kernel"] == kname for r in entries):
             raise AssertionError(f"no chunk or span entry of {kname} was checked")
+
+    # the batched entries: K members of one structure, one launch per the
+    # kernel's limit of members, against the plain batched version and K
+    # single launches
+    batched = []          # one record per kernel and K
+    batch_kinds = {"fully_parallel": (FP, fully_parallel, fully_parallel_batched,
+                                      ref.fully_parallel_batched_torch),
+                   "group_parallel": (GP, group_parallel, group_parallel_batched,
+                                      ref.group_parallel_batched_torch),
+                   "non_parallel": (NP, non_parallel, non_parallel_batched,
+                                    ref.non_parallel_batched_torch)}
+
+    def member_env(enc, upto):
+        """The card's operands of a blob and the results of its stages before
+        stage ``upto`` (plain versions), what that stage reads."""
+        graph = build_graph(enc)
+        env = device_buffers(enc)
+        for st in graph.stages[:upto]:
+            env[st.out] = run_stage(st, env, "torch")
+        return graph.stages[upto], env
+
+    def check_batched(kname, encs, what):
+        lib, single, kbatch, pbatch = batch_kinds[kname]
+        sigs = {build_graph(e).signature for e in encs}
+        if len(sigs) != 1:
+            raise AssertionError(f"batched {kname}: {what} are not one structure")
+        graph = build_graph(encs[0])
+        upto = next(i for i, st in enumerate(graph.stages)
+                    if type(st).__name__ == {"fully_parallel": "FullyParallel",
+                                             "group_parallel": "GroupParallel",
+                                             "non_parallel": "NonParallel"}[kname])
+        pairs = [member_env(e, upto) for e in encs]
+        st = pairs[0][0]
+        for k in sorted({2, 8, lib.batch_max + 1}):
+            envs = [pairs[i % len(pairs)][1] for i in range(k)]
+            before = lib.batched_launches
+            got = kbatch(st, envs)
+            torch.cuda.synchronize()
+            split = lib.batched_launches - before
+            if split != -(-k // lib.batch_max):
+                raise AssertionError(f"batched {kname} K={k}: {split} launches, the "
+                                     f"limit is {lib.batch_max} members")
+            plains = pbatch(st, envs)
+            for i, (g, env) in enumerate(zip(got, envs)):
+                err[kname] = max(err[kname], same(g, plains[i], f"batched {kname} K={k} #{i}"))
+                same(g, single(st, env), f"batched {kname} K={k} #{i} vs a single launch")
+            compared[kname] += k
+            rec = {"kernel": kname, "what": what, "stage": st.name, "k": k,
+                   "launches": split, "n": st.n_out}
+            if k == 2:
+                outs = [torch.empty_like(g) for g in got]
+                rec["ms"] = timer.ms(lambda: kbatch(st, envs, outs=outs))
+                rec["singles_ms"] = timer.ms(lambda: [single(st, e, out=o)
+                                                      for e, o in zip(envs, outs)])
+                rec["plain_ms"] = timer.ms(lambda: pbatch(st, envs),
+                                           3 if kname == "non_parallel" else None)
+                rec["bytes"] = sum(stage_bytes(stage_inputs(st), e, g)
+                                   for e, g in zip(envs, got))
+                rec["bound_ms"] = rec["bytes"] / (hbm * 1e9) * 1e3
+            batched.append(rec)
+
+    check_batched("fully_parallel", [pipe.encoded(c) for c in ("L_DISCOUNT", "L_TAX")],
+                  "L_DISCOUNT + L_TAX")
+    keys = cols["L_ORDERKEY"]
+    cut = np.flatnonzero(np.diff(keys)) + 1
+    runs = np.diff(np.concatenate([[0], cut, [keys.size]]))
+    vals = keys[np.concatenate([[0], cut])]
+    swapped = np.repeat(vals, runs[::-1]).astype(keys.dtype)   # the same runs, reversed
+    check_batched("group_parallel", [encode(make_plan("rle"), a) for a in (keys, swapped)],
+                  "L_ORDERKEY rle and its runs reversed")
+    flags = cols["L_RETURNFLAG"]
+    chunk = 4096
+    body = flags[:flags.size // chunk * chunk].reshape(-1, chunk)
+    shuffled = np.concatenate([body[np.random.default_rng(args.seed).permutation(len(body))]
+                               .reshape(-1), flags[body.size:]])
+    check_batched("non_parallel", [encode(TABLE2_PLANS["L_RETURNFLAG"], a)
+                                   for a in (flags, shuffled)],
+                  "L_RETURNFLAG and its rANS chunks reordered")
     print(f"compare: {compared} kernel launches bitwise equal to plain, of them "
           f"kernel-1 cases {fp_cases} ({time.perf_counter() - t0:.1f} s)")
     for r in entries:
@@ -661,6 +814,11 @@ def main() -> int:
         print(f"entry {r['kernel']:14s} {r['column']:16s} {r['entry']:12s} n {r['n']:9d} "
               f"ms {r['ms']:.4f} whole_n {r['whole_n']:9d} whole_ms {r['whole_ms']:.4f}"
               f"{plain}")
+    for r in batched:
+        timed = "".join(f" {k} {r[k]:.4f}" for k in ("ms", "singles_ms", "plain_ms", "bound_ms")
+                        if k in r)
+        print(f"batched {r['kernel']:14s} {r['what']:40s} {r['stage']:20s} K {r['k']:2d} "
+              f"launches {r['launches']} n {r['n']:9d}{timed}")
     for r in stages:
         lib = "" if r["library_ms"] is None else f" library_ms {r['library_ms']:.4f}"
         lib += "".join(f" {k} {r[k]:.4f}" for k in ("profiler_ms",) + tuple(
@@ -673,19 +831,21 @@ def main() -> int:
     for lib in libs:
         lib.launches = 0
     makespans, host_ms = [], []
+    whole_plan = pipe.plan(window=2)    # planned once, at the pre-planner window of 2
     for label in ("cold",) + ("warm",) * WARM_RUNS:
         res = None      # drop the last run's columns: a warm run reuses their memory
         t0 = time.perf_counter()
-        res = pipe.run()
+        res = pipe.run(plan=whole_plan)
         host_ms.append((time.perf_counter() - t0) * 1e3)
         for col in columns:
             got = res[col].array.cpu()
             same(got, torch.from_numpy(cols[col]), f"{label} run {col} vs source")
         makespans.append(pipe.makespan_s)
     launches = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+    launches_warm = {k: v // (WARM_RUNS + 1) for k, v in launches.items()}
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel did not run on the main path: {launches}")
-    plain_exec = StreamingExecutor(backend="torch", device=pipe.device)
+    plain_exec = StreamingExecutor(backend="torch", device=pipe.device, **FIFO_WHOLE)
     for col in columns:
         plain_exec.compile(col, pipe.encoded(col))
     for _ in range(2):
@@ -698,14 +858,14 @@ def main() -> int:
     # one more warm run under the profiler, and one of the chunked path at
     # 1 MiB (warmed up first), in one session: where the device's time goes
     chunk_trace = chunk_pipes[CHUNK_SIZES[0]]
-    chunk_trace.run()
+    chunk_trace.run(window=2)
     marks = {"whole": pipe, f"chunked {mib(CHUNK_SIZES[0])}": chunk_trace}
     traced_ms = {}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for label, p_ in marks.items():
             with torch.profiler.record_function(f"run {label}"):
-                traced = p_.run()
+                traced = p_.run(window=2)
             traced_ms[label] = p_.makespan_s * 1e3
             traced = None
     events = prof.events()
@@ -736,6 +896,58 @@ def main() -> int:
               + f" busy_ms {busy_us / 1e3:.4f} traced_makespan_ms {traced_ms[label]:.4f} "
               f"busy_share {busy_us / 1e3 / traced_ms[label]:.4f}")
 
+    # where the host's time per run goes: one whole-column and one chunked
+    # 1 MiB run under torch.profiler's Python tracer (CPU side only), each
+    # event of the executor's ``run`` put in the first part that claims it
+    host_split = {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                with_stack=True) as prof:
+        for label, p_ in marks.items():
+            t0 = time.perf_counter()
+            traced = p_.run(window=2)       # planned inside the run, as a caller's is
+            host_split[label] = {"traced_host_ms": (time.perf_counter() - t0) * 1e3,
+                                 "decode_units": sum(r.decode_launches
+                                                     for r in traced.values())}
+            traced = None
+    runs_ev = []
+
+    def find_runs(e):
+        if re.search(r"core/executor\.py\(\d+\): run$", e.name):
+            runs_ev.append(e)
+            return
+        for ch in e.children:
+            find_runs(ch)
+
+    for root in prof.profiler.kineto_results.experimental_event_tree():
+        find_runs(root)
+    runs_ev.sort(key=lambda e: e.start_time_ns)
+    if len(runs_ev) != len(marks):
+        raise AssertionError(f"the Python tracer saw {len(runs_ev)} runs, not {len(marks)}")
+    for (label, rec), ev in zip(host_split.items(), runs_ev):
+        parts = dict.fromkeys(HOST_PARTS, 0.0)
+
+        def claim(e, parts=parts):
+            part = host_part(e.name)
+            if part is not None:
+                parts[part] += e.duration_time_ns / 1e6
+                return
+            for ch in e.children:
+                claim(ch)
+
+        for ch in ev.children:
+            claim(ch)
+        rec["run_ms"] = ev.duration_time_ns / 1e6
+        rec.update(parts)
+        rec["other"] = rec["run_ms"] - sum(parts.values())
+        print(f"host_split {label} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
+    (w_label, w), (c_label, c) = list(host_split.items())
+    added = c["decode_units"] - w["decode_units"]
+    per_unit = {k: (c[k] - w[k]) / added for k in ("run_ms",) + HOST_PARTS + ("other",)}
+    host_split["per_added_unit_ms"] = per_unit
+    print(f"host_split per_added_unit ({c_label} - {w_label}, {added} units) " + " ".join(
+        f"{k} {v:.4f}" for k, v in per_unit.items()))
+
     # the plain-copy yardstick: the plain columns from pinned memory to the card
     # on the executor's copy stream, what moving them uncompressed would take
     stream = pipe.executor.copy_stream
@@ -762,19 +974,21 @@ def main() -> int:
     chunked = {}
 
     def drive(p_, names, label):
+        plan = p_.plan(window=2)        # planned once, at the pre-planner window
         for lib in libs:
             lib.launches = 0
         spans, hosts, out = [], [], None
         for run in ("cold",) + ("warm",) * WARM_RUNS:
             out = None
             t0 = time.perf_counter()
-            out = p_.run()
+            out = p_.run(plan=plan)
             hosts.append((time.perf_counter() - t0) * 1e3)
             for col in names:
                 same(bits(out[col].array.cpu()), bits(torch.from_numpy(cols[col])),
                      f"{label} {run} run {col} vs source")
             spans.append(p_.makespan_s * 1e3)
         counts = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+        per_run = {k: v // (WARM_RUNS + 1) for k, v in counts.items()}
         for col in names:
             r = out[col]
             sched = p_.executor.chunk_schedule(col)
@@ -786,12 +1000,12 @@ def main() -> int:
                   f"{r.transfer_s * 1e3:.4f} decode_ms {r.decode_s * 1e3:.4f} "
                   f"kernel_launches {r.kernel_launches}")
         units = sum(out[c].decode_launches for c in names)
-        rec = {"makespan_ms": float(np.median(spans[1:])),
+        rec = {"window": plan.window, "makespan_ms": float(np.median(spans[1:])),
                "makespan_ms_cold": spans[0], "makespan_ms_warm_min": min(spans[1:]),
                "makespan_ms_warm_max": max(spans[1:]),
                "host_run_ms": float(np.median(hosts[1:])), "decode_units_per_run": units,
-               "kernel_launches_per_run": sum(counts.values()) // len(spans),
-               "launches": counts}
+               "kernel_launches_per_run": sum(per_run.values()),
+               "launches": counts, "launches_per_run": per_run}
         print(f"chunked {label} totals " + " ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in rec.items() if k != "launches") + f" launches {counts}")
@@ -814,6 +1028,95 @@ def main() -> int:
         chunk_pipes[cb] = span_pipes[cb] = None
 
     # ---------------------------------------------------------------- phase 5
+    # the planner's paths, each plan driven with the counts zeroed just before
+    whole_host = float(np.median(host_ms[1:]))
+    one_mib = chunked[f"table2 {mib(CHUNK_SIZES[0])}"]
+    host_per_unit_ms = ((one_mib["host_run_ms"] - whole_host)
+                        / max(1, one_mib["decode_units_per_run"] - len(columns)))
+    planned = {}
+
+    def drive_plan(p_, plan, label, groups_must=None):
+        """Cold plus ``WARM_RUNS`` warm runs of ``plan``; ``groups_must`` (the
+        batched groups the plan must form, each one batched kernel-1 launch a
+        run) is checked when given."""
+        for lib in libs:
+            lib.launches = lib.batched_launches = 0
+        spans, hosts, out = [], [], None
+        for run in ("cold",) + ("warm",) * WARM_RUNS:
+            out = None
+            t0 = time.perf_counter()
+            out = p_.run(plan=plan)
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            for col in columns:
+                same(bits(out[col].array.cpu()), bits(torch.from_numpy(cols[col])),
+                     f"planner {label} {run} run {col} vs source")
+            spans.append(p_.makespan_s * 1e3)
+        counts = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+        in_batch = {k: lib.batched_launches for k, lib in zip(KERNELS, libs)}
+        per_run = {k: v // (WARM_RUNS + 1) for k, v in counts.items()}
+        batch_per_run = {k: v // (WARM_RUNS + 1) for k, v in in_batch.items()}
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"planner {label}: a kernel did not run: {counts}")
+        groups = sorted({tuple(sorted((c,) + out[c].batched_with))
+                         for c in columns if out[c].batched_with})
+        if sum(in_batch.values()) < len(groups) * (WARM_RUNS + 1):
+            raise AssertionError(f"planner {label}: batched groups {groups} made "
+                                 f"{in_batch} batched launches in {WARM_RUNS + 1} runs")
+        if groups_must is not None:
+            want = {"fully_parallel": len(groups_must) * (WARM_RUNS + 1),
+                    "group_parallel": 0, "non_parallel": 0}
+            if [list(g) for g in groups] != groups_must or in_batch != want:
+                raise AssertionError(f"planner {label}: batched groups {groups} with "
+                                     f"{in_batch} batched launches in {WARM_RUNS + 1} "
+                                     f"runs; the plan must form {groups_must}, one "
+                                     f"kernel-1 launch each a run: {want}")
+        modes = {m: sum(d.decode_mode == m for d in plan.decisions.values())
+                 for m in ("whole", "batched", "chunk")}
+        overheads = sorted(p_.executor.cost_model.launch_overhead_s(c) * 1e3 for c in columns)
+        rec = {"modeled_makespan_ms": plan.modeled_makespan_s * 1e3,
+               "makespan_ms": float(np.median(spans[1:])), "makespan_ms_cold": spans[0],
+               "makespan_ms_warm_min": min(spans[1:]), "makespan_ms_warm_max": max(spans[1:]),
+               "host_run_ms": float(np.median(hosts[1:])),
+               "baselines_ms": {k: v * 1e3 for k, v in sorted(plan.baselines.items())},
+               "window": plan.window, "modes": modes,
+               # a batch is one decode unit, as its columns' records each count it
+               "decode_units_per_run": sum(out[c].decode_launches for c in columns)
+               - sum(len(g) - 1 for g in groups),
+               "kernel_launches_per_run": sum(per_run.values()),
+               "launches": counts, "batched_launches": in_batch,
+               "launches_per_run": per_run, "batched_launches_per_run": batch_per_run,
+               "batched_groups": [list(g) for g in groups],
+               "launch_overhead_ms_min": overheads[0],
+               "launch_overhead_ms_median": float(np.median(overheads)),
+               "launch_overhead_ms_max": overheads[-1],
+               "decode_scale": p_.executor.cost_model.decode_scale,
+               "transfer_scale": p_.executor.cost_model.transfer_scale,
+               "host_ms_per_added_unit": host_per_unit_ms,
+               "chunked_columns": sorted(c for c, d in plan.decisions.items()
+                                         if d.decode_mode == "chunk")}
+        print(f"planner {label} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
+        for line in plan.explain().splitlines():
+            print(f"planner {label} | {line}")
+        return rec
+
+    encoded = {c: pipe.encoded(c) for c in columns}
+    ref_pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda")   # the reference's defaults
+    ref_pipe.load(encoded)
+    sf1 = args.scale == 1.0 and args.seed == 0     # the one same-program pair of SF 1
+    planned["reference-default"] = drive_plan(ref_pipe, ref_pipe.plan(), "reference-default",
+                                              [["L_DISCOUNT", "L_TAX"]] if sf1 else None)
+    ref_pipe = None
+    auto_pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", policy="adaptive",
+                               chunk_bytes="auto", chunk_decode=True)
+    auto_pipe.load(encoded)
+    planned["adaptive-auto seeded"] = drive_plan(auto_pipe, auto_pipe.plan(),
+                                                 "adaptive-auto seeded")
+    planned["adaptive-auto calibrated"] = drive_plan(auto_pipe, auto_pipe.plan(),
+                                                     "adaptive-auto calibrated")
+    auto_pipe = None
+
+    # ---------------------------------------------------------------- phase 6
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
     comp_b = sum(r.compressed_bytes for r in res.values())
@@ -837,13 +1140,19 @@ def main() -> int:
               "effective_plain_gbps": plain_b / makespan / 1e9,
               "plain_copy_ms": plain_copy_ms,
               "plain_copy_gbps": plain_b / plain_copy_ms / 1e6,
-              "launches_per_run": sum(launches.values()) // len(makespans)}
+              "launches_per_run": sum(launches_warm.values())}
     for cb in CHUNK_SIZES:
         rec = chunked[f"table2 {mib(cb)}"]
         totals[f"chunked_{mib(cb)}_makespan_ms"] = rec["makespan_ms"]
         totals[f"chunked_{mib(cb)}_host_run_ms"] = rec["host_run_ms"]
         totals[f"chunked_{mib(cb)}_decode_units"] = rec["decode_units_per_run"]
         totals[f"chunked_{mib(cb)}_launches_per_run"] = rec["kernel_launches_per_run"]
+    for label, rec in planned.items():
+        key = label.replace(" ", "_").replace("-", "_")
+        totals[f"planner_{key}_makespan_ms"] = rec["makespan_ms"]
+        totals[f"planner_{key}_modeled_ms"] = rec["modeled_makespan_ms"]
+        totals[f"planner_{key}_decode_units"] = rec["decode_units_per_run"]
+    totals["host_ms_per_added_unit"] = host_per_unit_ms
     print("totals " + " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                                for k, v in totals.items()))
     kernels = []
@@ -851,27 +1160,37 @@ def main() -> int:
         mine = [r for r in stages if r["kernel"] == kname]
         big = max(mine, key=lambda r: (r["library_ms"] is not None, r["bytes"]))
         ent = max((r for r in entries if r["kernel"] == kname), key=lambda r: r["n"])
+        bat = next(r for r in batched if r["kernel"] == kname and r["k"] == 2)
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": err[kname],
             "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
             "matches_plain": True, "at": f"{big['column']}:{big['stage']}",
-            "n": big["n"], "launches_per_run": launches[kname] // len(makespans),
+            "n": big["n"], "launches_per_run": launches_warm[kname],
             "main_path_ms": sum(r["ms"] for r in mine),
             "main_path_plain_ms": sum(r["plain_ms"] for r in mine),
             "main_path_bound_ms": sum(r["bound_ms"] for r in mine),
             "main_path_profiler_ms": sum(r["profiler_ms"] for r in mine),
-            "chunked_launches_per_run": {k: v["launches"][kname] // (WARM_RUNS + 1)
+            "chunked_launches_per_run": {k: v["launches_per_run"][kname]
                                          for k, v in chunked.items()},
             "entry": {k: ent[k] for k in ("column", "entry", "n", "ms", "whole_n",
-                                          "whole_ms", "plain_ms")}})
+                                          "whole_ms", "plain_ms")},
+            "batched_entry": {k: bat[k] for k in ("what", "stage", "k", "launches", "n", "ms",
+                                                  "singles_ms", "plain_ms", "bound_ms")},
+            "batched_splits": {r["k"]: r["launches"] for r in batched if r["kernel"] == kname},
+            "planner_launches_per_run": {k: v["launches_per_run"][kname]
+                                         for k, v in planned.items()},
+            "planner_batched_launches_per_run": {k: v["batched_launches_per_run"][kname]
+                                                 for k, v in planned.items()}})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": name, "stages": stages,
                                         "columns": rows, "totals": totals,
                                         "entries": entries, "chunked": chunked,
-                                        "kernels": kernels}, indent=1))
+                                        "batched": batched, "host_split": host_split,
+                                        "planner": planned, "kernels": kernels},
+                                       indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -14,11 +14,14 @@ source.  It prints the median warm makespan (CUDA events) and host time of
 ``--pairs`` pairs, and a summary line gives each side's medians.
 
 Without ``--chunk-kib`` (or with 0) the pipeline gets no chunk arguments, so a
-tree from before chunked streaming runs the same whole-column path.
+tree from before chunked streaming runs the same whole-column path; a tree with
+the planner gets ``policy="fifo"``, ``batch_columns=False`` (and
+``chunk_bytes=None`` unless ``--chunk-kib`` is given), its FIFO path.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -40,6 +43,10 @@ def worker(args) -> None:
     cols = {k: v for k, v in generate(args.scale, seed=0).items() if k in TABLE2_PLANS}
     chunking = ({"chunk_bytes": args.chunk_kib << 10, "chunk_decode": args.chunk_decode}
                 if args.chunk_kib else {})
+    if "policy" in inspect.signature(ColumnPipeline).parameters:
+        # a tree with the planner: its FIFO path without batching, as before it
+        chunking = {"chunk_bytes": None, **chunking, "policy": "fifo",
+                    "batch_columns": False}
     pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", **chunking)
     pipe.compress(cols)
     makespans, host_ms = [], []

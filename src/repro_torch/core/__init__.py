@@ -1,1 +1,1 @@
-"""Plans, stage IR, fusion, compiler and streaming executor of the port."""
+"""Plans, stage IR, fusion, compiler, planner and streaming executor of the port."""

@@ -16,6 +16,10 @@ PyTorch runs eagerly, so a program is the fused stage list and its backend; the
 one-time cost of a structure is building the CUDA libraries, done once per
 process (``repro_torch.kernels.cuda``).
 
+``Program.batched`` decodes K columns of one structure at once (the planner's
+``BATCHED`` decision): one launch per stage of the kernels' batched entries,
+each column with its own operands, into the rows of one ``(K, n_out)`` result.
+
 Streamed decode adds three programs, cached per structure like the whole one:
 ``ChunkProgram`` (one element chunk), ``PrologueProgram`` (what precedes a
 graph's group stage, once per column) and ``GroupChunkProgram`` (one span of
@@ -26,6 +30,7 @@ column's output in place, so no concatenation follows.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Any, Callable
 
@@ -36,7 +41,8 @@ from repro_torch.core import fusion as fusion_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.ir import DecodeGraph, element_chunk_layout, group_chunk_layout
 from repro_torch.core.patterns import LOAD, GroupParallel
-from repro_torch.kernels.ops import BACKENDS, run_stage
+from repro_torch.kernels.ops import BACKENDS, run_stage, run_stage_batched
+from repro_torch.kernels.ref import torch_dtype
 
 
 @dataclasses.dataclass
@@ -45,7 +51,8 @@ class Program:
 
     graph: DecodeGraph
     backend: str
-    calls: int = 0
+    calls: int = 0              # single-column decodes
+    batched_calls: int = 0      # batched decodes
 
     @property
     def signature(self) -> str:
@@ -60,6 +67,30 @@ class Program:
             out = run_stage(st, env, self.backend)
             env[st.out] = out
         return out
+
+    def batched(self, members) -> torch.Tensor:
+        """Decode K columns of this structure, one operand dict each, in one
+        launch per stage (the reference stacks the operands and vmaps; each
+        member here keeps its own buffers).  Returns ``(K, n_out)``; each row
+        starts on a 16-byte boundary, so the kernels store whole 16-byte groups
+        in every member's output."""
+        members = [dict(m) for m in members]
+        if not members:
+            raise ValueError("a batched decode needs at least one member")
+        self.batched_calls += 1
+        graph = self.graph
+        out_dt = torch_dtype(graph.out_dtype)
+        device = next(iter(members[0].values())).device
+        per_row = 16 // math.gcd(16, out_dt.itemsize)      # elements per 16 bytes
+        pad = -(-graph.n_out // per_row) * per_row
+        rows = torch.empty((len(members), pad), dtype=out_dt, device=device)
+        last = len(graph.stages) - 1
+        for k, st in enumerate(graph.stages):
+            outs = [rows[i, :graph.n_out] for i in range(len(members))] if k == last else None
+            for env, res in zip(members, run_stage_batched(st, members, self.backend,
+                                                           outs=outs)):
+                env[st.out] = res
+        return rows[:, :graph.n_out]
 
 
 def _check_backend(backend: str) -> None:

@@ -1,44 +1,56 @@
-"""Streaming decode executor on one device: whole-column, chunked-transfer and
-per-chunk (element or group-span) streaming.
+"""Plan-driven streaming decode on one device: whole-column, batched,
+chunked-transfer and per-chunk (element or group-span) streaming.
 
-This is the reference's ``StreamingExecutor`` in its ``policy="fifo"``
-configuration, without batched launches (a planner decision, ported with the
-planner).  ``chunk_bytes`` and ``chunk_decode`` take the reference's meaning:
+This is the reference's ``StreamingExecutor`` on one device: ``run`` executes an
+``ExecutionPlan`` (``core/planner.py``), built from the constructor's knobs --
+``chunk_bytes`` (an int, None for whole-blob transfer, or ``"auto"`` for
+per-column sizing), ``chunk_decode``, ``policy``, ``pipeline``,
+``batch_columns`` and ``prefetch_chunks``, with the reference's defaults --
+when the caller passes none.  Per column the plan decides:
 
-  * ``chunk_bytes=None`` -- each column moves host->device in one copy and
-    decodes in one pass through its cached Program (whole-column FIFO);
-  * ``chunk_bytes`` set, ``chunk_decode=False`` -- every leaf buffer moves in
-    row-granular pieces of at most ``chunk_bytes`` (``split_chunks``), and the
-    column still decodes whole once its last piece has landed;
-  * ``chunk_decode=True`` as well -- a column whose graph splits
-    (``chunk_schedule``: element chunks of a Fully-Parallel graph, or spans of
-    whole groups behind a Group-Parallel or Non-Parallel stage) decodes each
-    chunk in its own launch while later chunks are still in flight: the
-    paper's chunk-level overlap.  Every chunk writes its range of the column's
-    output in place.  A group-span column first runs its prologue (the presum)
-    once, after its whole-resident buffers land.
+  * ``whole`` -- the column moves host->device in one copy (``chunk_bytes=None``)
+    or every leaf buffer in row-granular pieces of at most ``chunk_bytes``
+    (``split_chunks``), and decodes in one pass through its cached Program once
+    its last piece has landed;
+  * ``batched`` -- as ``whole``, but columns that the plan marked and that share
+    one Program and lie next to each other in the issue order decode together:
+    one launch per stage of the kernels' batched entries (``Program.batched``);
+  * ``chunk`` -- a column whose graph splits (``chunk_schedule``: element chunks
+    of a Fully-Parallel graph, or spans of whole groups behind a Group-Parallel
+    or Non-Parallel stage) decodes each chunk in its own launch while later
+    chunks are still in flight: the paper's chunk-level overlap.  Every chunk
+    writes its range of the column's output in place.  A group-span column
+    first runs its prologue (the presum) once, after its whole-resident
+    buffers land.
+
+plus the issue order and the window.  Measured actuals feed the plan's
+``CostModel`` (``timings`` aliases ``cost_model.measured``), so the next plan is
+built from calibrated predictions.
 
 On a CUDA device:
 
-  * ``compile`` packs a column's operands into one page-locked host buffer: the
-    buffers every decode unit reads first, then, for a per-chunk column, the
-    slices of chunk 0, chunk 1, ... each 256-byte aligned, so the transfer of
-    one chunk is one copy of a contiguous range;
+  * a column's operands are packed into one page-locked host buffer per
+    (chunk size, decode mode) the plans ask for, cached: the buffers every
+    decode unit reads first, then, for a per-chunk column, the slices of chunk
+    0, chunk 1, ... each 256-byte aligned, so the transfer of one chunk is one
+    copy of a contiguous range;
   * ``run`` issues those copies on the executor's copy stream into one device
     buffer per column, at most ``window`` decode units ahead of decode (the
     copies of unit u+window wait until the decode of unit u has finished on
-    the device); a decode unit is a whole column or one chunk;
+    the device); a decode unit is a whole column, a batch of columns or one
+    chunk.  The reference's ``window`` counts per-chunk-decode chunks only
+    (``scheduler.simulate_stream``); this one counts every unit;
   * the decode of a unit waits on the event recorded after its last copy on
     the compute stream, so transfers overlap decode;
   * ``record_stream`` keeps the caching allocator from reusing a device buffer
     before the compute stream is done with it;
   * ``transfer_s`` runs from a column's first copy to its last, ``decode_s``
-    from its first launch to its last, and ``last_makespan_s`` over the run,
-    all by CUDA events.
+    from its first launch to its last (a batch's split evenly among its
+    columns), and ``last_makespan_s`` over the run, all by CUDA events.
 
 The host enqueues everything without waiting on the device and synchronizes once
 at the end.  On a CPU device the same units run in order, timed with the host
-clock.  The planner, batched launches and the dispatch engine come later.
+clock.  The dispatch engine comes later.
 """
 from __future__ import annotations
 
@@ -51,8 +63,12 @@ import torch
 
 from repro_torch.core import costmodel
 from repro_torch.core import plan as plan_mod
+from repro_torch.core import planner as planner_mod
 from repro_torch.core.compiler import Program, ProgramCache, build_graph, device_layout
+from repro_torch.core.costmodel import CostModel, profile_from
 from repro_torch.core.ir import DecodeGraph, element_chunk_layout, group_chunk_layout
+from repro_torch.core.planner import BATCHED, CHUNK, ColumnDecision, ExecutionPlan
+from repro_torch.kernels import cuda
 from repro_torch.kernels.fully_parallel import KERNEL as FP_KERNEL
 from repro_torch.kernels.group_parallel import KERNEL as GP_KERNEL
 from repro_torch.kernels.non_parallel import KERNEL as NP_KERNEL
@@ -125,9 +141,11 @@ class ColumnExec:
     plain_bytes: int
     n_chunks: int                # transfer pieces, or decode chunks when per-chunk
     signature: str
+    batched_with: tuple[str, ...] = ()   # same-structure columns sharing the launch
     decode_launches: int = 1     # decode units: chunks (+ a prologue), or 1
     chunk_decoded: bool = False
     kernel_launches: int = 0     # CUDA kernel launches of this column's decode
+    #                              (of a batch: the batch's, shared by its columns)
 
 
 Entry = tuple[str, int, int, torch.dtype, tuple[int, ...]]
@@ -163,6 +181,38 @@ def _place(arrays, off: int) -> tuple[list[Entry], int]:
     return entries, off
 
 
+def whole_copies(enc: plan_mod.Encoded, layout, chunk_bytes: int | None
+                 ) -> tuple[tuple[int, int], ...]:
+    """The copies of a whole-decoded column staged as ``layout`` (meta operands
+    first): one, or one per ``split_chunks`` piece of each leaf with the meta
+    operands in one."""
+    copies: list[tuple[int, int]] = []
+
+    def add(a: int, b: int) -> None:
+        if b > a:
+            copies.append((a, b))
+
+    if chunk_bytes is None:
+        last = layout[-1]
+        add(0, last[1] + last[2])
+        return tuple(copies)
+    ops = plan_mod.host_operands(enc)
+    n_meta = len(ops) - len(plan_mod.flat_buffers(enc))
+    if n_meta:
+        last = layout[n_meta - 1]
+        add(0, last[1] + last[2])
+    for (name, off, nb, _, shape) in layout[n_meta:]:
+        parts = split_chunks(np.asarray(ops[name]), chunk_bytes)
+        if len(parts) == 1:
+            add(off, off + nb)
+            continue
+        row, r0 = nb // shape[0], 0      # the pieces' rows, device layout
+        for p in parts:
+            add(off + r0 * row, off + (r0 + p.shape[0]) * row)
+            r0 += p.shape[0]
+    return tuple(copies)
+
+
 def stage_column(enc: plan_mod.Encoded, pin: bool = False,
                  sched: ChunkSchedule | None = None,
                  chunk_bytes: int | None = None) -> StagedColumn:
@@ -171,40 +221,20 @@ def stage_column(enc: plan_mod.Encoded, pin: bool = False,
     chunk of ``sched`` (the whole buffers in one copy, then one per chunk)."""
     ops = plan_mod.host_operands(enc)
     leaves = plan_mod.flat_buffers(enc)
-    arrays: list[tuple[str, np.ndarray]] = []
     copies: list[tuple[int, int]] = []
     pieces: list[tuple[Entry, ...]] = []
-
-    def add(a: int, b: int) -> None:
-        if b > a:
-            copies.append((a, b))
-
     if sched is None:
         names = [k for k in ops if k not in leaves] + list(leaves)   # meta first
         arrays = [(k, device_layout(ops[k])) for k in names]
         layout, end = _place(arrays, 0)
-        if chunk_bytes is None:
-            add(0, end)
-        else:
-            n_meta = len(ops) - len(leaves)
-            if n_meta:
-                last = layout[n_meta - 1]
-                add(0, last[1] + last[2])
-            for (name, off, nb, _, shape) in layout[n_meta:]:
-                parts = split_chunks(np.asarray(ops[name]), chunk_bytes)
-                if len(parts) == 1:
-                    add(off, off + nb)
-                    continue
-                row, r0 = nb // shape[0], 0      # the pieces' rows, device layout
-                for p in parts:
-                    add(off + r0 * row, off + (r0 + p.shape[0]) * row)
-                    r0 += p.shape[0]
+        copies = list(whole_copies(enc, layout, chunk_bytes))
         needs = (len(copies),)
     else:
         arrays = [(k, device_layout(sched.host_push[k] if k in sched.host_push
                                     else ops[k])) for k in sched.whole]
         layout, end = _place(arrays, 0)
-        add(0, end)
+        if end > 0:
+            copies.append((0, end))
         needs = []
         for i in range(sched.n_chunks):
             chunk = [(k, device_layout(sched.piece(np.asarray(ops[k]), k, i)))
@@ -212,7 +242,8 @@ def stage_column(enc: plan_mod.Encoded, pin: bool = False,
             entries, stop = _place(chunk, end)
             pieces.append(tuple(entries))
             arrays += chunk
-            add(end, stop)
+            if stop > end:
+                copies.append((end, stop))
             needs.append(len(copies))
             end = stop
         needs = tuple(needs)
@@ -227,30 +258,76 @@ def _launches() -> int:
     return FP_KERNEL.launches + GP_KERNEL.launches + NP_KERNEL.launches
 
 
+@dataclasses.dataclass
+class _Unit:
+    """One decode unit of a run: chunk ``k`` of one column, a whole column
+    (``k == 0``), or a batch of whole columns of one Program."""
+
+    members: tuple[str, ...]
+    k: int = 0
+
+
 class StreamingExecutor:
-    """FIFO streaming decode over cached programs: whole-column, chunked
-    transfer, or per-chunk decode (``chunk_bytes``, ``chunk_decode``)."""
+    """Plan-driven streaming decode over cached programs.
+
+    ``chunk_bytes`` (an int, None for whole-blob transfer, or ``"auto"`` for
+    per-column sizing), ``chunk_decode``, ``policy``, ``pipeline``,
+    ``batch_columns`` and ``prefetch_chunks`` (the window) are planner
+    defaults, as in the reference: they parameterize the ``ExecutionPlan``
+    built when ``run`` is called without one; a plan passed in is
+    authoritative."""
 
     _DEFAULTS = object()     # "use the constructor's chunk configuration"
 
     def __init__(self, backend: str, device: torch.device | str,
-                 chunk_bytes: int | None = None, chunk_decode: bool = False):
+                 chunk_bytes: int | None | str = 1 << 20, chunk_decode: bool = False,
+                 policy: str = "chunk-johnson", pipeline: bool = True,
+                 batch_columns: bool = True, prefetch_chunks: int | None = None,
+                 cost_model: CostModel | None = None):
         self.backend = backend
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.chunk_bytes = chunk_bytes
         self.chunk_decode = chunk_decode
+        self.policy = policy
+        self.pipeline = pipeline
+        self.batch_columns = batch_columns
+        self.prefetch_chunks = None if prefetch_chunks is None else max(1, prefetch_chunks)
+        self.cost_model = cost_model or CostModel()
+        # measured (transfer_s, decode_s) per column from the latest run: an
+        # alias of the cost model's store (one source of truth)
+        self.timings: dict[str, tuple[float, float]] = self.cost_model.measured
         self.cache = ProgramCache()
         self._encoded: dict[str, plan_mod.Encoded] = {}
         self._programs: dict[str, Program] = {}
         self._graphs: dict[str, DecodeGraph] = {}
+        # host staging per (column, chunk size, per-chunk?), and the one each
+        # column's latest run (or its compile) used
+        self._stagings: dict[tuple[str, int | None, bool], StagedColumn] = {}
         self._staged: dict[str, StagedColumn] = {}
         self._schedules: dict[tuple[str, int], ChunkSchedule | None] = {}
         self._copy_stream: torch.cuda.Stream | None = None
         self.last_makespan_s: float | None = None
+        if backend == "kernel" and self.device.type == "cuda":
+            # build the three libraries (one nvcc each, at once) and load
+            # every kernel on the device now, before any timed run
+            libs = (FP_KERNEL, GP_KERNEL, NP_KERNEL)
+            cuda.build(libs)
+            for lib in libs:
+                lib.load(self.device)
+
+    @property
+    def _fixed_chunk_bytes(self) -> int | None:
+        """The constructor's chunk size as an int or None (``"auto"`` stands for
+        the planner's default size where one size is needed)."""
+        cb = self.chunk_bytes
+        return planner_mod.DEFAULT_CHUNK_BYTES if isinstance(cb, str) else cb
 
     # ------------------------------------------------------------------ compile
     def compile(self, name: str, enc: plan_mod.Encoded) -> Program:
-        """Register a blob: its (cache-shared) Program and its host staging."""
+        """Register a blob: its (cache-shared) Program, its profile in the cost
+        model, and its host staging for the constructor's configuration."""
         graph = build_graph(enc)
         prog = self.cache.get(graph, backend=self.backend)
         self._encoded[name] = enc
@@ -258,12 +335,25 @@ class StreamingExecutor:
         # the column's own graph: its group offsets and rANS word counts are
         # data, while the shared program's graph is the first column's
         self._graphs[name] = graph
-        for key in [k for k in self._schedules if k[0] == name]:
-            self._schedules.pop(key)
-        self._staged[name] = stage_column(enc, pin=self.device.type == "cuda",
-                                          sched=self.chunk_schedule(name),
-                                          chunk_bytes=self.chunk_bytes)
+        # re-registering a name drops whatever was derived from the old blob
+        for store in (self._schedules, self._stagings):
+            for key in [k for k in store if k[0] == name]:
+                store.pop(key)
+        self.cost_model.forget(name)
+        self.cost_model.register(profile_from(name, enc, graph))
+        sched = self.chunk_schedule(name)
+        self._staged[name] = self._staging(name, self._fixed_chunk_bytes, sched)
         return prog
+
+    def column_profile(self, name: str):
+        """The planner's profile of a registered column."""
+        if name not in self.cost_model.profiles:
+            self.cost_model.register(profile_from(name, self._encoded[name],
+                                                  self._graphs[name]))
+        return self.cost_model.profiles[name]
+
+    def program(self, name: str) -> Program:
+        return self._programs[name]
 
     def graph(self, name: str) -> DecodeGraph:
         return self._graphs[name]
@@ -274,6 +364,28 @@ class StreamingExecutor:
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         return self._copy_stream
+
+    def _staging(self, name: str, chunk_bytes: int | None,
+                 sched: ChunkSchedule | None) -> StagedColumn:
+        """The column's host staging for a whole decode with ``chunk_bytes``
+        pieces, or for the per-chunk decode of ``sched``; built once each.
+        Whole stagings share one host buffer and differ in their copies."""
+        pin = self.device.type == "cuda"
+        if sched is not None:
+            key = (name, chunk_bytes, True)
+            if key not in self._stagings:
+                self._stagings[key] = stage_column(self._encoded[name], pin, sched)
+            return self._stagings[key]
+        key = (name, chunk_bytes, False)
+        if key not in self._stagings:
+            base = self._stagings.get((name, None, False))
+            if base is None:
+                base = stage_column(self._encoded[name], pin)
+                self._stagings[(name, None, False)] = base
+            copies = whole_copies(self._encoded[name], base.layout, chunk_bytes)
+            self._stagings[key] = dataclasses.replace(base, copies=copies,
+                                                      needs=(len(copies),))
+        return self._stagings[key]
 
     # ----------------------------------------------------------------- schedule
     def n_transfer_chunks(self, name: str, chunk_bytes: int | None) -> int:
@@ -292,7 +404,7 @@ class StreamingExecutor:
         if chunk_bytes is self._DEFAULTS:
             if not self.chunk_decode:
                 return None
-            chunk_bytes = self.chunk_bytes
+            chunk_bytes = self._fixed_chunk_bytes
         if chunk_bytes is None:
             return None
         key = (name, chunk_bytes)
@@ -413,86 +525,184 @@ class StreamingExecutor:
         gw = graph.stages[layout.stage_index].host_group_words
         return None if gw is None else np.asarray(gw)
 
-    # --------------------------------------------------------------------- run
-    def run(self, order: Sequence[str] | None = None,
-            window: int = 2) -> dict[str, ColumnExec]:
-        """Transfer + decode the registered columns (all, or ``order``) in order,
-        with at most ``window`` decode units in flight; returns per-column
-        records once everything has finished."""
-        order = list(self._encoded) if order is None else list(order)
-        unknown = [n for n in order if n not in self._encoded]
-        if unknown:
-            raise KeyError(f"columns not registered: {unknown}")
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        units = [(name, k) for name in order
-                 for k in range(len(self._staged[name].needs))]
-        if self.device.type == "cuda":
-            return self._run_cuda(order, units, window)
-        return self._run_host(order, units)
+    # ------------------------------------------------------------------ planning
+    def plan(self, names: Sequence[str] | None = None, policy: str | None = None,
+             order: Sequence[str] | None = None,
+             chunk_bytes: int | None | str | object = _DEFAULTS,
+             chunk_decode: bool | None = None, window: int | None = None,
+             fused_columns=None) -> ExecutionPlan:
+        """An ``ExecutionPlan`` for registered columns (all by default).
 
-    def _decode(self, name: str, k: int, flat: torch.Tensor, col: dict) -> None:
-        """Decode unit k of a column from its device buffer ``flat``; ``col``
-        carries the column's output and prologue results between units."""
-        staged = self._staged[name]
-        sched = self.chunk_schedule(name)
-        graph = self.graph(name)
-        if sched is None:
-            col["out"] = self._programs[name](staged.views(flat))
+        The constructor's knobs are the defaults and any argument overrides
+        them.  An explicit ``order`` pins the issue order (the decisions are
+        still planned); ``pipeline=False`` makes the constructor's default
+        policy FIFO.  ``fused_columns`` is ``planner.plan_execution``'s."""
+        names = list(self._encoded) if names is None else list(names)
+        profiles = {n: self.column_profile(n) for n in names}
+        pol = policy if policy is not None else (self.policy if self.pipeline else "fifo")
+        ep = planner_mod.plan_execution(
+            profiles, self.cost_model, policy=pol,
+            chunk_bytes=self.chunk_bytes if chunk_bytes is self._DEFAULTS else chunk_bytes,
+            chunk_decode=self.chunk_decode if chunk_decode is None else chunk_decode,
+            window=self.prefetch_chunks if window is None else window,
+            batch_columns=self.batch_columns, fused_columns=fused_columns)
+        if order is not None:
+            ep = dataclasses.replace(ep, order=tuple(order), policy="explicit")
+        return ep
+
+    def issue_order(self, names: Sequence[str] | None = None) -> list[str]:
+        """Column issue order under the configured scheduling policy."""
+        names = list(self._encoded) if names is None else list(names)
+        if not self.pipeline or len(names) <= 1:
+            return names
+        return list(self.plan(names).order)
+
+    # --------------------------------------------------------------------- run
+    def run(self, order: Sequence[str] | None = None, plan: ExecutionPlan | None = None,
+            window: int | None = None) -> dict[str, ColumnExec]:
+        """Transfer + decode the registered columns (all, or those of ``order``,
+        in that order) as ``plan`` decides; without a plan, one is built from
+        the constructor's knobs.  ``window`` overrides the plan's (decode units
+        in flight).  Measured actuals feed the cost model either way.  Returns
+        per-column records once everything has finished."""
+        if order is not None:
+            unknown = [n for n in order if n not in self._encoded]
+            if unknown:
+                raise KeyError(f"columns not registered: {unknown}")
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        names = list(self._encoded)
+        if plan is None:
+            plan = self.plan(names, order=order)
+        elif order is not None:
+            plan = dataclasses.replace(plan, order=tuple(order), policy="explicit")
+        missing = [n for n in names if n not in plan.decisions]
+        if missing:
+            raise ValueError(f"plan does not cover columns {missing}; it was built over "
+                             f"{sorted(plan.decisions)}: re-plan after registering them")
+        fused = sorted(n for n, d in plan.decisions.items() if d.fused and n in names)
+        if fused:
+            raise NotImplementedError(f"decode-fused queries are not ported yet: {fused}")
+        order = [n for n in plan.order if n in self._encoded]
+        window = plan.window if window is None else window
+        cols = {name: self._column(name, plan.decisions[name]) for name in order}
+        units = self._units(order, plan.decisions, cols)
+        if self.device.type == "cuda":
+            res = self._run_cuda(order, units, window, cols)
+        else:
+            res = self._run_host(order, units, cols)
+        for name, rec in res.items():
+            self.cost_model.observe(name, rec.transfer_s, rec.decode_s)
+        return res
+
+    def _column(self, name: str, d: ColumnDecision) -> dict:
+        """A column's state in one run: its decision, schedule and staging."""
+        sched = self.chunk_schedule(name, d.chunk_bytes) if d.decode_mode == CHUNK else None
+        staged = self._staging(name, d.chunk_bytes, sched)
+        self._staged[name] = staged
+        return {"decision": d, "sched": sched, "staged": staged}
+
+    def _units(self, order: list[str], decisions, cols: dict) -> list[_Unit]:
+        """The run's decode units in order.  Per-chunk columns give one unit per
+        chunk; consecutive-in-order columns the plan marked batched decode in
+        one unit when they share one Program (adjacent ones only, so transfer
+        still overlaps decode; Johnson's rule keys on equal times, so columns
+        of one structure end up adjacent anyway)."""
+        units: list[_Unit] = []
+        for name in order:
+            sched = cols[name]["sched"]
+            if sched is not None:
+                units += [_Unit((name,), k) for k in range(sched.n_chunks)]
+                continue
+            prev = units[-1].members if units else ()
+            if (decisions[name].decode_mode == BATCHED and prev
+                    and cols[prev[-1]]["sched"] is None
+                    and decisions[prev[-1]].decode_mode == BATCHED
+                    and self._programs[prev[-1]] is self._programs[name]):
+                units[-1] = _Unit(prev + (name,))
+            else:
+                units.append(_Unit((name,)))
+        return units
+
+    def _decode(self, unit: _Unit, flats: dict[str, torch.Tensor], cols: dict) -> None:
+        """Decode one unit from its columns' device buffers ``flats``; ``cols``
+        carries each column's output and prologue results between units."""
+        name, k = unit.members[0], unit.k
+        col = cols[name]
+        staged, sched = col["staged"], col["sched"]
+        prog = self._programs[name]
+        if len(unit.members) > 1:
+            out = prog.batched([cols[m]["staged"].views(flats[m]) for m in unit.members])
+            for i, m in enumerate(unit.members):
+                cols[m]["out"] = out[i]
             return
-        bufs = staged.views(flat, k)
+        if sched is None:
+            col["out"] = prog(staged.views(flats[name]))
+            return
+        graph = self.graph(name)
+        bufs = staged.views(flats[name], k)
         if k == 0:
             col["out"] = torch.empty(graph.n_out, dtype=torch_dtype(graph.out_dtype),
                                      device=self.device)
         if sched.kind == "element":
-            prog = self.cache.get_chunk(graph, sched.out_sizes[k], self.backend)
-            prog(bufs, sched.out_starts[k], col["out"])
+            chunk = self.cache.get_chunk(graph, sched.out_sizes[k], self.backend)
+            chunk(bufs, sched.out_starts[k], col["out"])
             return
         if k == 0:
             pro = self.cache.get_group_prologue(graph, self.backend)
             col["resident"] = pro(bufs) if pro is not None else {}
             col["units"] = sched.n_chunks + (pro is not None)
-        prog = self.cache.get_group_chunk(graph, sched.g_sizes[k], sched.pad_sizes[k],
+        span = self.cache.get_group_chunk(graph, sched.g_sizes[k], sched.pad_sizes[k],
                                           self.backend)
-        prog({**bufs, **col["resident"]}, sched.out_starts[k], sched.g_starts[k],
+        span({**bufs, **col["resident"]}, sched.out_starts[k], sched.g_starts[k],
              sched.out_sizes[k], col["out"])
 
     def _record(self, name: str, col: dict, transfer_s: float, decode_s: float,
-                launches: int) -> ColumnExec:
+                launches: int, batched_with: tuple[str, ...]) -> ColumnExec:
         enc = self._encoded[name]
-        sched = self.chunk_schedule(name)
+        sched = col["sched"]
         return ColumnExec(
             name=name, array=col["out"], transfer_s=transfer_s, decode_s=decode_s,
             compressed_bytes=enc.compressed_nbytes, plain_bytes=enc.plain_nbytes,
             n_chunks=(sched.n_chunks if sched is not None
-                      else self.n_transfer_chunks(name, self.chunk_bytes)),
+                      else self.n_transfer_chunks(name, col["decision"].chunk_bytes)),
             signature=self._programs[name].signature,
+            batched_with=tuple(m for m in batched_with if m != name),
             decode_launches=col.get("units", 1 if sched is None else sched.n_chunks),
             chunk_decoded=sched is not None, kernel_launches=launches)
 
-    def _run_host(self, order: list[str], units) -> dict[str, ColumnExec]:
-        cols = {name: {"transfer": 0.0, "decode": 0.0, "launches": 0} for name in order}
+    def _run_host(self, order: list[str], units: list[_Unit],
+                  cols: dict) -> dict[str, ColumnExec]:
+        for name in order:
+            cols[name].update(transfer=0.0, decode=0.0, launches=0, batch=())
         flats: dict[str, torch.Tensor] = {}
         t_run = time.perf_counter()
-        for name, k in units:
-            staged, col = self._staged[name], cols[name]
+        for unit in units:
             t0 = time.perf_counter()
-            if k == 0:
-                flats[name] = torch.empty_like(staged.host, device=self.device)
-            first = staged.needs[k - 1] if k else 0
-            for a, b in staged.copies[first:staged.needs[k]]:
-                flats[name][a:b].copy_(staged.host[a:b])
+            for name in unit.members:
+                staged = cols[name]["staged"]
+                if unit.k == 0:
+                    flats[name] = torch.empty_like(staged.host, device=self.device)
+                first = staged.needs[unit.k - 1] if unit.k else 0
+                for a, b in staged.copies[first:staged.needs[unit.k]]:
+                    flats[name][a:b].copy_(staged.host[a:b])
             t1 = time.perf_counter()
             before = _launches()
-            self._decode(name, k, flats[name], col)
-            col["launches"] += _launches() - before
-            col["transfer"] += t1 - t0
-            col["decode"] += time.perf_counter() - t1
+            self._decode(unit, flats, cols)
+            t2 = time.perf_counter()
+            for name in unit.members:
+                col = cols[name]
+                col["launches"] += _launches() - before
+                col["transfer"] += (t1 - t0) / len(unit.members)
+                col["decode"] += (t2 - t1) / len(unit.members)
+                col["batch"] = unit.members if len(unit.members) > 1 else ()
         self.last_makespan_s = time.perf_counter() - t_run
-        return {name: self._record(name, c, c["transfer"], c["decode"], c["launches"])
-                for name, c in cols.items()}
+        return {name: self._record(name, cols[name], cols[name]["transfer"],
+                                   cols[name]["decode"], cols[name]["launches"],
+                                   cols[name]["batch"]) for name in order}
 
-    def _run_cuda(self, order: list[str], units, window: int) -> dict[str, ColumnExec]:
+    def _run_cuda(self, order: list[str], units: list[_Unit], window: int,
+                  cols: dict) -> dict[str, ColumnExec]:
         dev = self.device
         compute = torch.cuda.current_stream(dev)
         copy = self.copy_stream
@@ -503,7 +713,6 @@ class StreamingExecutor:
         start, end = event(), event()
         start.record(compute)
         copy.wait_event(start)          # no copy starts before the run does
-        cols = {name: {} for name in order}
         flats: dict[str, torch.Tensor] = {}
         landed: list[torch.cuda.Event] = []    # per unit: after its last copy
         decoded: list[torch.cuda.Event] = []   # per unit: after its decode
@@ -511,44 +720,56 @@ class StreamingExecutor:
         def issue(u: int) -> None:
             if u >= window:             # at most `window` units ahead of decode
                 copy.wait_event(decoded[u - window])
-            name, k = units[u]
-            staged, col = self._staged[name], cols[name]
+            unit = units[u]
             with torch.cuda.stream(copy):
-                if k == 0:
-                    col["c0"] = event()
-                    col["c0"].record(copy)
-                    flats[name] = torch.empty(staged.host.numel(), dtype=torch.uint8,
-                                              device=dev)
-                first = staged.needs[k - 1] if k else 0
-                for a, b in staged.copies[first:staged.needs[k]]:
-                    flats[name][a:b].copy_(staged.host[a:b], non_blocking=True)
+                for name in unit.members:
+                    staged, col = cols[name]["staged"], cols[name]
+                    if unit.k == 0:
+                        col["c0"] = event()
+                        col["c0"].record(copy)
+                        flats[name] = torch.empty(staged.host.numel(), dtype=torch.uint8,
+                                                  device=dev)
+                    first = staged.needs[unit.k - 1] if unit.k else 0
+                    for a, b in staged.copies[first:staged.needs[unit.k]]:
+                        flats[name][a:b].copy_(staged.host[a:b], non_blocking=True)
+                    col["c1"] = event()
+                    col["c1"].record(copy)
                 ev = event()
                 ev.record(copy)
             landed.append(ev)
 
         for u in range(min(window, len(units))):
             issue(u)
-        for u, (name, k) in enumerate(units):
-            col = cols[name]
+        for u, unit in enumerate(units):
             compute.wait_event(landed[u])
-            if k == 0:
-                flats[name].record_stream(compute)
-                col["d0"] = event()
-                col["d0"].record(compute)
-                col["launches"] = _launches()
-            self._decode(name, k, flats[name], col)
+            for name in unit.members:
+                if unit.k == 0:
+                    flats[name].record_stream(compute)
+                    cols[name]["d0"] = event()
+                    cols[name]["d0"].record(compute)
+                    cols[name]["launches"] = _launches()
+            self._decode(unit, flats, cols)
             d1 = event()
             d1.record(compute)
             decoded.append(d1)
-            if k == len(self._staged[name].needs) - 1:
-                col["c1"], col["d1"] = landed[u], d1
-                col["launches"] = _launches() - col["launches"]
-                del flats[name]         # the allocator owns the buffer from here
+            for name in unit.members:
+                col = cols[name]
+                if unit.k == len(col["staged"].needs) - 1:
+                    col["d1"] = d1
+                    col["launches"] = _launches() - col["launches"]
+                    col["batch"] = unit.members if len(unit.members) > 1 else ()
+                    del flats[name]         # the allocator owns the buffer from here
             if u + window < len(units):
                 issue(u + window)
         end.record(compute)
         end.synchronize()
         self.last_makespan_s = start.elapsed_time(end) / 1e3
+        # The reference re-times a cold first call so that calibration sees
+        # decode, not jit.  Nothing here compiles at a first call, and the
+        # module loading that CUDA would otherwise do at a kernel's first
+        # launch is done at construction (``KernelLib.load`` with the
+        # device), so a cold run's decode times go to ``observe`` as they are.
         return {name: self._record(name, c, c["c0"].elapsed_time(c["c1"]) / 1e3,
-                                   c["d0"].elapsed_time(c["d1"]) / 1e3, c["launches"])
+                                   c["d0"].elapsed_time(c["d1"]) / 1e3
+                                   / max(1, len(c["batch"])), c["launches"], c["batch"])
                 for name, c in cols.items()}

@@ -58,16 +58,32 @@ class ChipSpec:
     smem_per_block: int       # shared memory one block may use, bytes
     l2_bytes: int
     hbm_gbps: float           # device memory bandwidth, GB/s
+    host_link_gbps: float     # host->device copy rate, GB/s (the cost model's link)
+    grid_step_overhead_ns: float  # cost of one more decode launch (the cost model's)
     source: str               # where the numbers come from
 
 
 # H100 SXM5 80 GB (NVIDIA H100 data sheet and Hopper architecture white paper).
 # ``chip_from_device`` replaces the SM count, L2 size and shared memory with what
 # the card itself reports, and the bandwidth with its SKU's data-sheet rate.
+#
+# The two cost-model entries are measured on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit by ``chip_smoke.py`` (SF 1, seed 0):
+#  - host_link_gbps: 48.8 GB/s, the 444.32 MB of plain TPC-H columns copied
+#    from pinned memory to the card in 9.11 ms;
+#  - grid_step_overhead_ns: 254,000 ns, what one more decode unit adds to the
+#    wall time of ``StreamingExecutor.run`` (the host time of the chunked run
+#    at 1 MiB less the whole-column run's, over the 85 units chunking adds).
+#    The cost model prices one *extra* decode launch with it
+#    (``CostModel.launch_overhead_s``), and on this card that is what an extra
+#    chunk costs end to end; almost all of it is host time.  The device side
+#    of a launch alone is about 6.5 us by CUDA events.
 CHIPS: dict[str, ChipSpec] = {
     "h100": ChipSpec("h100", sms=132, max_threads_per_block=1024,
                      smem_per_block=232_448, l2_bytes=50 * 2**20,
-                     hbm_gbps=3350.0, source="datasheet: H100 SXM5 80GB"),
+                     hbm_gbps=3350.0, host_link_gbps=48.8,
+                     grid_step_overhead_ns=254_000.0,
+                     source="datasheet: H100 SXM5 80GB"),
 }
 
 DEFAULT_CHIP = "h100"
@@ -92,9 +108,14 @@ _NATIVE: dict[str, dict[str, Geometry]] = {
 }
 
 
+def chip(name: str = DEFAULT_CHIP) -> ChipSpec:
+    return CHIPS[name]
+
+
 def chip_from_device(device_index: int = 0, name: str = DEFAULT_CHIP) -> ChipSpec:
     """``CHIPS[name]`` with the entries the card reports read from the card
-    (``torch.cuda.get_device_properties``) and the bandwidth of its SKU."""
+    (``torch.cuda.get_device_properties``) and the bandwidth of its SKU; the
+    measured ``host_link_gbps`` and ``grid_step_overhead_ns`` stay as seeded."""
     import torch
 
     p = torch.cuda.get_device_properties(device_index)
@@ -124,3 +145,13 @@ def native_config(pattern: str, chip: str = DEFAULT_CHIP, out_width: int = 4) ->
         geom = dataclasses.replace(geom, L=geom.L * out_width // 4,
                                    C=geom.C * 4 // out_width)
     return geom
+
+
+@functools.cache
+def native_subtile(pattern: str, chip: str = DEFAULT_CHIP, itemsize: int = 4) -> int:
+    """S*C of the chip's native geometry: the outputs one main-loop iteration of
+    a block covers.  The planner's chunk ladder snaps element-chunk boundaries
+    to multiples of it, so every streamed launch covers whole sub-tiles."""
+    pat = pattern if pattern in _NATIVE[chip] else "fp"
+    g = native_config(pat, chip, out_width=itemsize)
+    return int(g.S) * int(g.C)

@@ -73,6 +73,11 @@ class DecodeGraph:
     fused: bool = False
 
     @property
+    def n_kernels(self) -> int:
+        """Stages of the graph: the decode launches the cost model counts."""
+        return len(self.stages)
+
+    @property
     def chunkability(self) -> str:
         """Finest output boundary the executor can split this graph at:
         CHUNK_ELEMENT if every stage splits anywhere, CHUNK_GROUP when

@@ -42,6 +42,18 @@
 //  - The kernel is specialised on the source and the output width (9
 //    instances).  No launch bounds: with __launch_bounds__(1024) ptxas
 //    spilled to stay at 32 registers.
+//
+// Batched entry (zf_fully_parallel_batched): K columns of one structure (the
+// planner's BATCHED decision) decode in one launch.  Member k's argument struct
+// is m[k] of a ZfFpBatch passed by value (__grid_constant__, so indexing it by
+// blockIdx.y reads the parameter space and copies nothing); blockIdx.y picks the
+// member and blockIdx.x its block, so each member keeps its own pointers,
+// length, bit width, base and divisors.  The members must share the source kind,
+// output width and geometry (one instance serves the launch); the grid is as
+// wide as the longest member, whose surplus blocks return at once, and the
+// shared buffer as large as the largest member's stage_words.  The kernel
+// parameter space is 4 KB, so a launch takes at most ZF_FP_MAX_BATCH = 11
+// members (11 x 360 B); the wrapper splits a larger batch into several launches.
 #include "zf_chain.cuh"
 
 struct ZfFpArgs {
@@ -55,6 +67,14 @@ struct ZfFpArgs {
 };
 
 static_assert(sizeof(ZfFpArgs) == 360, "ZfFpArgs layout is shared with kernels/cuda.py");
+
+#define ZF_FP_MAX_BATCH 11   // members of one batched launch: 11 x 360 B of 4 KB
+
+struct ZfFpBatch {
+  ZfFpArgs m[ZF_FP_MAX_BATCH];
+};
+
+static_assert(sizeof(ZfFpBatch) <= 4096, "a batch must fit the 4 KB kernel parameter space");
 
 #define ZF_FP_MAX_SMEM (96 * 1024)   // shared bytes a block's staged words may take
 
@@ -185,15 +205,17 @@ __device__ __forceinline__ void zf_fp_emit(const ZfChain& ch, const float (&scal
   zf_store_packed<W, false>(o, nc, [&] { return zf_transforms(ch, 1, src(), scale_of); });
 }
 
+// Block `block` of one launch over the arguments `a` (a single launch's, or a
+// batched launch's member).
 template <int kSrc, int W>
-__global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
+__device__ __forceinline__ void zf_fp_block(const ZfFpArgs& a, int64_t block) {
   extern __shared__ uint4 zf_fp_stage[];   // UNPACK: the block's words
   using T = typename ZfOut<W>::T;
   const ZfChain& ch = a.chain;
   const ZfOp& src = ch.ops[0];
   const int64_t S = blockDim.x;
   const int64_t tile = static_cast<int64_t>(a.L) * S * a.C;
-  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t e0 = block * tile;
   const int64_t m = a.n - e0 < tile ? a.n - e0 : tile;   // outputs of this block
   T* __restrict__ out = static_cast<T*>(a.out) + e0;
   float scale[ZF_MAX_OPS];
@@ -274,26 +296,71 @@ __global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
 }
 
 template <int kSrc, int W>
-static cudaError_t zf_fp_launch(const ZfFpArgs& a, unsigned grid, int32_t threads,
-                                cudaStream_t stream) {
+__global__ void zf_fully_parallel_kernel(const ZfFpArgs a) {
+  zf_fp_block<kSrc, W>(a, blockIdx.x);
+}
+
+// Member blockIdx.y of the batch; blocks past its last output return.
+template <int kSrc, int W>
+__global__ void zf_fully_parallel_batched_kernel(const __grid_constant__ ZfFpBatch b) {
+  const ZfFpArgs& a = b.m[blockIdx.y];
+  const int64_t tile = static_cast<int64_t>(a.L) * blockDim.x * a.C;
+  if (static_cast<int64_t>(blockIdx.x) * tile >= a.n) return;
+  zf_fp_block<kSrc, W>(a, blockIdx.x);
+}
+
+// One launch of the single kernel (batch == nullptr) or of the batched one
+// over `k` members; `a` gives the geometry and the largest stage_words.
+template <int kSrc, int W>
+static cudaError_t zf_fp_launch(const ZfFpArgs& a, const ZfFpBatch* batch, int32_t k,
+                                unsigned grid, int32_t threads, cudaStream_t stream) {
   const size_t smem = kSrc == ZF_UNPACK ? static_cast<size_t>(a.stage_words) * 4 : 0;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        zf_fully_parallel_kernel<kSrc, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = batch == nullptr
+        ? cudaFuncSetAttribute(zf_fully_parallel_kernel<kSrc, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem))
+        : cudaFuncSetAttribute(zf_fully_parallel_batched_kernel<kSrc, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  zf_fully_parallel_kernel<kSrc, W><<<grid, threads, smem, stream>>>(a);
+  if (batch == nullptr)
+    zf_fully_parallel_kernel<kSrc, W><<<grid, threads, smem, stream>>>(a);
+  else
+    zf_fully_parallel_batched_kernel<kSrc, W>
+        <<<dim3(grid, static_cast<unsigned>(k)), threads, smem, stream>>>(*batch);
   return cudaGetLastError();
 }
 
 template <int kSrc>
-static cudaError_t zf_fp_width(const ZfFpArgs& a, unsigned grid, int32_t threads,
-                               cudaStream_t s) {
+static cudaError_t zf_fp_width(const ZfFpArgs& a, const ZfFpBatch* batch, int32_t k,
+                               unsigned grid, int32_t threads, cudaStream_t s) {
   switch (a.out_width) {
-    case 1: return zf_fp_launch<kSrc, 1>(a, grid, threads, s);
-    case 2: return zf_fp_launch<kSrc, 2>(a, grid, threads, s);
-    case 4: return zf_fp_launch<kSrc, 4>(a, grid, threads, s);
+    case 1: return zf_fp_launch<kSrc, 1>(a, batch, k, grid, threads, s);
+    case 2: return zf_fp_launch<kSrc, 2>(a, batch, k, grid, threads, s);
+    case 4: return zf_fp_launch<kSrc, 4>(a, batch, k, grid, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static bool zf_fp_valid(const ZfFpArgs& a) {
+  return a.chain.n_ops >= 1 && a.stage_words >= 0 && a.stage_words % 4 == 0 &&
+         static_cast<int64_t>(a.stage_words) * 4 <= ZF_FP_MAX_SMEM && a.L >= 1 && a.C >= 1;
+}
+
+static cudaError_t zf_fp_dispatch(const ZfFpArgs& a, const ZfFpBatch* batch, int32_t k,
+                                  int64_t grid, int32_t threads, int32_t device,
+                                  void* stream) {
+  if (grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const unsigned g = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.chain.ops[0].kind) {
+    case ZF_UNPACK: return zf_fp_width<ZF_UNPACK>(a, batch, k, g, threads, s);
+    case ZF_LOAD: return zf_fp_width<ZF_LOAD>(a, batch, k, g, threads, s);
+    case ZF_BYTES: return zf_fp_width<ZF_BYTES>(a, batch, k, g, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -301,23 +368,46 @@ static cudaError_t zf_fp_width(const ZfFpArgs& a, unsigned grid, int32_t threads
 extern "C" int zf_fully_parallel(const ZfFpArgs* args, int32_t threads, int32_t device,
                                  void* stream) {
   if (args->n <= 0) return 0;
-  if (args->chain.n_ops < 1 || args->stage_words < 0 || args->stage_words % 4 != 0 ||
-      static_cast<int64_t>(args->stage_words) * 4 > ZF_FP_MAX_SMEM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!zf_fp_valid(*args)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tile = static_cast<int64_t>(args->L) * threads * args->C;
-  const int64_t grid = (args->n + tile - 1) / tile;
-  if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned g = static_cast<unsigned>(grid);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (args->chain.ops[0].kind) {
-    case ZF_UNPACK: err = zf_fp_width<ZF_UNPACK>(*args, g, threads, s); break;
-    case ZF_LOAD: err = zf_fp_width<ZF_LOAD>(*args, g, threads, s); break;
-    case ZF_BYTES: err = zf_fp_width<ZF_BYTES>(*args, g, threads, s); break;
-    default: err = cudaErrorInvalidValue;
+  return static_cast<int>(
+      zf_fp_dispatch(*args, nullptr, 1, (args->n + tile - 1) / tile, threads, device, stream));
+}
+
+// k members of one structure in one launch (see the batched entry above).
+extern "C" int zf_fully_parallel_batched(const ZfFpArgs* args, int32_t k, int32_t threads,
+                                         int32_t device, void* stream) {
+  if (k < 1 || k > ZF_FP_MAX_BATCH) return static_cast<int>(cudaErrorInvalidValue);
+  ZfFpBatch batch = {};
+  ZfFpArgs geom = args[0];
+  int64_t grid = 0;
+  for (int32_t j = 0; j < k; ++j) {
+    const ZfFpArgs& a = args[j];
+    if (!zf_fp_valid(a) || a.chain.ops[0].kind != args[0].chain.ops[0].kind ||
+        a.out_width != args[0].out_width || a.L != args[0].L || a.C != args[0].C)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t tile = static_cast<int64_t>(a.L) * threads * a.C;
+    const int64_t g = a.n > 0 ? (a.n + tile - 1) / tile : 0;
+    grid = g > grid ? g : grid;
+    geom.stage_words = a.stage_words > geom.stage_words ? a.stage_words : geom.stage_words;
+    batch.m[j] = a;
   }
-  return static_cast<int>(err);
+  if (grid == 0) return 0;
+  return static_cast<int>(zf_fp_dispatch(geom, &batch, k, grid, threads, device, stream));
+}
+
+extern "C" int zf_batch_max() { return ZF_FP_MAX_BATCH; }
+
+// Every instance (source x output width, single and batched) on `device`.
+extern "C" int zf_preload(int32_t device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define ZF_FP_PAIR(S, W) zf_fully_parallel_kernel<S, W>, zf_fully_parallel_batched_kernel<S, W>
+  return static_cast<int>(zf_preload_all(
+      ZF_FP_PAIR(ZF_UNPACK, 1), ZF_FP_PAIR(ZF_UNPACK, 2), ZF_FP_PAIR(ZF_UNPACK, 4),
+      ZF_FP_PAIR(ZF_LOAD, 1), ZF_FP_PAIR(ZF_LOAD, 2), ZF_FP_PAIR(ZF_LOAD, 4),
+      ZF_FP_PAIR(ZF_BYTES, 1), ZF_FP_PAIR(ZF_BYTES, 2), ZF_FP_PAIR(ZF_BYTES, 4)));
+#undef ZF_FP_PAIR
 }
 
 ZF_EXPORT_HELPERS(ZfFpArgs)

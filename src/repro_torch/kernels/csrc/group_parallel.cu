@@ -56,6 +56,15 @@
 // What holds it back: the first search (dependent global rounds), the
 // per-group value chains (dependent gathers), and for StringDict one byte load
 // per output, scattered over the dictionary's words.
+//
+// Batched entry (zf_group_parallel_batched): K columns of one structure decode
+// in one launch; blockIdx.y picks member m[k] of a ZfGpBatch passed by value
+// (__grid_constant__), which keeps its own presum, value leaves, group count,
+// span offsets and output, and org[k], its first output's 16-byte origin.  The
+// members share the map, output width and geometry; the grid is as wide as the
+// widest member, whose surplus blocks return at once.  A ZfGpArgs is 1,128 B,
+// so the 4 KB kernel parameter space takes ZF_GP_MAX_BATCH = 3 members a
+// launch; the wrapper splits a larger batch into several launches.
 #include "zf_chain.cuh"
 
 struct ZfGpArgs {
@@ -76,6 +85,16 @@ struct ZfGpArgs {
 };
 
 static_assert(sizeof(ZfGpArgs) == 1128, "ZfGpArgs layout is shared with kernels/cuda.py");
+
+#define ZF_GP_MAX_BATCH 3    // members of one batched launch: 3 x 1,128 B of 4 KB
+
+struct ZfGpBatch {
+  ZfGpArgs m[ZF_GP_MAX_BATCH];
+  int64_t org[ZF_GP_MAX_BATCH];
+};
+
+static_assert(sizeof(ZfGpBatch) + sizeof(int64_t) <= 4096,
+              "a batch must fit the 4 KB kernel parameter space");
 
 #define ZF_GP_MAX_SMEM (96 * 1024)   // shared bytes a block's window may take
 
@@ -192,7 +211,8 @@ __device__ __forceinline__ void zf_emit(const ZfGpArgs& a, Cursor& cur, int64_t 
 // `cap`: groups the shared window holds (S*C + 1, or less where that exceeds
 // ZF_GP_MAX_SMEM); dynamic shared memory holds ps[cap + 1], v0[cap] (, v1[cap]).
 template <int W, int kMap>
-__global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap, int64_t org) {
+__device__ __forceinline__ void zf_gp_block(const ZfGpArgs& a, int64_t cap, int64_t org,
+                                            int64_t block) {
   extern __shared__ int32_t smem[];
   __shared__ int64_t win;
   int32_t* ps = smem;
@@ -201,7 +221,7 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap, int64_t 
   const int64_t S = blockDim.x;
   const int64_t sub = S * a.C;
   const int64_t lo = a.out_start, hi = a.out_start + a.n;   // the outputs written
-  const int64_t o_begin = org + static_cast<int64_t>(blockIdx.x) * a.L * sub;
+  const int64_t o_begin = org + block * a.L * sub;
   if (threadIdx.x < 32) {
     const int64_t g = zf_find_group(a.presum, a.n_groups, o_begin > lo ? o_begin : lo);
     if (threadIdx.x == 0) win = g;
@@ -271,8 +291,27 @@ __global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap, int64_t 
 }
 
 template <int W, int kMap>
-static cudaError_t zf_gp_launch(const ZfGpArgs& a, unsigned grid, int32_t threads,
-                                int64_t org, cudaStream_t stream) {
+__global__ void zf_group_parallel_kernel(const ZfGpArgs a, int64_t cap, int64_t org) {
+  zf_gp_block<W, kMap>(a, cap, org, blockIdx.x);
+}
+
+// Member blockIdx.y of the batch; blocks past its last output return.
+template <int W, int kMap>
+__global__ void zf_group_parallel_batched_kernel(const __grid_constant__ ZfGpBatch b,
+                                                 int64_t cap) {
+  const ZfGpArgs& a = b.m[blockIdx.y];
+  const int64_t org = b.org[blockIdx.y];
+  const int64_t tile = static_cast<int64_t>(a.L) * blockDim.x * a.C;
+  if (a.n <= 0 || org + static_cast<int64_t>(blockIdx.x) * tile >= a.out_start + a.n) return;
+  zf_gp_block<W, kMap>(a, cap, org, blockIdx.x);
+}
+
+// One launch of the single kernel (batch == nullptr; `org` its origin) or of
+// the batched one over `k` members; `a` gives the geometry.
+template <int W, int kMap>
+static cudaError_t zf_gp_launch(const ZfGpArgs& a, const ZfGpBatch* batch, int32_t k,
+                                unsigned grid, int32_t threads, int64_t org,
+                                cudaStream_t stream) {
   constexpr int64_t per_group = kMap == ZF_AFFINE ? 12 : 8;   // presum, values[0] (, [1])
   const int64_t fit = (ZF_GP_MAX_SMEM - 4) / per_group;
   // a sub-tile of outputs touches at most `sub` groups when counts are >= 1,
@@ -281,27 +320,63 @@ static cudaError_t zf_gp_launch(const ZfGpArgs& a, unsigned grid, int32_t thread
   const int64_t cap = sub + 1 < fit ? sub + 1 : fit;
   const size_t smem = static_cast<size_t>(4 + cap * per_group);
   if (smem > 48 * 1024 - 64) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        zf_group_parallel_kernel<W, kMap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = batch == nullptr
+        ? cudaFuncSetAttribute(zf_group_parallel_kernel<W, kMap>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem))
+        : cudaFuncSetAttribute(zf_group_parallel_batched_kernel<W, kMap>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  zf_group_parallel_kernel<W, kMap><<<grid, threads, smem, stream>>>(a, cap, org);
+  if (batch == nullptr)
+    zf_group_parallel_kernel<W, kMap><<<grid, threads, smem, stream>>>(a, cap, org);
+  else
+    zf_group_parallel_batched_kernel<W, kMap>
+        <<<dim3(grid, static_cast<unsigned>(k)), threads, smem, stream>>>(*batch, cap);
   return cudaGetLastError();
 }
 
 template <int W>
-static cudaError_t zf_gp_map(const ZfGpArgs& a, int32_t threads, cudaStream_t s) {
-  // tile from the output at the 16-byte boundary at or before out[0]
-  const int64_t org = a.out_start - static_cast<int64_t>((reinterpret_cast<uintptr_t>(a.out) & 15u) / W);
-  const int64_t tile = static_cast<int64_t>(a.L) * threads * a.C;
-  const int64_t grid = (a.out_start + a.n - org + tile - 1) / tile;
-  if (grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
-  const unsigned g = static_cast<unsigned>(grid);
+static cudaError_t zf_gp_map(const ZfGpArgs& a, const ZfGpBatch* batch, int32_t k,
+                             unsigned grid, int32_t threads, int64_t org, cudaStream_t s) {
   switch (a.map_kind) {
-    case ZF_IDENTITY: return zf_gp_launch<W, ZF_IDENTITY>(a, g, threads, org, s);
-    case ZF_AFFINE: return zf_gp_launch<W, ZF_AFFINE>(a, g, threads, org, s);
-    case ZF_STRGATHER: return zf_gp_launch<W, ZF_STRGATHER>(a, g, threads, org, s);
+    case ZF_IDENTITY: return zf_gp_launch<W, ZF_IDENTITY>(a, batch, k, grid, threads, org, s);
+    case ZF_AFFINE: return zf_gp_launch<W, ZF_AFFINE>(a, batch, k, grid, threads, org, s);
+    case ZF_STRGATHER: return zf_gp_launch<W, ZF_STRGATHER>(a, batch, k, grid, threads, org, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The output at the 16-byte boundary at or before out[0], where blocks start
+// tiling, and the blocks that cover the outputs from there.
+static int64_t zf_gp_org(const ZfGpArgs& a) {
+  const int64_t w = a.out_width;
+  return a.out_start - static_cast<int64_t>((reinterpret_cast<uintptr_t>(a.out) & 15u) / w);
+}
+
+static int64_t zf_gp_grid(const ZfGpArgs& a, int32_t threads) {
+  const int64_t tile = static_cast<int64_t>(a.L) * threads * a.C;
+  return a.n > 0 ? (a.out_start + a.n - zf_gp_org(a) + tile - 1) / tile : 0;
+}
+
+static bool zf_gp_valid(const ZfGpArgs& a, int32_t threads) {   // warp 0 searches
+  return a.n_groups > 0 && threads >= 32 && a.out_start >= 0 && a.L >= 1 && a.C >= 1 &&
+         (a.out_width == 1 || a.out_width == 2 || a.out_width == 4);
+}
+
+static cudaError_t zf_gp_dispatch(const ZfGpArgs& a, const ZfGpBatch* batch, int32_t k,
+                                  int64_t grid, int32_t threads, int64_t org,
+                                  int32_t device, void* stream) {
+  if (grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const unsigned g = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.out_width) {
+    case 1: return zf_gp_map<1>(a, batch, k, g, threads, org, s);
+    case 2: return zf_gp_map<2>(a, batch, k, g, threads, org, s);
+    case 4: return zf_gp_map<4>(a, batch, k, g, threads, org, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -309,18 +384,44 @@ static cudaError_t zf_gp_map(const ZfGpArgs& a, int32_t threads, cudaStream_t s)
 extern "C" int zf_group_parallel(const ZfGpArgs* args, int32_t threads, int32_t device,
                                  void* stream) {
   if (args->n <= 0) return 0;
-  if (args->n_groups <= 0 || threads < 32 || args->out_start < 0)   // warp 0 searches
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (args->out_width) {
-    case 1: err = zf_gp_map<1>(*args, threads, s); break;
-    case 2: err = zf_gp_map<2>(*args, threads, s); break;
-    case 4: err = zf_gp_map<4>(*args, threads, s); break;
-    default: err = cudaErrorInvalidValue;
+  if (!zf_gp_valid(*args, threads)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(zf_gp_dispatch(*args, nullptr, 1, zf_gp_grid(*args, threads),
+                                         threads, zf_gp_org(*args), device, stream));
+}
+
+// k members of one structure in one launch (see the batched entry above).
+extern "C" int zf_group_parallel_batched(const ZfGpArgs* args, int32_t k, int32_t threads,
+                                         int32_t device, void* stream) {
+  if (k < 1 || k > ZF_GP_MAX_BATCH) return static_cast<int>(cudaErrorInvalidValue);
+  ZfGpBatch batch = {};
+  int64_t grid = 0;
+  for (int32_t j = 0; j < k; ++j) {
+    const ZfGpArgs& a = args[j];
+    if (!zf_gp_valid(a, threads) || a.map_kind != args[0].map_kind ||
+        a.out_width != args[0].out_width || a.L != args[0].L || a.C != args[0].C)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t g = zf_gp_grid(a, threads);
+    grid = g > grid ? g : grid;
+    batch.m[j] = a;
+    batch.org[j] = zf_gp_org(a);
   }
-  return static_cast<int>(err);
+  if (grid == 0) return 0;
+  return static_cast<int>(zf_gp_dispatch(args[0], &batch, k, grid, threads, 0, device,
+                                         stream));
+}
+
+extern "C" int zf_batch_max() { return ZF_GP_MAX_BATCH; }
+
+// Every instance (output width x map, single and batched) on `device`.
+extern "C" int zf_preload(int32_t device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define ZF_GP_PAIR(W, M) zf_group_parallel_kernel<W, M>, zf_group_parallel_batched_kernel<W, M>
+  return static_cast<int>(zf_preload_all(
+      ZF_GP_PAIR(1, ZF_IDENTITY), ZF_GP_PAIR(1, ZF_AFFINE), ZF_GP_PAIR(1, ZF_STRGATHER),
+      ZF_GP_PAIR(2, ZF_IDENTITY), ZF_GP_PAIR(2, ZF_AFFINE), ZF_GP_PAIR(2, ZF_STRGATHER),
+      ZF_GP_PAIR(4, ZF_IDENTITY), ZF_GP_PAIR(4, ZF_AFFINE), ZF_GP_PAIR(4, ZF_STRGATHER)));
+#undef ZF_GP_PAIR
 }
 
 ZF_EXPORT_HELPERS(ZfGpArgs)

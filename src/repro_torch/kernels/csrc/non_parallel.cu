@@ -41,6 +41,15 @@
 // streams[t, c] is chunk-transposed, so lanes whose cur agree read neighbouring
 // words.  Geometry: S threads per block, C chunks per thread (one after the
 // other), L such rounds; block b covers chunks [b*L*S*C, (b+1)*L*S*C).
+//
+// Batched entry (zf_non_parallel_batched): K columns of one structure decode in
+// one launch; blockIdx.y picks member m[k] of a ZfNpBatch passed by value
+// (__grid_constant__), with its own streams, states, tables, lengths and
+// output.  The members share the output width, whether a tail runs, and the
+// geometry; the grid is as wide as the member with the most chunks, whose
+// surplus blocks return at once.  A ZfNpArgs is 416 B, so the 4 KB kernel
+// parameter space takes ZF_NP_MAX_BATCH = 9 members a launch; the wrapper
+// splits a larger batch into several launches.
 #include "zf_chain.cuh"
 
 #define ZF_ANS_M 4096          // probability scale 2^12 (sym table entries)
@@ -66,6 +75,14 @@ struct ZfNpArgs {
 };
 
 static_assert(sizeof(ZfNpArgs) == 416, "ZfNpArgs layout is shared with kernels/cuda.py");
+
+#define ZF_NP_MAX_BATCH 9    // members of one batched launch: 9 x 416 B of 4 KB
+
+struct ZfNpBatch {
+  ZfNpArgs m[ZF_NP_MAX_BATCH];
+};
+
+static_assert(sizeof(ZfNpBatch) <= 4096, "a batch must fit the 4 KB kernel parameter space");
 
 // Copy 4 bytes global -> shared if `on`, and commit a cp.async group either
 // way (an empty group completes at once), so every step commits one group.
@@ -170,7 +187,7 @@ __device__ __forceinline__ void zf_decode_chunk(const ZfNpArgs& a, const uint32_
 }
 
 template <int W, bool kTail>
-__global__ void zf_non_parallel_kernel(const ZfNpArgs a) {
+__device__ __forceinline__ void zf_np_block(const ZfNpArgs& a, int64_t block) {
   __shared__ uint32_t tab[ZF_ANS_M];
   __shared__ uint8_t sym[ZF_ANS_M];
   __shared__ uint16_t freq[256];
@@ -193,7 +210,7 @@ __global__ void zf_non_parallel_kernel(const ZfNpArgs a) {
   const bool packed = !__syncthreads_or(bad);
 
   const int64_t S = blockDim.x;
-  const int64_t block0 = static_cast<int64_t>(blockIdx.x) * a.L * S * a.C;
+  const int64_t block0 = block * a.L * S * a.C;
   for (int r = 0; r < a.L * a.C; ++r) {
     const int64_t c = block0 + r * S + threadIdx.x;
     if (c >= a.n_chunks || c * a.chunk_size >= a.n) return;
@@ -203,40 +220,111 @@ __global__ void zf_non_parallel_kernel(const ZfNpArgs a) {
 }
 
 template <int W, bool kTail>
-static cudaError_t zf_np_launch(const ZfNpArgs& a, unsigned grid, int32_t threads,
-                                cudaStream_t stream) {
+__global__ void zf_non_parallel_kernel(const ZfNpArgs a) {
+  zf_np_block<W, kTail>(a, blockIdx.x);
+}
+
+// Member blockIdx.y of the batch; blocks past its last chunk return.
+template <int W, bool kTail>
+__global__ void zf_non_parallel_batched_kernel(const __grid_constant__ ZfNpBatch b) {
+  const ZfNpArgs& a = b.m[blockIdx.y];
+  const int64_t tile = static_cast<int64_t>(a.L) * blockDim.x * a.C;
+  if (a.n <= 0 || static_cast<int64_t>(blockIdx.x) * tile >= a.n_chunks) return;
+  zf_np_block<W, kTail>(a, blockIdx.x);
+}
+
+// One launch of the single kernel (batch == nullptr) or of the batched one
+// over `k` members.
+template <int W, bool kTail>
+static cudaError_t zf_np_launch(const ZfNpArgs& a, const ZfNpBatch* batch, int32_t k,
+                                unsigned grid, int32_t threads, cudaStream_t stream) {
   const size_t ring = static_cast<size_t>(ZF_NP_LOOKAHEAD) * 4 * threads;
   if (ring > 48 * 1024 - 21 * 1024) {   // beyond the default 48 KB with the tables
-    const cudaError_t err = cudaFuncSetAttribute(
-        zf_non_parallel_kernel<W, kTail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(ring));
+    const cudaError_t err = batch == nullptr
+        ? cudaFuncSetAttribute(zf_non_parallel_kernel<W, kTail>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(ring))
+        : cudaFuncSetAttribute(zf_non_parallel_batched_kernel<W, kTail>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(ring));
     if (err != cudaSuccess) return err;
   }
-  zf_non_parallel_kernel<W, kTail><<<grid, threads, ring, stream>>>(a);
+  if (batch == nullptr)
+    zf_non_parallel_kernel<W, kTail><<<grid, threads, ring, stream>>>(a);
+  else
+    zf_non_parallel_batched_kernel<W, kTail>
+        <<<dim3(grid, static_cast<unsigned>(k)), threads, ring, stream>>>(*batch);
   return cudaGetLastError();
+}
+
+static bool zf_np_valid(const ZfNpArgs& a) {
+  return a.max_words > 0 && a.max_words <= 0x7FFFFFFF && a.chunk_size > 0 && a.L >= 1 &&
+         a.C >= 1;
+}
+
+static int64_t zf_np_grid(const ZfNpArgs& a, int32_t threads) {
+  const int64_t tile = static_cast<int64_t>(a.L) * threads * a.C;
+  return a.n > 0 && a.n_chunks > 0 ? (a.n_chunks + tile - 1) / tile : 0;
+}
+
+static cudaError_t zf_np_dispatch(const ZfNpArgs& a, const ZfNpBatch* batch, int32_t k,
+                                  int64_t grid, int32_t threads, int32_t device,
+                                  void* stream) {
+  if (grid > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const unsigned g = static_cast<unsigned>(grid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tail = a.tail.n_ops > 0;
+  switch (a.out_width) {
+    case 1: return tail ? zf_np_launch<1, true>(a, batch, k, g, threads, s)
+                        : zf_np_launch<1, false>(a, batch, k, g, threads, s);
+    case 2: return tail ? zf_np_launch<2, true>(a, batch, k, g, threads, s)
+                        : cudaErrorInvalidValue;
+    case 4: return tail ? zf_np_launch<4, true>(a, batch, k, g, threads, s)
+                        : cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int zf_non_parallel(const ZfNpArgs* args, int32_t threads, int32_t device,
                                void* stream) {
   if (args->n <= 0 || args->n_chunks <= 0) return 0;
-  if (args->max_words <= 0 || args->max_words > 0x7FFFFFFF || args->chunk_size <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tile = static_cast<int64_t>(args->L) * threads * args->C;
-  const int64_t grid = (args->n_chunks + tile - 1) / tile;
-  if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const unsigned g = static_cast<unsigned>(grid);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tail = args->tail.n_ops > 0;
-  switch (args->out_width) {
-    case 1: err = tail ? zf_np_launch<1, true>(*args, g, threads, s)
-                       : zf_np_launch<1, false>(*args, g, threads, s); break;
-    case 2: err = tail ? zf_np_launch<2, true>(*args, g, threads, s) : cudaErrorInvalidValue; break;
-    case 4: err = tail ? zf_np_launch<4, true>(*args, g, threads, s) : cudaErrorInvalidValue; break;
-    default: err = cudaErrorInvalidValue;
+  if (!zf_np_valid(*args)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      zf_np_dispatch(*args, nullptr, 1, zf_np_grid(*args, threads), threads, device, stream));
+}
+
+// k members of one structure in one launch (see the batched entry above).
+extern "C" int zf_non_parallel_batched(const ZfNpArgs* args, int32_t k, int32_t threads,
+                                       int32_t device, void* stream) {
+  if (k < 1 || k > ZF_NP_MAX_BATCH) return static_cast<int>(cudaErrorInvalidValue);
+  ZfNpBatch batch = {};
+  int64_t grid = 0;
+  for (int32_t j = 0; j < k; ++j) {
+    const ZfNpArgs& a = args[j];
+    if (!zf_np_valid(a) || a.out_width != args[0].out_width || a.L != args[0].L ||
+        a.C != args[0].C || (a.tail.n_ops > 0) != (args[0].tail.n_ops > 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t g = zf_np_grid(a, threads);
+    grid = g > grid ? g : grid;
+    batch.m[j] = a;
   }
-  return static_cast<int>(err);
+  if (grid == 0) return 0;
+  return static_cast<int>(zf_np_dispatch(args[0], &batch, k, grid, threads, device, stream));
+}
+
+extern "C" int zf_batch_max() { return ZF_NP_MAX_BATCH; }
+
+// Every instance (output width x tail chain, single and batched) on `device`.
+extern "C" int zf_preload(int32_t device) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define ZF_NP_PAIR(W, T) zf_non_parallel_kernel<W, T>, zf_non_parallel_batched_kernel<W, T>
+  return static_cast<int>(zf_preload_all(
+      ZF_NP_PAIR(1, false), ZF_NP_PAIR(1, true), ZF_NP_PAIR(2, false),
+      ZF_NP_PAIR(2, true), ZF_NP_PAIR(4, false), ZF_NP_PAIR(4, true)));
+#undef ZF_NP_PAIR
 }
 
 ZF_EXPORT_HELPERS(ZfNpArgs)

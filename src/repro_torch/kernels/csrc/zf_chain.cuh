@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 #define ZF_MAX_OPS 8
@@ -234,6 +235,19 @@ __device__ __forceinline__ void zf_store_packed(typename ZfOut<W>::T* o, int64_t
 }
 
 // The error helpers every library exports (kernels/cuda.py reads them).
+// Loads kernels' code on the current device now: under CUDA's lazy module
+// loading each kernel is otherwise loaded at its first launch, inside a run.
+template <class... F>
+static cudaError_t zf_preload_all(F*... fns) {
+  cudaError_t first = cudaSuccess;
+  for (const void* fn : {reinterpret_cast<const void*>(fns)...}) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (first == cudaSuccess) first = err;
+  }
+  return first;
+}
+
 #define ZF_EXPORT_HELPERS(ArgsType)                                             \
   extern "C" int zf_args_size() { return static_cast<int>(sizeof(ArgsType)); } \
   extern "C" const char* zf_error_string(int err) {                            \

@@ -10,7 +10,13 @@ first use, all sources concurrently.  A build or launch failure raises; nothing
 falls back to the plain versions.
 
 The op-chain structs below mirror ``csrc/zf_chain.cuh`` byte for byte; every
-library reports its argument struct's size, which is checked at load.  Operands
+library reports its argument struct's size, which is checked at load.  Each
+library also has a batched entry (``<entry>_batched``) that decodes up to
+``zf_batch_max()`` members' argument structs in one launch (read at load);
+``KernelLib.launch_batched`` splits a larger batch into several launches.
+``load(device)`` also loads every kernel of the library on that device
+(``zf_preload``), so no launch of a timed run waits for CUDA's lazy module
+loading.  Operands
 reach the kernels at their own width (8-, 16- or 32-bit elements); each op
 carries its buffer's element code, and each launch its output's width.
 """
@@ -108,18 +114,29 @@ def _source_hash() -> str:
 
 
 class KernelLib:
-    """One compiled ``csrc/<name>.cu`` plus the launch count of its kernel.
+    """One compiled ``csrc/<name>.cu`` plus the launch counts of its kernel.
 
     ``launches`` goes up by one for each kernel launch made through ``launch``
-    and nowhere else, so a run can show that its path went through the kernel."""
+    or ``launch_batched`` and nowhere else, so a run can show that its path
+    went through the kernel; ``batched_launches`` counts the batched ones
+    among them.  ``batch_max`` is the most members one batched launch takes
+    (its structs must fit the 4 KB kernel parameter space), as the library
+    reports it at load; a library of an older tree (``scripts/kernel_variants.py
+    --baseline``) has neither a batched entry nor ``zf_preload``: it leaves
+    ``batch_max`` None and loads its kernels at their first launches.
+    ``preload_s`` is the wall time of ``zf_preload`` per device index."""
 
     def __init__(self, name: str, entry: str, args_type: type):
         self.name = name
         self.entry = entry
         self.args_type = args_type
+        self.batch_max: int | None = None
         self.launches = 0
+        self.batched_launches = 0
         self.build_s: float | None = None   # wall time of this process's nvcc
+        self.preload_s: dict[int, float] = {}
         self._lib: ctypes.CDLL | None = None
+        self._batched = None                 # the batched entry, bound at first use
 
     def path(self) -> Path:
         return build_root() / _source_hash() / f"lib{self.name}.so"
@@ -128,7 +145,9 @@ class KernelLib:
         return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
                 str(CSRC / f"{self.name}.cu")]
 
-    def load(self) -> ctypes.CDLL:
+    def load(self, device: torch.device | None = None) -> ctypes.CDLL:
+        """The built library; with a CUDA ``device``, every kernel of it is
+        loaded there too (once per device)."""
         if self._lib is None:
             build([self])
             lib = ctypes.CDLL(str(self.path()))
@@ -144,12 +163,26 @@ class KernelLib:
             if size != ctypes.sizeof(self.args_type):
                 raise RuntimeError(f"{self.name}: argument struct is {size} bytes in "
                                    f"CUDA, {ctypes.sizeof(self.args_type)} in Python")
+            if hasattr(lib, "zf_batch_max"):
+                lib.zf_batch_max.restype = ctypes.c_int
+                self.batch_max = lib.zf_batch_max()
+                lib.zf_preload.argtypes = [ctypes.c_int32]
+                lib.zf_preload.restype = ctypes.c_int
             self._lib = lib
+        if device is not None and device.type == "cuda" \
+                and device.index not in self.preload_s and self.batch_max is not None:
+            index = torch.cuda.current_device() if device.index is None else device.index
+            t0 = time.perf_counter()
+            err = self._lib.zf_preload(index)
+            if err != 0:
+                msg = self._lib.zf_error_string(err).decode()
+                raise RuntimeError(f"{self.name}: loading its kernels failed: {msg} ({err})")
+            self.preload_s[device.index] = time.perf_counter() - t0
         return self._lib
 
     def launch(self, args: ctypes.Structure, threads: int,
                device: torch.device) -> None:
-        lib = self.load()
+        lib = self.load(device)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, self.entry)(ctypes.addressof(args), int(threads),
                                        int(device.index), stream)
@@ -157,6 +190,33 @@ class KernelLib:
             msg = lib.zf_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({err})")
         self.launches += 1
+
+    def launch_batched(self, members: list, threads: int, device: torch.device) -> None:
+        """The batched kernel over the members' argument structs: one launch per
+        ``batch_max`` of them."""
+        fn = self._batched
+        if fn is None:
+            lib = self.load(device)
+            if self.batch_max is None:
+                raise RuntimeError(f"{self.name}: this library has no batched entry")
+            fn = getattr(lib, f"{self.entry}_batched")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                           ctypes.c_int32, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._batched = fn
+        lib = self.load(device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for i in range(0, len(members), self.batch_max):
+            part = members[i:i + self.batch_max]
+            structs = (self.args_type * len(part))(*part)
+            err = fn(ctypes.addressof(structs), len(part), int(threads),
+                     int(device.index), stream)
+            if err != 0:
+                msg = lib.zf_error_string(err).decode()
+                raise RuntimeError(f"{self.name} batched launch of {len(part)} failed: "
+                                   f"{msg} ({err})")
+            self.launches += 1
+            self.batched_launches += 1
 
 
 _BUILD_LOCK = threading.Lock()

@@ -9,6 +9,11 @@ the bit-packed words of its tile in shared memory, and each thread writes its
 The CUDA source is ``csrc/fully_parallel.cu`` (built for ``sm_90a``); what
 bounds it on the card and how it is laid out is noted there.  The plain version
 is ``repro_torch.kernels.ref.fully_parallel_torch``.
+
+``fully_parallel_batched`` decodes K columns of one structure in one launch of
+the kernel's batched entry (one block row per member, ``blockIdx.y``), each
+member with its own operands; a batch larger than ``KERNEL.batch_max`` takes several
+launches.  Its plain version is ``ref.fully_parallel_batched_torch``.
 """
 from __future__ import annotations
 
@@ -83,6 +88,30 @@ def finish(out: torch.Tensor | None, written: torch.Tensor,
     return out
 
 
+def batch_device(envs, names) -> torch.device:
+    """The one device every member's named inputs lie on."""
+    devices = {stage_device(names, env) for env in envs}
+    if len(devices) != 1:
+        raise ValueError(f"batch members span devices {sorted(map(str, devices))}")
+    return devices.pop()
+
+
+def _launch_args(stage: FullyParallel, env, device, geom, n, out):
+    """The launch's argument struct (None when there is nothing to decode),
+    the tensor it writes, and its geometry."""
+    final = ref.torch_dtype(stage.out_dtype)
+    dst = kernel_out(out, n, ref.chain_dtype(stage.chain, env), final,
+                     stage.chain[0].kind == BYTES, device, stage.name)
+    geom = geom or native_config("fp", out_width=cuda.out_width(dst))
+    args = None
+    if n:
+        args = cuda.ZfFpArgs(chain=cuda.pack_chain(stage.chain, env, device, n),
+                             out=dst.data_ptr(), n=n, L=geom.L, C=geom.C,
+                             out_width=cuda.out_width(dst),
+                             stage_words=stage_words(geom))
+    return args, dst, geom
+
+
 def fully_parallel(stage: FullyParallel, env: dict[str, torch.Tensor],
                    geom: Geometry | None = None, *, n: int | None = None,
                    out: torch.Tensor | None = None) -> torch.Tensor:
@@ -98,14 +127,32 @@ def fully_parallel(stage: FullyParallel, env: dict[str, torch.Tensor],
         return into(out, ref.fully_parallel_torch(stage, env, n), stage.name)
     if device.type != "cuda":
         raise ValueError(f"no Fully-Parallel kernel for device {device}")
-    final = ref.torch_dtype(stage.out_dtype)
-    dst = kernel_out(out, n, ref.chain_dtype(stage.chain, env), final,
-                     stage.chain[0].kind == BYTES, device, stage.name)
-    geom = geom or native_config("fp", out_width=cuda.out_width(dst))
-    if n:
-        args = cuda.ZfFpArgs(chain=cuda.pack_chain(stage.chain, env, device, n),
-                             out=dst.data_ptr(), n=n, L=geom.L, C=geom.C,
-                             out_width=cuda.out_width(dst),
-                             stage_words=stage_words(geom))
+    args, dst, geom = _launch_args(stage, env, device, geom, n, out)
+    if args is not None:
         KERNEL.launch(args, geom.S, device)
     return finish(out, dst, lambda t: ref.to_out(t, stage.chain, stage.out_dtype))
+
+
+def fully_parallel_batched(stage: FullyParallel, envs: list[dict[str, torch.Tensor]],
+                           geom: Geometry | None = None, *,
+                           outs: list[torch.Tensor | None] | None = None
+                           ) -> list[torch.Tensor]:
+    """Decode ``stage`` whole for each member's operands in ``envs`` (columns of
+    one structure): the kernel's batched entry on a CUDA device, one launch per
+    ``KERNEL.batch_max`` members; the plain version for each member on the CPU.  On
+    CUDA it launches or raises.  ``outs[k]``, when given, is member k's
+    output, written in place."""
+    outs = [None] * len(envs) if outs is None else list(outs)
+    device = batch_device(envs, stage.inputs)
+    if device.type == "cpu":
+        return [into(o, r, stage.name)
+                for o, r in zip(outs, ref.fully_parallel_batched_torch(stage, envs))]
+    if device.type != "cuda":
+        raise ValueError(f"no Fully-Parallel kernel for device {device}")
+    packs = [_launch_args(stage, env, device, geom, stage.n_out, o)
+             for env, o in zip(envs, outs)]
+    members = [args for args, _, _ in packs if args is not None]
+    if members:
+        KERNEL.launch_batched(members, packs[0][2].S, device)
+    return [finish(o, dst, lambda t: ref.to_out(t, stage.chain, stage.out_dtype))
+            for o, (_, dst, _) in zip(outs, packs)]

@@ -15,6 +15,11 @@ a wider one (zero counts) is walked in global memory by the same kernel.  The
 CUDA source is ``csrc/group_parallel.cu`` (built for ``sm_90a``); what bounds
 it on the card is noted there.  The plain version is
 ``repro_torch.kernels.ref.group_parallel_torch``.
+
+``group_parallel_batched`` expands K columns of one structure in one launch of
+the kernel's batched entry (``blockIdx.y`` picks the member, which keeps its
+own presum, values and output); a batch larger than ``KERNEL.batch_max`` takes several
+launches.  Its plain version is ``ref.group_parallel_batched_torch``.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import torch
 from repro_torch.core.geometry import Geometry, native_config
 from repro_torch.core.patterns import AFFINE, IDENTITY, STRGATHER, GroupParallel
 from repro_torch.kernels import cuda, ref
-from repro_torch.kernels.fully_parallel import finish, into, kernel_out, stage_device
+from repro_torch.kernels.fully_parallel import (batch_device, finish, into, kernel_out,
+                                                stage_device)
 
 KERNEL = cuda.KernelLib("group_parallel", "zf_group_parallel", cuda.ZfGpArgs)
 _MAP_CODES = {IDENTITY: 0, AFFINE: 1, STRGATHER: 2}
@@ -41,13 +47,54 @@ def group_parallel(stage: GroupParallel, env: dict[str, torch.Tensor],
     of the value leaves in ``env`` (the presum stays whole) and ``out``, its
     range of the column's output, which is written in place."""
     n = stage.n_out if n_valid is None else int(n_valid)
-    device = stage_device((stage.presum,) + stage.value_inputs + stage.extra_inputs,
-                          env)
+    device = stage_device(_inputs(stage), env)
     if device.type == "cpu":
         return into(out, ref.group_parallel_torch(stage, env, out_start, g_start, n),
                     stage.name)
     if device.type != "cuda":
         raise ValueError(f"no Group-Parallel kernel for device {device}")
+    args, dst, geom = _launch_args(stage, env, device, geom, out, out_start, g_start, n,
+                                   g_size)
+    if args is not None:
+        KERNEL.launch(args, geom.S, device)
+    out_dt = ref.torch_dtype(stage.out_dtype)
+    return finish(out, dst, lambda t: t if t.dtype == out_dt else t.to(out_dt))
+
+
+def group_parallel_batched(stage: GroupParallel, envs: list[dict[str, torch.Tensor]],
+                           geom: Geometry | None = None, *,
+                           outs: list[torch.Tensor | None] | None = None
+                           ) -> list[torch.Tensor]:
+    """Expand ``stage`` whole for each member's operands in ``envs`` (columns of
+    one structure; their runs may differ): the kernel's batched entry on a CUDA
+    device, one launch per ``KERNEL.batch_max`` members; the plain version for each
+    member on the CPU.  On CUDA it launches or raises.  ``outs[k]``, when
+    given, is member k's output, written in place."""
+    outs = [None] * len(envs) if outs is None else list(outs)
+    device = batch_device(envs, _inputs(stage))
+    if device.type == "cpu":
+        return [into(o, r, stage.name)
+                for o, r in zip(outs, ref.group_parallel_batched_torch(stage, envs))]
+    if device.type != "cuda":
+        raise ValueError(f"no Group-Parallel kernel for device {device}")
+    packs = [_launch_args(stage, env, device, geom, o, 0, 0, stage.n_out, None)
+             for env, o in zip(envs, outs)]
+    members = [args for args, _, _ in packs if args is not None]
+    if members:
+        KERNEL.launch_batched(members, packs[0][2].S, device)
+    out_dt = ref.torch_dtype(stage.out_dtype)
+    return [finish(o, dst, lambda t: t if t.dtype == out_dt else t.to(out_dt))
+            for o, (_, dst, _) in zip(outs, packs)]
+
+
+def _inputs(stage: GroupParallel) -> tuple[str, ...]:
+    return (stage.presum,) + stage.value_inputs + stage.extra_inputs
+
+
+def _launch_args(stage: GroupParallel, env, device, geom, out, out_start, g_start, n,
+                 g_size):
+    """The launch's argument struct (None when there is nothing to expand), the
+    tensor it writes, and its geometry."""
     presum = env[stage.presum]
     if presum.dtype != torch.int32 or not presum.is_contiguous() \
             or presum.numel() != stage.n_groups + 1:
@@ -63,22 +110,22 @@ def group_parallel(stage: GroupParallel, env: dict[str, torch.Tensor],
     if geom.S < 32:
         raise ValueError(f"{stage.name}: kernel 2 needs blocks of at least one warp, "
                          f"not {geom}")
-    if n:
-        # the value leaves hold the groups from g_start on
-        extent = stage.n_groups - g_start if g_size is None else int(g_size)
-        values = (cuda.ZfChain * 2)(*[cuda.pack_chain(c, env, device, extent)
-                                      for c in stage.values])
-        extras = [cuda.pack_buffer(env[k], f"{stage.name} input {k!r}", device)
-                  for k in stage.extra_inputs] if stage.map_kind == STRGATHER else []
-        extras += [cuda.ZfOp()] * (2 - len(extras))
-        args = cuda.ZfGpArgs(
-            presum=presum.data_ptr(), n_groups=stage.n_groups, values=values,
-            tail=cuda.pack_chain(stage.tail, env, device),
-            chars=extras[0], offs=extras[1], map_kind=_MAP_CODES[stage.map_kind],
-            out_width=cuda.out_width(dst), out=dst.data_ptr(), n=n, L=geom.L, C=geom.C,
-            out_start=out_start, g_start=g_start)
-        KERNEL.launch(args, geom.S, device)
-    return finish(out, dst, lambda t: t if t.dtype == out_dt else t.to(out_dt))
+    if not n:
+        return None, dst, geom
+    # the value leaves hold the groups from g_start on
+    extent = stage.n_groups - g_start if g_size is None else int(g_size)
+    values = (cuda.ZfChain * 2)(*[cuda.pack_chain(c, env, device, extent)
+                                  for c in stage.values])
+    extras = [cuda.pack_buffer(env[k], f"{stage.name} input {k!r}", device)
+              for k in stage.extra_inputs] if stage.map_kind == STRGATHER else []
+    extras += [cuda.ZfOp()] * (2 - len(extras))
+    args = cuda.ZfGpArgs(
+        presum=presum.data_ptr(), n_groups=stage.n_groups, values=values,
+        tail=cuda.pack_chain(stage.tail, env, device),
+        chars=extras[0], offs=extras[1], map_kind=_MAP_CODES[stage.map_kind],
+        out_width=cuda.out_width(dst), out=dst.data_ptr(), n=n, L=geom.L, C=geom.C,
+        out_start=out_start, g_start=g_start)
+    return args, dst, geom
 
 
 def tile_windows(presum: torch.Tensor, n_out: int, tile: int) -> torch.Tensor:

@@ -10,6 +10,11 @@
 An ``Aux`` stays a whole-array torch op on both backends; the Fully-Parallel
 producers fusion rule 5 folded into it run first, through the same dispatch, so
 on the kernel backend they are kernel launches too.
+
+``run_stage_batched`` runs one stage for K columns of one structure: a
+Fully-Parallel, Group-Parallel or Non-Parallel stage as one launch of the
+kernel's batched entry (its plain version on the torch backend), an Aux's
+producers the same way and its torch op once per member.
 """
 from __future__ import annotations
 
@@ -18,9 +23,9 @@ import torch
 from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel,
                                        NonParallel, Stage)
 from repro_torch.kernels import ref
-from repro_torch.kernels.fully_parallel import fully_parallel, into
-from repro_torch.kernels.group_parallel import group_parallel
-from repro_torch.kernels.non_parallel import non_parallel
+from repro_torch.kernels.fully_parallel import fully_parallel, fully_parallel_batched, into
+from repro_torch.kernels.group_parallel import group_parallel, group_parallel_batched
+from repro_torch.kernels.non_parallel import non_parallel, non_parallel_batched
 
 BACKENDS = ("kernel", "torch")
 
@@ -54,4 +59,36 @@ def run_stage(stage: Stage, env: dict[str, torch.Tensor], backend: str, *,
         res = stage.fn(*[local[a] for a in stage.args])
         out_dt = ref.torch_dtype(stage.out_dtype)
         return res if res.dtype == out_dt else res.to(out_dt)
+    raise TypeError(f"unknown stage type {type(stage)}")
+
+
+_BATCHED = ((FullyParallel, fully_parallel_batched, ref.fully_parallel_batched_torch),
+            (GroupParallel, group_parallel_batched, ref.group_parallel_batched_torch),
+            (NonParallel, non_parallel_batched, ref.non_parallel_batched_torch))
+
+
+def run_stage_batched(stage: Stage, envs: list[dict[str, torch.Tensor]], backend: str,
+                      *, outs: list[torch.Tensor | None] | None = None
+                      ) -> list[torch.Tensor]:
+    """One stage, whole, for each member's operands in ``envs`` (columns of one
+    structure) on ``backend``; ``outs[k]``, when given, is member k's output,
+    written in place."""
+    outs = [None] * len(envs) if outs is None else list(outs)
+    for kind, kernel, plain in _BATCHED:
+        if isinstance(stage, kind):
+            if backend == "kernel":
+                return kernel(stage, envs, outs=outs)
+            return [into(o, r, stage.name) for o, r in zip(outs, plain(stage, envs))]
+    if isinstance(stage, Aux):
+        locals_ = [dict(env) for env in envs] if stage.producers else envs
+        for prod in stage.producers:
+            for loc, res in zip(locals_, run_stage_batched(prod, locals_, backend)):
+                loc[prod.out] = res
+        out_dt = ref.torch_dtype(stage.out_dtype)
+        results = []
+        for loc, o in zip(locals_, outs):
+            res = stage.fn(*[loc[a] for a in stage.args])
+            res = res if res.dtype == out_dt else res.to(out_dt)
+            results.append(res if o is None else into(o, res, stage.name))
+        return results
     raise TypeError(f"unknown stage type {type(stage)}")

@@ -243,3 +243,22 @@ def non_parallel_torch(stage: NonParallel, env: dict[str, torch.Tensor],
         cur += need
     flat = out.reshape(-1)[: stage.n_out if n is None else n]
     return apply_ops(stage.tail, flat, env).to(torch_dtype(stage.out_dtype))
+
+
+# ------------------------------------------------------------ batched versions
+# The plain versions of the kernels' batched entries: K members of one
+# structure (same stage, each with its own operands), one result per member.
+
+def fully_parallel_batched_torch(stage: FullyParallel,
+                                 envs: list[dict[str, torch.Tensor]]) -> list[torch.Tensor]:
+    return [fully_parallel_torch(stage, env) for env in envs]
+
+
+def group_parallel_batched_torch(stage: GroupParallel,
+                                 envs: list[dict[str, torch.Tensor]]) -> list[torch.Tensor]:
+    return [group_parallel_torch(stage, env) for env in envs]
+
+
+def non_parallel_batched_torch(stage: NonParallel,
+                               envs: list[dict[str, torch.Tensor]]) -> list[torch.Tensor]:
+    return [non_parallel_torch(stage, env) for env in envs]

@@ -691,3 +691,72 @@ def test_group_span_pipeline_on_the_card(gpu):
     for k in plans:
         assert res[k].chunk_decoded and res[k].decode_launches > 2
         assert torch.equal(res[k].array.cpu(), torch.from_numpy(cols[k]))
+
+
+# ------------------------------------------------------------- batched entries
+
+def _batched_members(kind: str):
+    """Blobs of one structure whose data differ, per kernel."""
+    rng = np.random.default_rng(11)
+    if kind == "fp":                                        # kernel 1 and the f2i patch
+        cols = generate(0.01, seed=0)
+        arrs = [cols["L_DISCOUNT"], cols["L_TAX"]]
+        return [encode(TABLE2_PLANS[k], cols[k]) for k in ("L_DISCOUNT", "L_TAX")], arrs
+    if kind == "gp":
+        plan = make_plan("rle")
+        vals = rng.integers(-2**31, 2**31, 20_000)
+        counts = rng.integers(1, 60, 20_000)
+        arrs = [np.repeat(vals, counts).astype(np.int32),
+                np.repeat(vals, counts[::-1]).astype(np.int32)]
+    else:                                                    # kernel 3
+        plan = Plan("ans", params={"chunk_size": 1000})
+        a = rng.integers(0, 30, 300 * 1000).astype(np.uint8)
+        arrs = [a, a.reshape(300, 1000)[rng.permutation(300)].reshape(-1)]
+    return [encode(plan, a) for a in arrs], arrs
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 13])
+@pytest.mark.parametrize("kind", ["fp", "gp", "np"])
+def test_batched_entry_matches_single_launches(kind, k, gpu):
+    """``Program.batched`` on the kernel backend: one batched launch per stage
+    and per the kernel's limit of members, each member equal to its single
+    decode and to its source."""
+    encs, arrs = _batched_members(kind)
+    graphs = [build_graph(e) for e in encs]
+    assert graphs[0].signature == graphs[1].signature
+    prog = compile_blob(encs[0], backend="kernel")
+    lib = {"fp": FP, "gp": GP, "np": NP}[kind]
+    members = [device_buffers(encs[i % 2], gpu) for i in range(k)]
+    before = lib.batched_launches
+    out = prog.batched(members)
+    torch.cuda.synchronize()
+    assert lib.batched_launches - before == -(-k // lib.batch_max)
+    for i, m in enumerate(members):
+        assert torch.equal(bits(out[i]), bits(prog(m)))
+        assert torch.equal(bits(out[i].cpu()), bits(torch.from_numpy(arrs[i % 2])))
+    plain = compile_blob(encs[0], backend="torch").batched(members)
+    assert torch.equal(bits(out), bits(plain))
+
+
+def test_planned_pipeline_on_the_card(gpu):
+    """The reference's defaults and adaptive/auto plans run on the card, every
+    column batched as the same plan batches it on the CPU; under the defaults
+    the same-structure pair decodes in one batched kernel-1 launch a run."""
+    cols = generate(0.01, seed=0)
+    pipe = ColumnPipeline(dict(TABLE2_PLANS))
+    pipe.compress({k: cols[k] for k in TABLE2_PLANS})
+    host = ColumnPipeline(dict(TABLE2_PLANS), device="cpu")
+    host.load({k: pipe.encoded(k) for k in TABLE2_PLANS})
+    for kw in ({}, dict(policy="adaptive", chunk_bytes="auto", chunk_decode=True)):
+        plan = pipe.plan(**kw)
+        want = host.run(plan=plan)
+        for _ in range(2):
+            for lib in (FP, GP, NP):
+                lib.batched_launches = 0
+            res = pipe.run(plan=plan)
+            for k in TABLE2_PLANS:
+                assert torch.equal(bits(res[k].array.cpu()), bits(torch.from_numpy(cols[k])))
+                assert res[k].batched_with == want[k].batched_with, k
+        if not kw:
+            assert res["L_DISCOUNT"].batched_with == ("L_TAX",)
+            assert (FP.batched_launches, GP.batched_launches, NP.batched_launches) == (1, 0, 0)

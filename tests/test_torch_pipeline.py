@@ -38,7 +38,10 @@ def cols():
 
 @pytest.fixture(scope="module")
 def pipe_run(cols):
-    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cpu")
+    # FIFO whole-column streaming, one copy per column, no batching (the
+    # planner's defaults are covered in test_torch_planner.py)
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cpu", policy="fifo",
+                          chunk_bytes=None, batch_columns=False)
     ratios = pipe.compress(cols)
     return pipe, ratios, pipe.run()
 
