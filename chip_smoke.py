@@ -7,7 +7,7 @@ Phases, in order; none catches its own failure, so any error or mismatch exits
 non-zero before the final line:
 
   1. fail unless CUDA is available;
-  2. build the three hand-written kernels from ``src/repro_torch/kernels/csrc``
+  2. build the four hand-written kernels from ``src/repro_torch/kernels/csrc``
      (``nvcc``, ``sm_90a``, one process per source, all at once) and load
      every kernel of them on the card (``preload`` line: the time CUDA's lazy
      module loading would otherwise add to first launches), then generate
@@ -76,9 +76,28 @@ non-zero before the final line:
      decisions by mode, decode units and launches per run, the batched groups
      and their batched-entry launches, and the calibrated
      ``launch_overhead_s`` beside the host time per added decode unit;
-  6. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line,
-     the card's name and power limit from ``nvidia-smi``, and last
-     ``{"ok": true, "device": {...}}``.
+  6. the decode-fused queries (kernel 4, ``csrc/query_reduce.cu``): TPC-H Q1
+     and Q6 lowered onto their columns (``ColumnPipeline.lower_query``), each
+     run through ``run_query`` whole (one chunk, ``executor.run_query(...,
+     chunk_bytes=None)``), chunked at 1 MiB (``ColumnPipeline(chunk_bytes=1 <<
+     20)``) and in the loader's searched configuration
+     (``ColumnPipeline(chunk_bytes=None)``), each cold + ``WARM_RUNS`` warm,
+     with the counts zeroed just before the query runs and read just after
+     (Q1 also runs kernel 3 for its resident L_RETURNFLAG).  The count lane
+     must equal a numpy count over the source columns exactly, and the result
+     the materialize-then-query torch engine on the card (the port's ``run`` of
+     the query's columns, then ``data/queries.py``) within ``rtol`` 1e-4, the
+     reference example's tolerance (the sums are taken in another order).
+     Then every kernel-4 launch of those runs is repeated on the same chunk
+     against its plain version: the count lane bitwise, the float lanes within
+     1e-5 relative (each row's values are the same bits; only the order of the
+     sums differs).  ``query`` lines give the fused makespan by CUDA events and
+     the host time, ``materialize_ms``, the kernel's whole-launch time, its
+     plain version's and ``bound_ms`` (``fusion.hbm_traffic_bytes`` at the HBM
+     rate), chunks, launches and selectivity;
+  7. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
+     (kernel 4's object beside the three decode kernels'), the card's name and
+     power limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -104,6 +123,11 @@ KERNELS = {
     "non_parallel": ("src/repro_torch/kernels/csrc/non_parallel.cu",
                      "src/repro/kernels/non_parallel.py:29"),
 }
+# kernel 4 replaces no TPU kernel: the reference's Reduce runs under XLA jit
+QUERY_KERNEL = ("query_reduce", "src/repro_torch/kernels/csrc/query_reduce.cu",
+                "src/repro/core/compiler.py:204 (XLA, no pallas_call)")
+QUERY_RTOL = 1e-4          # fused vs materialize-then-query: sums in another order
+QUERY_KERNEL_RTOL = 1e-5   # kernel vs plain: the same row values, another sum order
 FP_BWS = (1, 3, 7, 8, 13, 17, 25, 31, 32)
 FP_NS = (1, 127, 4097, 1 << 20, 1_000_003)
 NP_CHUNKS = (256, 1000, 4096)     # 1000: chunks that are not a multiple of 16
@@ -291,6 +315,175 @@ def profiled_ms(calls, flush: torch.Tensor, reps: int = 5) -> list[float]:
     return out
 
 
+def query_truth(q: int, cols: dict) -> np.ndarray:
+    """The count lane from the source columns, in numpy: Q6's selected rows,
+    Q1's selected rows per group key."""
+    if q == 6:
+        d = cols["L_DISCOUNT"]
+        m = ((cols["L_SHIPDATE"] >= 8766) & (cols["L_SHIPDATE"] < 9131)
+             & (d >= np.float32(0.05)) & (d <= np.float32(0.07)) & (cols["L_QUANTITY"] < 24))
+        return np.array([m.sum()], np.float64)
+    sel = cols["L_SHIPDATE"] <= 10000
+    key = np.mod(cols["L_RETURNFLAG"].astype(np.int64) - 65, 4) * 2 + cols["L_LINESTATUS"]
+    return np.bincount(key[sel], minlength=8)[:8].astype(np.float64)
+
+
+def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dict:
+    """Phase 6: TPC-H Q1 and Q6 decode-fused on the card (see the module
+    docstring); returns the ``query`` records and kernel 4's ``kernels`` object."""
+    from repro_torch.core.fusion import hbm_traffic_bytes
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.loader import ColumnPipeline
+    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN, q1_engine, q6_engine
+    from repro_torch.data.tpch import QUERY_COLUMNS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
+
+    plans = {1: Q1_PLAN, 6: Q6_PLAN}
+    engines = {1: q1_engine, 6: q6_engine}
+    runs, checks, per_query = [], [], {}
+    err = 0.0
+    for lib in libs + (QR,):
+        lib.launches = 0
+
+    def drive(q, label, call):
+        """Cold + WARM_RUNS warm runs of one configuration; each result checked."""
+        spans, hosts, out = [], [], None
+        for _ in ("cold",) + ("warm",) * WARM_RUNS:
+            t0 = time.perf_counter()
+            out = call()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            spans.append(out.makespan_s * 1e3)
+            counts = np.asarray(out.acc.cpu())[-out.acc.numel() // (len(plans[q].aggregates) + 1):]
+            truth = query_truth(q, cols)
+            if not np.array_equal(counts.astype(np.float64), truth):
+                raise AssertionError(f"q{q} {label}: count lane {counts.tolist()} "
+                                     f"!= numpy {truth.tolist()}")
+            checks.append((q, label, out))
+        return {"query": f"q{q}", "config": label, "fused_ms": float(np.median(spans[1:])),
+                "fused_ms_cold": spans[0], "fused_ms_warm_min": min(spans[1:]),
+                "fused_ms_warm_max": max(spans[1:]), "host_ms": float(np.median(hosts[1:])),
+                "chunks": out.n_chunks, "launches": out.decode_launches,
+                "selectivity": out.selectivity, "transfer_ms": out.transfer_s * 1e3,
+                "decode_ms": out.decode_s * 1e3, "traffic_bytes": out.traffic_bytes,
+                "prefuse_traffic_bytes": out.prefuse_traffic_bytes,
+                "compressed_bytes": out.compressed_bytes, "plain_bytes": out.plain_bytes}
+
+    pipes = {}
+    for q, qp in plans.items():
+        names = QUERY_COLUMNS[q]
+        chunked = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device="cuda",
+                                 chunk_bytes=1 << 20)
+        searched = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device="cuda",
+                                  chunk_bytes=None)
+        for p_ in (chunked, searched):
+            p_.load({c: encoded[c] for c in names})
+        fq, encs = chunked.lower_query(qp)
+        pipes[q] = (chunked, searched, fq, encs)
+        runs.append(drive(q, "whole", lambda: chunked.executor.run_query(fq, encs,
+                                                                          chunk_bytes=None)))
+        runs.append(drive(q, "chunked 1MiB", lambda: chunked.run_query(qp)))
+        runs.append(drive(q, "searched", lambda: searched.run_query(qp)))
+    launches = {lib.name: lib.launches for lib in libs + (QR,)}
+    if QR.launches <= 0 or launches["non_parallel"] <= 0:
+        raise AssertionError(f"the query path did not run kernels 3 and 4: {launches}")
+    want = sum(r["launches"] for r in runs) * (WARM_RUNS + 1)
+    if QR.launches != want:
+        raise AssertionError(f"kernel 4 made {QR.launches} launches, the runs {want}")
+
+    # every kernel-4 launch of those runs, repeated on its chunk against the plain version
+    compared, rel = 0, 0.0
+    for q, (chunked, searched, fq, encs) in pipes.items():
+        red = fq.graph.stages[-1]
+        res = {}
+        for c in fq.resident:
+            res[fq.resident_input(c)] = torch.from_numpy(cols[c]).cuda()
+        for label, p_, cb in (("whole", chunked, None), ("chunked 1MiB", chunked, 1 << 20),
+                              ("searched", searched, searched._query_cfg[plans[q].digest()][1])):
+            sched, staged = p_.executor._query_staging(fq, cb)
+            flat = staged.host.cuda()
+            for k in range(sched.n_chunks):
+                env = {**staged.views(flat, k), **res}
+                kw = dict(n=sched.out_sizes[k], out_start=sched.out_starts[k])
+                got = query_reduce(red, env, **kw)
+                plain = ref.query_reduce_torch(red, env, **kw)
+                S = fq.n_segments
+                if not torch.equal(got[-S:], plain[-S:]):
+                    raise AssertionError(f"q{q} {label} chunk {k}: count lane "
+                                         f"{got[-S:].tolist()} != plain {plain[-S:].tolist()}")
+                if not torch.allclose(got, plain, rtol=QUERY_KERNEL_RTOL, atol=0):
+                    raise AssertionError(f"q{q} {label} chunk {k}: kernel {got.tolist()} "
+                                         f"vs plain {plain.tolist()}")
+                diff = (got.double() - plain.double()).abs()
+                err = max(err, diff.max().item())
+                rel = max(rel, (diff / plain.double().abs().clamp(min=1e-30)).max().item())
+                compared += 1
+
+    # materialize-then-query: the port's run of the query's columns, then the engine
+    for q, qp in plans.items():
+        chunked, searched, fq, encs = pipes[q]
+        names = QUERY_COLUMNS[q]
+        mat = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device="cuda",
+                             chunk_bytes=None)
+        mat.load({c: encoded[c] for c in names})
+        host_ms, dev_ms, result = [], [], None
+        for _ in ("cold",) + ("warm",) * WARM_RUNS:
+            t0 = time.perf_counter()
+            out = mat.run()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            result = engines[q]({c: out[c].array for c in names})
+            b.record()
+            b.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(mat.makespan_s * 1e3 + a.elapsed_time(b))
+        result = result.cpu().numpy()
+        for r in runs:
+            if r["query"] != f"q{q}":
+                continue
+            last = next(o for qq, lbl, o in reversed(checks) if qq == q and lbl == r["config"])
+            got = np.asarray(last.result)
+            if not np.allclose(got, result, rtol=QUERY_RTOL, atol=0):
+                raise AssertionError(f"q{q} {r['config']}: fused {got.tolist()} vs "
+                                     f"materialize-then-query {result.tolist()}")
+            r["materialize_ms"] = float(np.median(host_ms[1:]))
+            r["materialize_device_ms"] = float(np.median(dev_ms[1:]))
+        # kernel 4's whole launch beside its plain version and its bound
+        red = fq.graph.stages[-1]
+        sched, staged = chunked.executor._query_staging(fq, None)
+        env = {**staged.views(staged.host.cuda(), 0)}
+        for c in fq.resident:
+            env[fq.resident_input(c)] = torch.from_numpy(cols[c]).cuda()
+        nbytes = hbm_traffic_bytes(fq.graph.stages, {**fq.operands, **{
+            k: v for k, v in env.items() if k.endswith(".resident")}})
+        per_query[f"q{q}"] = {
+            "ms": timer.ms(lambda: query_reduce(red, env)),
+            "plain_ms": timer.ms(lambda: ref.query_reduce_torch(red, env), 3),
+            "bound_ms": nbytes / (hbm * 1e9) * 1e3, "bytes": nbytes,
+            "launches_per_query": {r["config"]: r["launches"] for r in runs
+                                   if r["query"] == f"q{q}"}}
+    for r in runs:
+        k = per_query[r["query"]]
+        r.update(kernel_ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"])
+        print(f"query {r['query']} {r['config']} " + " ".join(
+            f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
+            for key, v in r.items() if key not in ("query", "config")))
+    print(f"query compare: {compared} kernel-4 launches held against the plain version, "
+          f"count lanes bitwise, float lanes max abs err {err:.6g}, max rel err {rel:.6g}; "
+          f"main-path launches {launches}")
+    big = per_query["q1"]
+    kernel = {"name": QUERY_KERNEL[0], "route": "cuda", "source": QUERY_KERNEL[1],
+              "replaces": QUERY_KERNEL[2], "launches": launches["query_reduce"],
+              "max_abs_err": err, "max_rel_err": rel,
+              "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+              "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+              "at": "q1 whole (one launch over every row)", "compared": compared,
+              "per_query": per_query,
+              "materialize_ms": {r["query"]: r["materialize_ms"] for r in runs
+                                 if r["config"] == "whole"}}
+    return {"runs": runs, "kernel": kernel}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor")
@@ -327,9 +520,10 @@ def main() -> int:
     from repro_torch.kernels.non_parallel import (KERNEL as NP, decode_table, non_parallel,
                                                   non_parallel_batched)
     from repro_torch.kernels.ops import run_stage
+    from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
 
     columns = tuple(TABLE2_PLANS)
-    libs = (FP, GP, NP)
+    libs = (FP, GP, NP)         # the decode kernels; kernel 4 (QR) runs in phase 6
 
     name = torch.cuda.get_device_name(0)
     spec = chip_from_device(0)
@@ -340,16 +534,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    cuda.build(libs)
-    for lib in libs:
+    cuda.build(libs + (QR,))
+    for lib in libs + (QR,):
         lib.load(torch.device("cuda", 0))    # every kernel loaded on the card now
-    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs
+    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs + (QR,)
                      if lib.build_s is not None)
     print(f"build: {time.perf_counter() - t0:.2f} s ({built or 'cached'}) -> "
           f"{FP.path().parent}")
     print("preload: " + " ".join(f"{lib.name}_ms {lib.preload_s[0] * 1e3:.4f}"
-                                 for lib in libs))
-    for lib in libs:
+                                 for lib in libs + (QR,)))
+    for lib in libs + (QR,):
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}")
@@ -1117,6 +1311,9 @@ def main() -> int:
     auto_pipe = None
 
     # ---------------------------------------------------------------- phase 6
+    queries = run_queries(args, cols, encoded, timer, hbm, libs)
+
+    # ---------------------------------------------------------------- phase 7
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
     comp_b = sum(r.compressed_bytes for r in res.values())
@@ -1183,13 +1380,15 @@ def main() -> int:
                                          for k, v in planned.items()},
             "planner_batched_launches_per_run": {k: v["batched_launches_per_run"][kname]
                                                  for k, v in planned.items()}})
+    kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"device": name, "stages": stages,
                                         "columns": rows, "totals": totals,
                                         "entries": entries, "chunked": chunked,
                                         "batched": batched, "host_split": host_split,
-                                        "planner": planned, "kernels": kernels},
+                                        "planner": planned, "queries": queries["runs"],
+                                        "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

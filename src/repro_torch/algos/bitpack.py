@@ -15,7 +15,7 @@ from typing import Any
 
 import numpy as np
 
-from repro_torch.core.patterns import BufSpec, FullyParallel, unpack
+from repro_torch.core.patterns import BufSpec, FullyParallel, in_range, unpack, unpack_raw
 from repro_torch.core.registry import register
 
 
@@ -90,6 +90,24 @@ class BitpackCodec:
             specs=(BufSpec("tile", den=32, num_op=bw), BufSpec("full"), BufSpec("full")),
             out=out_name, n_out=enc.n, out_dtype=out_dtype(enc),
             elementwise=False, name="bitpack")]
+
+
+def compare_stage(enc, packed_name: str, bw_name: str, base_name: str,
+                  out_name: str, lo: int | None, hi: int | None) -> FullyParallel:
+    """Compressed-domain range predicate: ``lo <= value < hi`` evaluated on the
+    packed field (``UNPACK_RAW -> RANGE``): the unpacked field ``v`` is compared
+    in 64 bits against the rebased bounds ``lo - base`` / ``hi - base``, so the
+    decoded ``v + base`` (an int32 that can wrap) is never formed.  ``None``
+    bounds are open.  The bounds are part of the op (the query's identity,
+    which the fused graph's signature digests); ``base`` stays a lifted
+    operand, so blobs sharing the structure share the program."""
+    return FullyParallel(
+        chain=(unpack_raw(packed_name, bw_name), in_range(base_name, lo, hi)),
+        inputs=(packed_name, bw_name, base_name),
+        specs=(BufSpec("tile", den=32, num_op=bw_name),
+               BufSpec("full"), BufSpec("full")),
+        out=out_name, n_out=enc.n, out_dtype=np.bool_,
+        elementwise=False, name=f"bitpack-cmp[{lo},{hi})")
 
 
 register(BitpackCodec())

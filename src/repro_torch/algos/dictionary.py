@@ -41,4 +41,18 @@ class DictionaryCodec:
             elementwise=True, name="dict-lookup")]
 
 
+def code_bounds(dictionary: np.ndarray, lo, hi) -> tuple[int | None, int | None]:
+    """Map a value range ``[lo, hi)`` to a dictionary-code range ``[clo, chi)``.
+
+    ``np.unique`` emits the dictionary sorted, so order-preserving predicates
+    translate exactly: ``value >= lo``  <=>  ``code >= searchsorted(d, lo)``
+    and ``value < hi``  <=>  ``code < searchsorted(d, hi)`` (both 'left').
+    A range predicate on a dictionary column then runs on the (bit-packed)
+    codes without the dictionary gather.  ``None`` bounds stay open."""
+    d = np.asarray(dictionary)
+    clo = None if lo is None else int(np.searchsorted(d, lo, side="left"))
+    chi = None if hi is None else int(np.searchsorted(d, hi, side="left"))
+    return clo, chi
+
+
 register(DictionaryCodec())

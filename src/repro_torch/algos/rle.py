@@ -69,4 +69,62 @@ class RleCodec:
         ]
 
 
+def run_reduce_graph(enc, pred, projs, digest: str, prefix: str = "root"):
+    """Per-run fused aggregation for an RLE column (never per row).
+
+    A predicate over an RLE column is constant within a run, so a predicated
+    sum collapses to run-length-weighted arithmetic over the run axis:
+
+        partial[l] = sum_g counts_g * pred(values_g) * proj_l(values_g)
+
+    The runs' values/counts children decode at run granularity (``n_groups``
+    elements) and feed a terminal ``Reduce`` with ``n_in = n_groups`` -- the
+    expansion to ``enc.n`` rows never happens, and chunked execution streams
+    spans of runs.  ``pred`` (a ``query.Pred``, or None) and the projections
+    (``query`` expressions) read the run values as column ``prefix``; the
+    counts are the Reduce's weight role.  Returns a fused, Reduce-terminated
+    ``DecodeGraph`` whose last lane is the run-length-weighted selected-row
+    count.  ``digest`` distinguishes queries on structurally identical blobs
+    (the reference takes closures; its graph, signature and lanes are the
+    same)."""
+    import dataclasses
+
+    from repro_torch.core import fusion, ir as ir_mod, plan as plan_mod
+    from repro_torch.core.compiler import device_layout
+    from repro_torch.core.patterns import VALUE, WEIGHT, Reduce, Role
+
+    n_groups = int(enc.meta["n_groups"])
+    stages: list = []
+    names: dict[str, str] = {}
+    dtypes: dict[str, np.dtype] = {}
+    for slot in ("values", "counts"):
+        if slot in enc.children:
+            out = f"{prefix}/{slot}.runs"
+            child = plan_mod.lower(enc.children[slot], prefix=f"{prefix}/{slot}",
+                                   out_name=out)
+            stages += child
+            names[slot], dtypes[slot] = out, child[-1].out_dtype
+        elif slot in enc.buffers:
+            names[slot] = f"{prefix}.{slot}"
+            dtypes[slot] = device_layout(enc.buffers[slot][:0]).dtype
+        else:
+            raise ValueError(f"rle blob has no {slot!r} child or buffer")
+    # children lowered on their own Encoded have n == n_groups, so every stage
+    # works the run axis; guard against anything expanding to the row axis
+    for st in stages:
+        if enc.n != n_groups and getattr(st, "n_out", 0) == enc.n:
+            raise ValueError(f"per-run path leaked a per-row stage: {st.name}")
+    red = Reduce(
+        roles=(Role(VALUE, prefix, (load(names["values"]),), dtypes["values"]),
+               Role(WEIGHT, f"{prefix}.counts", (load(names["counts"]),),
+                    dtypes["counts"])),
+        inputs=(names["values"], names["counts"]),
+        specs=(BufSpec("tile"), BufSpec("tile")), lanes=tuple(projs),
+        preds=() if pred is None else (pred,), n_in=n_groups, out=f"{prefix}.agg",
+        n_out=len(projs) + 1, name="rle-run-reduce")
+    graph = ir_mod.graph_from_encoded(enc, stages + [red])
+    graph = dataclasses.replace(graph, signature=f"{graph.signature}+runq:{digest}")
+    return fusion.fuse_graph(graph)
+
+
 register(RleCodec())

@@ -23,7 +23,8 @@ each column with its own operands, into the rows of one ``(K, n_out)`` result.
 Streamed decode adds three programs, cached per structure like the whole one:
 ``ChunkProgram`` (one element chunk), ``PrologueProgram`` (what precedes a
 graph's group stage, once per column) and ``GroupChunkProgram`` (one span of
-whole groups).  Each calls the stages' chunk or span entries through
+whole groups); a fused query adds ``QueryChunkProgram`` (one chunk of items
+into a partial aggregate).  Each calls the stages' chunk or span entries through
 ``kernels/ops.run_stage`` with its offsets and writes its range of the
 column's output in place, so no concatenation follows.
 """
@@ -39,7 +40,8 @@ import torch
 
 from repro_torch.core import fusion as fusion_mod
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.ir import DecodeGraph, element_chunk_layout, group_chunk_layout
+from repro_torch.core.ir import (DecodeGraph, element_chunk_layout, group_chunk_layout,
+                                 query_chunk_layout)
 from repro_torch.core.patterns import LOAD, GroupParallel
 from repro_torch.kernels.ops import BACKENDS, run_stage, run_stage_batched
 from repro_torch.kernels.ref import torch_dtype
@@ -136,6 +138,44 @@ def compile_chunk_graph(graph: DecodeGraph, chunk_elems: int,
     if element_chunk_layout(graph) is None:
         raise ValueError(f"graph {graph.nesting!r} is not element-chunkable")
     return ChunkProgram(graph=graph, chunk_elems=int(chunk_elems), backend=backend)
+
+
+@dataclasses.dataclass
+class QueryChunkProgram:
+    """Per-chunk fused-query program: one call evaluates scan-filter-aggregate
+    over the items ``[out_start, out_start + chunk_elems)`` and gives a partial
+    aggregate (``graph.n_out`` accumulator lanes), not decoded rows: one launch
+    of the query kernel on the kernel backend.  Tiled inputs are the chunk's
+    slices, read at local indices (chunk starts are multiples of the layout's
+    ``align``, as for ``ChunkProgram``); resident "row" inputs are whole and
+    read at the global item.  ``out`` receives the lanes, or has them added
+    (``accumulate``), so the executor sums the chunks in order on the device.
+    Body chunks share one program per size, the uneven tail gets a second."""
+
+    graph: DecodeGraph
+    chunk_elems: int
+    backend: str
+    calls: int = 0
+
+    def __call__(self, bufs: dict[str, torch.Tensor], out_start: int,
+                 out: torch.Tensor | None = None, accumulate: bool = False) -> torch.Tensor:
+        self.calls += 1
+        env = dict(bufs)
+        n = self.chunk_elems
+        *pre, red = self.graph.stages
+        for st in pre:      # Fully-Parallel stages fusion left standing
+            env[st.out] = run_stage(st, env, self.backend, n=n)
+        return run_stage(red, env, self.backend, out=out, n=n, out_start=int(out_start),
+                         accumulate=accumulate)
+
+
+def compile_query_chunk_graph(graph: DecodeGraph, chunk_elems: int,
+                              backend: str = "torch") -> QueryChunkProgram:
+    """The per-chunk program of a fused query (Reduce-terminated) graph."""
+    _check_backend(backend)
+    if query_chunk_layout(graph) is None:
+        raise ValueError(f"graph {graph.nesting!r} is not query-chunkable")
+    return QueryChunkProgram(graph=graph, chunk_elems=int(chunk_elems), backend=backend)
 
 
 @dataclasses.dataclass
@@ -333,6 +373,14 @@ class ProgramCache:
         the structure shares it, and an uneven tail gets a second."""
         key = (graph.signature, "chunk", int(chunk_elems), backend)
         return self._get(key, lambda: compile_chunk_graph(graph, chunk_elems, backend))
+
+    def get_query_chunk(self, graph: DecodeGraph, chunk_elems: int,
+                        backend: str = "torch") -> QueryChunkProgram:
+        """One per (structure, chunk size): body chunks share it, the uneven
+        tail gets a second."""
+        key = (graph.signature, "qchunk", int(chunk_elems), backend)
+        return self._get(key, lambda: compile_query_chunk_graph(graph, chunk_elems,
+                                                                backend))
 
     def get_group_chunk(self, graph: DecodeGraph, g_size: int, pad_elems: int,
                         backend: str = "torch") -> GroupChunkProgram:

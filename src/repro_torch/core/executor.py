@@ -25,7 +25,15 @@ when the caller passes none.  Per column the plan decides:
 
 plus the issue order and the window.  Measured actuals feed the plan's
 ``CostModel`` (``timings`` aliases ``cost_model.measured``), so the next plan is
-built from calibrated predictions.
+built from calibrated predictions.  A decision the planner marked ``fused`` (a
+pending query could fuse the column) is advisory here, as in the reference:
+``run`` decodes the column, and only ``run_query`` fuses.
+
+``run_query`` executes a decode-fused query (``core/query.lower_query``): its
+resident columns decode first through ``run``, then one row-axis schedule
+streams the fused columns' leaves (pinned staging, the copy stream,
+``max(1, window - 1)`` chunks in flight) into one launch per chunk of the
+query kernel, whose partial aggregates add up on the device in chunk order.
 
 On a CUDA device:
 
@@ -61,17 +69,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel
+from repro_torch.core import costmodel, fusion
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import planner as planner_mod
 from repro_torch.core.compiler import Program, ProgramCache, build_graph, device_layout
 from repro_torch.core.costmodel import CostModel, profile_from
-from repro_torch.core.ir import DecodeGraph, element_chunk_layout, group_chunk_layout
+from repro_torch.core.ir import (DecodeGraph, element_chunk_layout, group_chunk_layout,
+                                 query_chunk_layout)
 from repro_torch.core.planner import BATCHED, CHUNK, ColumnDecision, ExecutionPlan
 from repro_torch.kernels import cuda
 from repro_torch.kernels.fully_parallel import KERNEL as FP_KERNEL
 from repro_torch.kernels.group_parallel import KERNEL as GP_KERNEL
 from repro_torch.kernels.non_parallel import KERNEL as NP_KERNEL
+from repro_torch.kernels.query_reduce import KERNEL as QR_KERNEL
 from repro_torch.kernels.ref import torch_dtype
 
 _ALIGN = 256     # byte alignment of each operand inside a staged column
@@ -129,6 +139,36 @@ class ChunkSchedule:
         return np.ascontiguousarray(arr[:rows, lo:hi])
 
 
+def element_schedule(ops: dict[str, np.ndarray], layout, n: int,
+                     chunk_bytes: int | None) -> ChunkSchedule:
+    """Element chunks of ~``chunk_bytes`` of compressed tile bytes (None: one
+    chunk of all ``n``) over a chunk layout's tiled leaves (``ChunkLayout`` or
+    ``QueryChunkLayout``): boundaries on the layout's alignment, each leaf's
+    ``[lo, hi)`` per chunk (the last takes the rest, guard words too)."""
+    ratios: dict[str, tuple[int, int]] = {}
+    per_elem = 0.0
+    for nm, spec in layout.tiled.items():
+        num = int(ops[spec.num_op][0]) if spec.num_op else int(spec.num)
+        ratios[nm] = (num, int(spec.den))
+        per_elem += num / spec.den * np.dtype(ops[nm].dtype).itemsize
+    chunk_elems = n if chunk_bytes is None else min(
+        n, costmodel.aligned_chunk_elems(chunk_bytes, per_elem, int(layout.align)))
+    out_starts = tuple(range(0, n, chunk_elems))
+    out_sizes = tuple(min(chunk_elems, n - s) for s in out_starts)
+    slices: dict[str, list[tuple[int, int]]] = {}
+    for nm, (num, den) in ratios.items():
+        length = int(np.asarray(ops[nm]).shape[0])
+        per = []
+        for s, sz in zip(out_starts, out_sizes):
+            lo = (s * num) // den
+            # inner boundaries are aligned, so the slices are exact
+            hi = length if s + sz >= n else ((s + sz) * num) // den
+            per.append((lo, max(hi, lo + 1)))
+        slices[nm] = per
+    return ChunkSchedule(out_starts=out_starts, out_sizes=out_sizes, slices=slices,
+                         whole=tuple(layout.whole))
+
+
 @dataclasses.dataclass
 class ColumnExec:
     """Execution record for one decoded column."""
@@ -146,6 +186,35 @@ class ColumnExec:
     chunk_decoded: bool = False
     kernel_launches: int = 0     # CUDA kernel launches of this column's decode
     #                              (of a batch: the batch's, shared by its columns)
+
+
+@dataclasses.dataclass
+class QueryExec:
+    """Execution record for one decode-fused query (late materialization).
+
+    ``traffic_bytes`` is the fused graph's modeled device-memory traffic (leaf
+    reads and the ``n_out`` accumulator lanes); ``prefuse_traffic_bytes``
+    prices the same stage list before operator fusion, where every decoded
+    column and mask makes a round trip -- the difference is what fusion
+    removed.  ``result`` is the finalized aggregate (numpy), ``acc`` the raw
+    partial-aggregate lanes on the device.  Besides the reference's fields,
+    ``makespan_s`` runs from the first copy (of the resident columns, if any)
+    to the last launch's end, by CUDA events on a GPU."""
+
+    name: str
+    result: np.ndarray
+    acc: torch.Tensor                 # raw partial-aggregate lanes
+    transfer_s: float
+    decode_s: float
+    n_chunks: int
+    decode_launches: int
+    selectivity: float
+    compressed_bytes: int
+    plain_bytes: int                  # decoded bytes that were never written
+    traffic_bytes: int
+    prefuse_traffic_bytes: int
+    resident: dict[str, "ColumnExec"] = dataclasses.field(default_factory=dict)
+    makespan_s: float = 0.0
 
 
 Entry = tuple[str, int, int, torch.dtype, tuple[int, ...]]
@@ -221,37 +290,48 @@ def stage_column(enc: plan_mod.Encoded, pin: bool = False,
     chunk of ``sched`` (the whole buffers in one copy, then one per chunk)."""
     ops = plan_mod.host_operands(enc)
     leaves = plan_mod.flat_buffers(enc)
+    if sched is not None:
+        return stage_chunks(ops, sched, pin)
+    names = [k for k in ops if k not in leaves] + list(leaves)   # meta first
+    arrays = [(k, device_layout(ops[k])) for k in names]
+    layout, end = _place(arrays, 0)
+    copies = list(whole_copies(enc, layout, chunk_bytes))
+    return _pack(arrays, layout, end, copies, (len(copies),), (), pin)
+
+
+def stage_chunks(ops: dict[str, np.ndarray], sched: ChunkSchedule,
+                 pin: bool = False) -> StagedColumn:
+    """Pack operands for per-chunk decode: the whole buffers in one copy, then
+    each chunk's slices in one copy each (a column's, or a fused query's
+    shared row-axis schedule)."""
     copies: list[tuple[int, int]] = []
     pieces: list[tuple[Entry, ...]] = []
-    if sched is None:
-        names = [k for k in ops if k not in leaves] + list(leaves)   # meta first
-        arrays = [(k, device_layout(ops[k])) for k in names]
-        layout, end = _place(arrays, 0)
-        copies = list(whole_copies(enc, layout, chunk_bytes))
-        needs = (len(copies),)
-    else:
-        arrays = [(k, device_layout(sched.host_push[k] if k in sched.host_push
-                                    else ops[k])) for k in sched.whole]
-        layout, end = _place(arrays, 0)
-        if end > 0:
-            copies.append((0, end))
-        needs = []
-        for i in range(sched.n_chunks):
-            chunk = [(k, device_layout(sched.piece(np.asarray(ops[k]), k, i)))
-                     for k in sched.slices]
-            entries, stop = _place(chunk, end)
-            pieces.append(tuple(entries))
-            arrays += chunk
-            if stop > end:
-                copies.append((end, stop))
-            needs.append(len(copies))
-            end = stop
-        needs = tuple(needs)
+    arrays = [(k, device_layout(sched.host_push[k] if k in sched.host_push
+                                else ops[k])) for k in sched.whole]
+    layout, end = _place(arrays, 0)
+    if end > 0:
+        copies.append((0, end))
+    needs = []
+    for i in range(sched.n_chunks):
+        chunk = [(k, device_layout(sched.piece(np.asarray(ops[k]), k, i)))
+                 for k in sched.slices]
+        entries, stop = _place(chunk, end)
+        pieces.append(tuple(entries))
+        arrays += chunk
+        if stop > end:
+            copies.append((end, stop))
+        needs.append(len(copies))
+        end = stop
+    return _pack(arrays, layout, end, copies, tuple(needs), tuple(pieces), pin)
+
+
+def _pack(arrays, layout, end: int, copies, needs, pieces, pin: bool) -> StagedColumn:
     host = torch.empty(max(end, 1), dtype=torch.uint8, pin_memory=pin)
-    for (_, o, nb, _, _), (_, a) in zip(layout + [e for p in pieces for e in p], arrays):
+    for (_, o, nb, _, _), (_, a) in zip(list(layout) + [e for p in pieces for e in p],
+                                        arrays):
         host[o:o + nb].copy_(torch.from_numpy(a.reshape(-1).view(np.uint8)))
     return StagedColumn(host=host, layout=tuple(layout), copies=tuple(copies),
-                        needs=needs, pieces=tuple(pieces))
+                        needs=needs, pieces=pieces)
 
 
 def _launches() -> int:
@@ -309,10 +389,14 @@ class StreamingExecutor:
         self._schedules: dict[tuple[str, int], ChunkSchedule | None] = {}
         self._copy_stream: torch.cuda.Stream | None = None
         self.last_makespan_s: float | None = None
+        # per fused query (signature, chunk size, rows): its operands, row-axis
+        # schedule and staging; and its (fused, pre-fusion) traffic
+        self._query_runs: dict[tuple, tuple] = {}
+        self._query_traffic: dict[str, tuple[int, int]] = {}
         if backend == "kernel" and self.device.type == "cuda":
-            # build the three libraries (one nvcc each, at once) and load
+            # build the four libraries (one nvcc each, at once) and load
             # every kernel on the device now, before any timed run
-            libs = (FP_KERNEL, GP_KERNEL, NP_KERNEL)
+            libs = (FP_KERNEL, GP_KERNEL, NP_KERNEL, QR_KERNEL)
             cuda.build(libs)
             for lib in libs:
                 lib.load(self.device)
@@ -417,34 +501,9 @@ class StreamingExecutor:
         layout = element_chunk_layout(graph)
         if layout is None:
             return self._build_group_schedule(name, chunk_bytes)
-        ops = plan_mod.host_operands(self._encoded[name])
-        ratios: dict[str, tuple[int, int]] = {}
-        per_elem = 0.0
-        for nm, spec in layout.tiled.items():
-            num = int(ops[spec.num_op][0]) if spec.num_op else int(spec.num)
-            ratios[nm] = (num, int(spec.den))
-            per_elem += num / spec.den * np.dtype(ops[nm].dtype).itemsize
-        n = int(graph.n_out)
-        # ~chunk_bytes of compressed tile bytes per chunk, on the alignment
-        chunk_elems = costmodel.aligned_chunk_elems(chunk_bytes, per_elem,
-                                                    int(layout.align))
-        if chunk_elems >= n:
-            return None
-        out_starts = tuple(range(0, n, chunk_elems))
-        out_sizes = tuple(min(chunk_elems, n - s) for s in out_starts)
-        slices: dict[str, list[tuple[int, int]]] = {}
-        for nm, (num, den) in ratios.items():
-            length = int(ops[nm].shape[0])
-            per = []
-            for s, sz in zip(out_starts, out_sizes):
-                lo = (s * num) // den
-                # the last chunk takes the remaining rows (guard words too);
-                # inner boundaries are aligned, so the slices are exact
-                hi = length if s + sz >= n else ((s + sz) * num) // den
-                per.append((lo, max(hi, lo + 1)))
-            slices[nm] = per
-        return ChunkSchedule(out_starts=out_starts, out_sizes=out_sizes,
-                             slices=slices, whole=layout.whole)
+        sched = element_schedule(plan_mod.host_operands(self._encoded[name]), layout,
+                                 int(graph.n_out), chunk_bytes)
+        return None if sched.n_chunks == 1 else sched
 
     def _build_group_schedule(self, name: str,
                               chunk_bytes: int) -> ChunkSchedule | None:
@@ -559,19 +618,22 @@ class StreamingExecutor:
 
     # --------------------------------------------------------------------- run
     def run(self, order: Sequence[str] | None = None, plan: ExecutionPlan | None = None,
-            window: int | None = None) -> dict[str, ColumnExec]:
-        """Transfer + decode the registered columns (all, or those of ``order``,
-        in that order) as ``plan`` decides; without a plan, one is built from
+            window: int | None = None, names: Sequence[str] | None = None
+            ) -> dict[str, ColumnExec]:
+        """Transfer + decode the registered columns (all, those of ``names``
+        -- the reference's ``run(encs)`` --, or those of ``order``, in that
+        order) as ``plan`` decides; without a plan, one is built over them from
         the constructor's knobs.  ``window`` overrides the plan's (decode units
-        in flight).  Measured actuals feed the cost model either way.  Returns
-        per-column records once everything has finished."""
-        if order is not None:
-            unknown = [n for n in order if n not in self._encoded]
+        in flight).  A ``fused`` decision decodes like any other (the flag is
+        advisory; ``run_query`` fuses).  Measured actuals feed the cost model
+        either way.  Returns per-column records once everything has finished."""
+        for given in (order, names):
+            unknown = [n for n in given or () if n not in self._encoded]
             if unknown:
                 raise KeyError(f"columns not registered: {unknown}")
         if window is not None and window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        names = list(self._encoded)
+        names = list(self._encoded) if names is None else list(names)
         if plan is None:
             plan = self.plan(names, order=order)
         elif order is not None:
@@ -580,10 +642,7 @@ class StreamingExecutor:
         if missing:
             raise ValueError(f"plan does not cover columns {missing}; it was built over "
                              f"{sorted(plan.decisions)}: re-plan after registering them")
-        fused = sorted(n for n, d in plan.decisions.items() if d.fused and n in names)
-        if fused:
-            raise NotImplementedError(f"decode-fused queries are not ported yet: {fused}")
-        order = [n for n in plan.order if n in self._encoded]
+        order = [n for n in plan.order if n in names]
         window = plan.window if window is None else window
         cols = {name: self._column(name, plan.decisions[name]) for name in order}
         units = self._units(order, plan.decisions, cols)
@@ -773,3 +832,168 @@ class StreamingExecutor:
                                    c["d0"].elapsed_time(c["d1"]) / 1e3
                                    / max(1, len(c["batch"])), c["launches"], c["batch"])
                 for name, c in cols.items()}
+
+    # ------------------------------------------------------------- fused query
+    def query_schedule(self, fq, chunk_bytes: int | None) -> ChunkSchedule:
+        """The fused query's shared row-axis schedule over its tiled leaves at
+        ``chunk_bytes`` (None: one chunk of every row), resolved against the
+        query's own operands, as the reference's ``run_query`` addresses them."""
+        layout = query_chunk_layout(fq.graph)
+        if layout is None:
+            raise ValueError(f"graph {fq.graph.nesting!r} is not query-chunkable")
+        return element_schedule(fq.operands, layout, fq.n_rows, chunk_bytes)
+
+    def _query_staging(self, fq, chunk_bytes: int | None):
+        """Schedule and staging of a query at a chunk size, built once per
+        (structure, chunk size, rows) and operand set (a re-lowered query,
+        after ``compress``, brings new operands)."""
+        key = (fq.graph.signature, chunk_bytes, fq.n_rows)
+        hit = self._query_runs.get(key)
+        if hit is None or hit[0] is not fq.operands:
+            sched = self.query_schedule(fq, chunk_bytes)
+            hit = (fq.operands, sched, stage_chunks(fq.operands, sched,
+                                                    self.device.type == "cuda"))
+            self._query_runs[key] = hit
+        return hit[1], hit[2]
+
+    def run_query(self, fq, encs: dict[str, plan_mod.Encoded] | None = None,
+                  chunk_bytes: int | None | object = _DEFAULTS,
+                  window: int | None = None) -> QueryExec:
+        """Execute a decode-fused query (``core.query.lower_query``'s result).
+
+        Resident columns decode first through ``run`` (only they: the
+        reference's ``run(encs)``), registered from ``encs`` when they are not
+        yet.  Then one shared row-axis schedule streams every fused column's
+        leaf slices together, and each chunk is one launch of the query
+        kernel -- scan-filter-aggregate fused into the decode -- whose partial
+        aggregate is added into one accumulator on the device, in chunk
+        order; one copy brings it back.  The accumulator holds one in-flight
+        slot, so ``max(1, window - 1)`` chunks are in flight (window 2 by
+        default).  The measured selectivity (the count lane) feeds the cost
+        model's per-signature EWMA."""
+        if chunk_bytes is self._DEFAULTS:
+            chunk_bytes = self._fixed_chunk_bytes
+        t_start = time.perf_counter()
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+        resident_execs: dict[str, ColumnExec] = {}
+        res_bufs: dict[str, torch.Tensor] = {}
+        if fq.resident:
+            missing = [c for c in fq.resident if not encs or c not in encs]
+            if missing:
+                raise ValueError(f"resident columns need their Encoded blobs: {missing}")
+            for c in fq.resident:
+                if self._encoded.get(c) is not encs[c]:
+                    self.compile(c, encs[c])
+            resident_execs = self.run(names=list(fq.resident))
+            for c in fq.resident:
+                res_bufs[fq.resident_input(c)] = resident_execs[c].array
+        sched, staged = self._query_staging(fq, chunk_bytes)
+        win = 2 if window is None else max(1, int(window))
+        eff = max(1, win - 1)
+        acc = torch.empty(fq.graph.n_out, dtype=torch.float32, device=self.device)
+        if self.device.type == "cuda":
+            transfer_s, decode_s, makespan_s = self._query_cuda(fq, sched, staged, res_bufs,
+                                                                eff, acc, start)
+        else:
+            transfer_s, decode_s = self._query_host(fq, sched, staged, res_bufs, acc)
+            makespan_s = time.perf_counter() - t_start
+        # The reference re-times a cold first call so that calibration sees the
+        # fused decode, not jit.  Nothing here compiles at a first call, and the
+        # query kernel is loaded on the card at construction (``KernelLib.load``
+        # with the device), so a cold run's times stand as they are.
+        acc_np = acc.cpu().numpy()          # the one device-to-host copy
+        sel = float(fq.selectivity(acc_np))
+        for c in fq.fused_cols:
+            if c not in self.cost_model.profiles and encs and c in encs:
+                self.cost_model.register(profile_from(c, encs[c], build_graph(encs[c])))
+            if c in self.cost_model.profiles:
+                self.cost_model.observe_selectivity(c, sel)
+        graph, ops = fq.graph, fq.operands
+        traffic = self._query_traffic.get(graph.signature)
+        if traffic is None:
+            all_bufs = {**ops, **res_bufs}
+            traffic = (fusion.hbm_traffic_bytes(graph.stages, all_bufs),
+                       fusion.hbm_traffic_bytes(fq.prefuse_stages, all_bufs))
+            self._query_traffic[graph.signature] = traffic
+        compressed = sum(int(np.asarray(ops[b.name]).nbytes) for b in graph.buffers)
+        plain = sum(int(encs[c].plain_nbytes) for c in fq.fused_cols) if encs else 0
+        return QueryExec(
+            name=fq.qplan.name, result=fq.finalize(acc_np), acc=acc,
+            transfer_s=transfer_s, decode_s=decode_s, n_chunks=sched.n_chunks,
+            decode_launches=sched.n_chunks, selectivity=sel,
+            compressed_bytes=compressed, plain_bytes=plain,
+            traffic_bytes=traffic[0], prefuse_traffic_bytes=traffic[1],
+            resident=resident_execs, makespan_s=makespan_s)
+
+    def _query_launch(self, fq, sched: ChunkSchedule, k: int, bufs: dict,
+                      acc: torch.Tensor) -> None:
+        prog = self.cache.get_query_chunk(fq.graph, sched.out_sizes[k], self.backend)
+        prog(bufs, sched.out_starts[k], out=acc, accumulate=k > 0)
+
+    def _query_host(self, fq, sched, staged, res_bufs, acc) -> tuple[float, float]:
+        flat = torch.empty_like(staged.host)
+        transfer = decode = 0.0
+        for k in range(sched.n_chunks):
+            t0 = time.perf_counter()
+            first = staged.needs[k - 1] if k else 0
+            for a, b in staged.copies[first:staged.needs[k]]:
+                flat[a:b].copy_(staged.host[a:b])
+            t1 = time.perf_counter()
+            self._query_launch(fq, sched, k, {**staged.views(flat, k), **res_bufs}, acc)
+            decode += time.perf_counter() - t1
+            transfer += t1 - t0
+        return transfer, decode
+
+    def _query_cuda(self, fq, sched, staged, res_bufs, eff: int, acc: torch.Tensor,
+                    start: torch.cuda.Event) -> tuple[float, float, float]:
+        """The chunks' copies on the copy stream, ``eff`` chunks ahead of the
+        launches on the compute stream; timed by CUDA events."""
+        compute = torch.cuda.current_stream(self.device)
+        copy = self.copy_stream
+
+        def event() -> torch.cuda.Event:
+            return torch.cuda.Event(enable_timing=True)
+
+        copy.wait_event(start)          # after the resident run, if any
+        K = sched.n_chunks
+        landed: list[torch.cuda.Event] = []
+        decoded: list[torch.cuda.Event] = []
+        c0, c1, d0, end = event(), event(), event(), event()
+        with torch.cuda.stream(copy):
+            flat = torch.empty(staged.host.numel(), dtype=torch.uint8, device=self.device)
+
+        def issue(k: int) -> None:
+            if k >= eff:                # at most `eff` chunks ahead of the launches
+                copy.wait_event(decoded[k - eff])
+            with torch.cuda.stream(copy):
+                if k == 0:
+                    c0.record(copy)
+                first = staged.needs[k - 1] if k else 0
+                for a, b in staged.copies[first:staged.needs[k]]:
+                    flat[a:b].copy_(staged.host[a:b], non_blocking=True)
+                ev = event()
+                ev.record(copy)
+                if k == K - 1:
+                    c1.record(copy)
+            landed.append(ev)
+
+        for k in range(min(eff, K)):
+            issue(k)
+        for k in range(K):
+            compute.wait_event(landed[k])
+            if k == 0:
+                flat.record_stream(compute)
+                d0.record(compute)
+            self._query_launch(fq, sched, k, {**staged.views(flat, k), **res_bufs}, acc)
+            d1 = event()
+            d1.record(compute)
+            decoded.append(d1)
+            if k + eff < K:
+                issue(k + eff)
+        end.record(compute)
+        end.synchronize()
+        return (c0.elapsed_time(c1) / 1e3, d0.elapsed_time(end) / 1e3,
+                start.elapsed_time(end) / 1e3)

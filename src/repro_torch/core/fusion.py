@@ -1,8 +1,7 @@
 """Plan-level kernel fusion on op chains (paper §3.2 Fig. 7(c), §4 'Scheduling
 Fully-Parallel with Fusion').
 
-Rules, applied to a lowered stage list until fixpoint (the reference's rules 1-5;
-rule 6 belongs to fused queries, not ported yet):
+Rules, applied to a lowered stage list until fixpoint (the reference's rules 1-6):
 
   1. FP -> FP        : concatenate chains (one kernel, no intermediate round-trip).
   2. FP -> GP.values : move the producer's chain into the Group-Parallel value
@@ -12,18 +11,26 @@ rule 6 belongs to fused queries, not ported yet):
                        goes through the consumer's ops before it is written).
   5. FP -> Aux       : attach the producer to the auxiliary whole-array op; a
                        kernel backend still runs it as a kernel before the op.
+  6. FP -> operator  : graft a producer's chain into a tile input of a consumer
+                       that reads its inputs positionally (a fused query's
+                       post-decode predicate stage, or the terminal ``Reduce``):
+                       the codec x operator fusion that keeps a decoded column
+                       out of device memory (``patterns.compose_positional``).
 
 A buffer may only be fused away if it has exactly one consumer and is not the plan's
-final output.  Stage kinds, counts and names come out identical to the reference's.
+final output.  Stage kinds, counts, names and input orders come out identical to
+the reference's.  ``hbm_traffic_bytes`` is the reference's Eq.-2 traffic model.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
+
 from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel,
-                                       NonParallel, Stage, compose_fp, load,
-                                       stage_inputs)
+                                       NonParallel, Reduce, Stage, compose_fp,
+                                       compose_positional, load, stage_inputs)
 
 
 def _use_counts(stages: Sequence[Stage]) -> dict[str, int]:
@@ -78,6 +85,21 @@ def _fuse_once(stages: list[Stage], final_out: str | None) -> bool:
                         name=f"{prod.name}>{cons.name}")
                     del stages[pi]
                     return True
+        # --- rule 6: FP -> positional operator / Reduce ----------------------
+        if isinstance(cons, Reduce) or (isinstance(cons, FullyParallel) and cons.positional):
+            for j, nm in enumerate(cons.inputs):
+                if cons.specs[j].kind != "tile":
+                    continue   # "full" operands / "row" residents stay as they are
+                pi = producer.get(nm)
+                if pi is None or pi == ci:
+                    continue
+                prod = stages[pi]
+                if isinstance(prod, FullyParallel) and single_use(prod.out):
+                    new = compose_positional(prod, cons, j)
+                    if new is not None:
+                        stages[ci] = new
+                        del stages[pi]
+                        return True
         # --- rule 5: FP -> Aux ----------------------------------------------
         if isinstance(cons, Aux) and cons.inputs:
             pi = producer.get(cons.inputs[0])
@@ -120,3 +142,26 @@ def kernel_count(stages: Sequence[Stage]) -> int:
     """Number of device launches a stage list makes (Aux ops count: they
     materialize; a rule-5 producer inside an Aux is one more kernel launch)."""
     return sum(1 + len(getattr(st, "producers", ())) for st in stages)
+
+
+def hbm_traffic_bytes(stages: Sequence[Stage], bufs: dict[str, object]) -> int:
+    """Eq.-2-style traffic model: every stage reads its inputs and writes its
+    output once in device memory.  A terminal ``Reduce`` writes ``n_out``
+    accumulator lanes (a few scalars), not the elided column, so a fully fused
+    scan-filter-aggregate costs its leaf reads and the aggregate's write.
+    Resident ("row") inputs are charged at their decoded size when present in
+    ``bufs`` (numpy arrays or tensors)."""
+    sizes = {k: int(getattr(v, "nbytes", 0)) for k, v in bufs.items()}
+    total = 0
+    for st in stages:
+        if isinstance(st, GroupParallel):
+            ins = (st.presum,) + st.value_inputs
+        elif isinstance(st, NonParallel):
+            ins = (st.streams, st.states)
+        else:
+            ins = getattr(st, "inputs", ())
+        total += sum(sizes.get(k, 0) for k in ins)
+        out_bytes = st.n_out * np.dtype(st.out_dtype).itemsize
+        sizes[st.out] = out_bytes
+        total += out_bytes
+    return total

@@ -14,8 +14,9 @@ the stage list plus:
     interchangeable programs, so one compiled program serves all such blobs.  The
     digest is byte-identical to the reference package's for the same blob.
 
-The chunk analyses below (``element_chunk_layout``, ``group_chunk_layout``) say
-how a graph splits for streamed decode.  They read only the stages' buffer
+The chunk analyses below (``element_chunk_layout``, ``group_chunk_layout``,
+and ``query_chunk_layout`` for a fused query's item axis) say how a graph
+splits for streamed decode.  They read only the stages' buffer
 names and ``BufSpec`` tiles (a Group-Parallel stage's ``value_inputs``, which
 fusion rule 2 may have replaced by a bit-packed producer's inputs; a
 Non-Parallel stage's ``streams``/``states``), never the op chains, so they
@@ -33,7 +34,7 @@ import numpy as np
 from repro_torch.core import registry
 from repro_torch.core.patterns import (CHUNK_ELEMENT, CHUNK_GROUP, CHUNK_NONE,
                                        BufSpec, FullyParallel, GroupParallel,
-                                       NonParallel, Stage, stage_inputs)
+                                       NonParallel, Reduce, Stage, stage_inputs)
 
 if TYPE_CHECKING:  # avoid a hard import cycle with repro_torch.core.plan
     from repro_torch.core.plan import Encoded
@@ -230,6 +231,89 @@ def element_chunk_layout(graph: DecodeGraph) -> ChunkLayout | None:
         if ms.name not in whole and ms.name not in tiled:
             whole.append(ms.name)
     return ChunkLayout(align=align, tiled=dict(tiled), whole=tuple(whole))
+
+
+# --------------------------------------------------------- query-chunk analysis
+
+@dataclasses.dataclass(frozen=True)
+class QueryChunkLayout:
+    """Per-chunk partial-aggregate recipe for a fused query graph.
+
+    The item axis being chunked is the terminal Reduce's ``n_in`` (rows, or RLE
+    runs) -- not ``graph.n_out``, which is the tiny accumulator.  ``tiled`` and
+    ``whole`` follow ``ChunkLayout`` over that axis; ``resident`` lists "row"
+    inputs: decoded columns kept whole on the device and read at the global
+    item index by every chunk launch."""
+
+    align: int
+    tiled: dict[str, Any]       # leaf name -> BufSpec over the item axis
+    whole: tuple[str, ...]
+    resident: tuple[str, ...]
+    n_rows: int                 # item-axis length partial launches cover
+
+
+def query_chunk_layout(graph: DecodeGraph) -> QueryChunkLayout | None:
+    """The per-chunk partial-aggregate recipe of a fused query graph, or None.
+
+    Eligible iff the final stage is a ``Reduce`` and every earlier stage is
+    Fully-Parallel over the full item axis (``n_out == reduce.n_in``), so a
+    chunk of items maps to the same element range at every stage.  Memoised
+    per graph, like ``group_chunk_layout``."""
+    cached = graph.__dict__.get("_query_layout", False)
+    if cached is not False:
+        return cached
+    layout = _query_chunk_layout(graph)
+    graph.__dict__["_query_layout"] = layout
+    return layout
+
+
+def _query_chunk_layout(graph: DecodeGraph) -> QueryChunkLayout | None:
+    stages = graph.stages
+    if not stages or not isinstance(stages[-1], Reduce):
+        return None
+    red = stages[-1]
+    n_rows = int(red.n_in)
+    if n_rows <= 0:
+        return None
+    produced: set[str] = set()
+    tiled: dict[str, Any] = {}
+    whole: list[str] = []
+    resident: list[str] = []
+    buf_shapes = {b.name: b.shape for b in graph.buffers}
+    align = 1
+    for st in stages:
+        if st is not red and (not isinstance(st, FullyParallel)
+                              or int(st.n_out) != n_rows):
+            return None
+        for name, spec in zip(st.inputs, st.specs):
+            if name in produced:
+                if spec.kind == "tile" and (spec.num, spec.den) != (1, 1):
+                    return None
+                continue
+            if spec.kind == "row":
+                if name not in resident:
+                    resident.append(name)
+                continue
+            if spec.kind == "full":
+                if name not in whole:
+                    whole.append(name)
+                continue
+            if name in tiled:
+                if tiled[name] != spec:
+                    return None
+                continue
+            if len(buf_shapes.get(name, (0, 0))) != 1:
+                return None
+            tiled[name] = spec
+            align = math.lcm(align, int(spec.den))
+        produced.add(st.out)
+    if not tiled:
+        return None
+    for ms in graph.meta_specs:
+        if ms.name not in whole and ms.name not in tiled:
+            whole.append(ms.name)
+    return QueryChunkLayout(align=align, tiled=dict(tiled), whole=tuple(whole),
+                            resident=tuple(resident), n_rows=n_rows)
 
 
 # --------------------------------------------------------- group-chunk analysis

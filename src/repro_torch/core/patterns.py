@@ -33,6 +33,18 @@ that reads at the element index):
   I2F_DIV(scale)                  float32(v) / scale[0]          (float2int)
   UNZIGZAG                        (v >> 1) ^ -(v & 1) on uint32  (delta)
 
+Fused queries (``core/query.py``) add three ops, which only the query
+kernel (``kernels/query_reduce.py``) and the plain versions take:
+
+  UNPACK_RAW(packed, bw_op)       the bit-packed field of element i, before the
+                                  base is added (non-negative, up to 32 bits)
+  RANGE(base_op; lo, hi)          1 if lo - base <= v < hi - base in 64 bits, else
+                                  0: a range predicate on the packed field
+                                  (``algos/bitpack.compare_stage``); ``arg`` holds
+                                  the bounds, None for an open end
+  TEST(; preds, dtype)            v as ``dtype``, then the AND of the
+                                  predicates (``query.Pred``) on it: a boolean
+
 Buffers may hold 8-, 16- or 32-bit elements; an op reads an element at its own
 width (sign-extending signed ones), so uint8 and uint16 leaves reach the device
 as they are.  Table lookups index like jnp: a negative index wraps once, then
@@ -81,18 +93,25 @@ GATHER = "gather"
 SPAN = "span"
 I2F_DIV = "i2f_div"
 UNZIGZAG = "unzigzag"
-SOURCE_OPS = (UNPACK, LOAD, BYTES)
-OP_KINDS = (UNPACK, LOAD, BYTES, GATHER, SPAN, I2F_DIV, UNZIGZAG)
+UNPACK_RAW = "unpack_raw"
+RANGE = "range"
+TEST = "test"
+SOURCE_OPS = (UNPACK, LOAD, BYTES, UNPACK_RAW)
+OP_KINDS = (UNPACK, LOAD, BYTES, GATHER, SPAN, I2F_DIV, UNZIGZAG, UNPACK_RAW, RANGE,
+            TEST)
+QUERY_OPS = (UNPACK_RAW, RANGE, TEST)   # taken by the query kernel only
 
 
 @dataclasses.dataclass(frozen=True)
 class Op:
-    """One step of an op chain: ``kind``, the buffer names it reads and, for
-    ``BYTES``, an immediate (the item size)."""
+    """One step of an op chain: ``kind``, the buffer names it reads, for
+    ``BYTES`` an immediate (the item size), and for ``RANGE`` and ``TEST``
+    their constants in ``arg`` (part of the query's identity)."""
 
     kind: str
     bufs: tuple[str, ...] = ()
     imm: int = 0
+    arg: Any = None
 
     def __post_init__(self):
         if self.kind not in OP_KINDS:
@@ -100,6 +119,7 @@ class Op:
 
     def __str__(self) -> str:
         args = list(self.bufs) + ([str(self.imm)] if self.kind == BYTES else [])
+        args += [] if self.arg is None else [repr(self.arg)]
         return f"{self.kind.upper()}({', '.join(args)})"
 
 
@@ -129,6 +149,19 @@ def i2f_div(scale: str) -> Op:
 
 def unzigzag() -> Op:
     return Op(UNZIGZAG)
+
+
+def unpack_raw(packed: str, bw_op: str) -> Op:
+    return Op(UNPACK_RAW, (packed, bw_op))
+
+
+def in_range(base_op: str, lo: int | None, hi: int | None) -> Op:
+    return Op(RANGE, (base_op,), arg=(None if lo is None else int(lo),
+                                      None if hi is None else int(hi)))
+
+
+def predicate(preds: tuple, dtype) -> Op:
+    return Op(TEST, arg=(tuple(preds), np.dtype(dtype)))
 
 
 Chain = tuple[Op, ...]
@@ -167,6 +200,9 @@ class FullyParallel(Stage):
     out_dtype: Any = np.dtype(np.int32)
     elementwise: bool = True   # True iff the chain reads inputs[0] only at i
     name: str = "fp"
+    # reads its inputs positionally, so fusion rule 6 may graft a producer's
+    # chain into its source (a fused query's post-decode predicate stage)
+    positional: bool = False
     chunkability = CHUNK_ELEMENT
 
     def __post_init__(self):
@@ -296,6 +332,75 @@ class Aux(Stage):
             self.args = tuple(self.inputs)
 
 
+VALUE, MASK, ROW, WEIGHT = "value", "mask", "row", "weight"
+ROLE_KINDS = (VALUE, MASK, ROW, WEIGHT)
+
+
+@dataclasses.dataclass(frozen=True)
+class Role:
+    """One input of a ``Reduce``, evaluated per item by its op chain.
+
+    ``value``: a column the expressions and inline predicates read as ``col``;
+    ``row``: the same, read from a decoded resident column at the *global*
+    item index; ``mask``: a boolean ANDed into the row's selection (a
+    compressed-domain ``RANGE`` or a post-decode ``TEST``); ``weight``: a
+    factor of the row's weight (RLE run lengths).  ``dtype`` is the value's
+    type, that of the stage the role reads (``compose_positional`` keeps it)."""
+
+    kind: str
+    col: str
+    chain: Chain
+    dtype: Any
+
+    def __post_init__(self):
+        if self.kind not in ROLE_KINDS:
+            raise ValueError(f"unknown role kind {self.kind!r}")
+        object.__setattr__(self, "chain", check_chain(self.chain))
+        object.__setattr__(self, "dtype", np.dtype(self.dtype))
+
+
+@dataclasses.dataclass
+class Reduce(Stage):
+    """Aggregate an item axis into a tiny partial vector (operator fusion).
+
+    Per item i < ``n_in``: every role's chain is evaluated at i; the row's
+    weight ``w`` is the AND of the mask roles and of the inline ``preds``
+    (``query.Pred`` on value roles) as float32, times any weight role as
+    float32; lane l is ``lanes[l]`` (an expression over the value roles,
+    ``query.Col``/``Const``/``Bin``) as float32 times ``w``, and the last lane
+    is ``w`` itself (the selected-row count).  With a ``key`` expression the
+    lanes are summed per segment ``key`` in ``[0, n_segments)`` (other keys
+    are dropped), lane-major; without, over every item.  The output is
+    ``n_out = (len(lanes) + 1) * n_segments`` float32 partial sums: partials
+    over any disjoint cover of the items add up to the whole, so a Reduce
+    splits along its item axis like an element-chunkable stage.
+
+    The reference's Reduce holds a jnp closure; this one is declarative, so
+    the query kernel and the plain version interpret the same roles and
+    expressions.  ``inputs``/``specs`` list every buffer the roles read, in
+    the reference's order, for use counts, layouts and traffic."""
+
+    roles: tuple[Role, ...]
+    inputs: tuple[str, ...]
+    specs: tuple[BufSpec, ...]
+    lanes: tuple[Any, ...] = ()
+    key: Any = None
+    preds: tuple[Any, ...] = ()
+    n_segments: int = 1
+    n_in: int = 0               # item-axis length (rows, or RLE runs)
+    out: str = "agg"
+    n_out: int = 0              # accumulator lanes (n_lanes * n_segments)
+    out_dtype: Any = np.dtype(np.float32)
+    name: str = "reduce"
+    chunkability = CHUNK_ELEMENT    # partials over any item cover sum to whole
+
+    def __post_init__(self):
+        self.out_dtype = np.dtype(self.out_dtype)
+        if self.n_out != (len(self.lanes) + 1) * self.n_segments:
+            raise ValueError(f"{self.name}: n_out {self.n_out} is not (lanes + 1) x "
+                             f"segments = {(len(self.lanes) + 1) * self.n_segments}")
+
+
 # --------------------------------------------------------------------- helpers
 def compose_fp(first: FullyParallel, second: FullyParallel) -> FullyParallel:
     """Fuse two Fully-Parallel stages: second(first(x)).  The second stage must
@@ -310,6 +415,35 @@ def compose_fp(first: FullyParallel, second: FullyParallel) -> FullyParallel:
         out=second.out, n_out=second.n_out, out_dtype=second.out_dtype,
         elementwise=first.elementwise,
         name=f"{first.name}+{second.name}")
+
+
+def compose_positional(first: FullyParallel, cons: Stage, j: int) -> Stage | None:
+    """Fuse a Fully-Parallel producer into input position ``j`` of a consumer
+    that reads its inputs positionally (a positional Fully-Parallel stage or a
+    ``Reduce``): the producer's chain replaces the ``LOAD`` of ``inputs[j]``,
+    so the decoded value stays in registers.  The inputs and specs are spliced
+    as the reference splices them.  None when no chain reads ``inputs[j]``
+    with a bare ``LOAD`` (a Fully-Parallel consumer reads only its source)."""
+    name = cons.inputs[j]
+    inputs = cons.inputs[:j] + first.inputs + cons.inputs[j + 1:]
+    specs = cons.specs[:j] + first.specs + cons.specs[j + 1:]
+    label = f"{first.name}>{cons.name}"
+    if isinstance(cons, FullyParallel):
+        if cons.chain[0] != load(name):
+            return None
+        return dataclasses.replace(cons, chain=first.chain + cons.chain[1:],
+                                   inputs=inputs, specs=specs, name=label)
+    roles = []
+    hit = False
+    for r in cons.roles:
+        if not hit and r.chain[0] == load(name):
+            r = dataclasses.replace(r, chain=first.chain + r.chain[1:])
+            hit = True
+        roles.append(r)
+    if not hit:
+        return None
+    return dataclasses.replace(cons, roles=tuple(roles), inputs=inputs, specs=specs,
+                               name=label)
 
 
 def stage_inputs(st: Stage) -> tuple[str, ...]:

@@ -2,7 +2,10 @@
 
 ``ColumnPipeline`` is the user-facing entry point: per-column plans, host encoding
 (``compress``), planning (``plan``) and streamed transfer + decompression on the
-device (``run``), transfer of one decode unit overlapping the decode of another.
+device (``run``), transfer of one decode unit overlapping the decode of another;
+and decode-fused queries over the registered columns (``lower_query``,
+``query_plan``, ``run_query``), where only partial aggregates reach the device's
+memory.
 
 It runs on the card unless the caller asks for the CPU: with no ``device`` it
 takes ``torch.device("cuda")`` and raises if CUDA is absent.  On a CUDA device
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import plan as plan_mod
-from repro_torch.core.executor import ColumnExec, StreamingExecutor
+from repro_torch.core import scheduler
+from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
 from repro_torch.core.plan import Plan
 from repro_torch.core.planner import ExecutionPlan
 
@@ -62,6 +66,10 @@ class ColumnPipeline:
             chunk_decode=chunk_decode, policy=policy, pipeline=pipeline,
             batch_columns=batch_columns, cost_model=cost_model)
         self._encoded: dict[str, plan_mod.Encoded] = {}
+        # lowered fused queries and their planned (window, chunk_bytes), keyed
+        # by QueryPlan digest (``load`` invalidates: new blobs lower anew)
+        self._queries: dict[str, tuple] = {}
+        self._query_cfg: dict[str, tuple[int, int | None]] = {}
 
     def compress(self, columns: dict[str, np.ndarray]) -> dict[str, float]:
         """Encode each column with its plan on the host and stage it for transfer;
@@ -79,6 +87,8 @@ class ColumnPipeline:
         for name, enc in encoded.items():
             self._encoded[name] = enc
             self.executor.compile(name, enc)
+        self._queries.clear()
+        self._query_cfg.clear()
 
     def encoded(self, name: str) -> plan_mod.Encoded:
         return self._encoded[name]
@@ -106,3 +116,74 @@ class ColumnPipeline:
         configured policy unless given); an explicit ``order`` pins the issue
         order, and ``window`` overrides the plan's decode units in flight."""
         return self.executor.run(order=order, plan=plan, window=window)
+
+    def lower_query(self, qplan):
+        """Graft a ``core.query.QueryPlan`` onto the registered columns' decode
+        graphs: ``(FusedQuery, encs)``, the blobs those ``compress`` built.
+        Memoised by query digest (``compress``/``load`` invalidate), so warm
+        ``run_query`` calls measure execution, not lowering."""
+        key = qplan.digest()
+        hit = self._queries.get(key)
+        if hit is None:
+            from repro_torch.core.query import lower_query
+
+            encs = {c: self._encoded[c] for c in qplan.columns()}
+            hit = (lower_query(qplan, encs), encs)
+            self._queries[key] = hit
+        return hit
+
+    def query_plan(self, qplan, **kw) -> ExecutionPlan:
+        """``ExecutionPlan`` for a pending query: per column, fused or
+        materialized as the cost model's selectivity-aware fused estimate
+        decides (``plan.explain()`` shows ``mode=...+fused sel=...`` rows)."""
+        fq, encs = self.lower_query(qplan)
+        return self.executor.plan(list(encs), fused_columns={c: None for c in fq.fused_cols},
+                                  **kw)
+
+    def run_query(self, qplan, window: int | None = None) -> QueryExec:
+        """Decode-fused query execution (late materialization): the fused
+        columns stream through per-chunk scan-filter-aggregate launches; only
+        partial aggregates reach device memory.  The window and the row-chunk
+        count come from the cost model (memoised per query digest): the fused
+        columns form one shared-schedule job, and the chunk count is chosen by
+        ``simulate_stream`` over 1, 2, 4 and 8 chunks, each extra launch priced
+        at the calibrated overhead -- on the CPU, where copies and decode share
+        the cores, this is one launch.  A fixed integer ``chunk_bytes``
+        overrides the search, as in ``run``."""
+        fq, encs = self.lower_query(qplan)
+        key = qplan.digest()
+        cfg = self._query_cfg.get(key)
+        if cfg is None:
+            ep = self.query_plan(qplan)     # registers profiles for all columns
+            if isinstance(self.executor.chunk_bytes, int):
+                cb = self.executor.chunk_bytes       # fixed size: the caller's
+            else:
+                cm = self.executor.cost_model
+                t_tr = d_fused = oh = 0.0
+                for c in fq.fused_cols:
+                    t_tr += cm.predict(c)[0]
+                    d_fused += cm.fused_decode_s(c)
+                    oh = max(oh, cm.launch_overhead_s(c))
+                # the reference asks JAX whether the host is the device
+                # (``serial_host``): one resource, no transfer/decode overlap
+                serial = self.executor.device.type == "cpu"
+                best_k, best_t = 1, None
+                for k in (1, 2, 4, 8):
+                    if serial:
+                        mk = t_tr + d_fused + (k - 1) * oh
+                    else:
+                        mk = scheduler.simulate_stream(
+                            [scheduler.Job(qplan.name, t_tr, d_fused)],
+                            [scheduler.ChunkInfo(n_chunks=k, chunk_decode=k > 1,
+                                                 launch_overhead_s=oh)],
+                            window=ep.window)
+                    if best_t is None or mk < best_t - 1e-12:
+                        best_k, best_t = k, mk
+                comp = sum(self._encoded[c].compressed_nbytes for c in fq.fused_cols)
+                cb = None if best_k == 1 else -(-comp // best_k)
+            cfg = (ep.window, cb)
+            self._query_cfg[key] = cfg
+        win, cb = cfg
+        if window is not None:
+            win = window
+        return self.executor.run_query(fq, encs, chunk_bytes=cb, window=win)

@@ -20,7 +20,10 @@
 
 enum : int32_t {
   ZF_UNPACK = 0, ZF_LOAD = 1, ZF_GATHER = 2, ZF_I2F_DIV = 3, ZF_UNZIGZAG = 4,
-  ZF_BYTES = 5, ZF_SPAN = 6
+  ZF_BYTES = 5, ZF_SPAN = 6,
+  // a fused query's compressed-domain range mask (query_reduce.cu only; the
+  // switches of kernels 1-3 never see them, and kernels/cuda.py refuses them there)
+  ZF_UNPACK_RAW = 7, ZF_RANGE = 8
 };
 enum : int32_t { ZF_IDENTITY = 0, ZF_AFFINE = 1, ZF_STRGATHER = 2 };
 
@@ -99,6 +102,25 @@ __device__ __forceinline__ uint32_t zf_bytes(const ZfOp& op, int64_t i) {
   uint32_t v = 0;
   for (int k = 0; k < k_end; ++k) v |= static_cast<uint32_t>(b[k]) << (8 * k);
   return v;
+}
+
+// UNPACK_RAW: the packed field of element i before the base is added (a:
+// packed words, b: bit width operand).
+__device__ __forceinline__ uint32_t zf_unpack_raw(const ZfOp& op, int64_t i) {
+  return zf_unpack_at(static_cast<const uint32_t*>(op.a), op.n - 1,
+                      *static_cast<const int32_t*>(op.b), 0u, i);
+}
+
+// RANGE: 1 when lo - base <= v < hi - base, the field v and the rebased bounds
+// in 64 bits, so no int32 v + base can wrap (algos/bitpack.py compare_stage).
+// a: the base operand (int32, (1,)); n: lo; b: hi as a 64-bit integer; imm bit
+// 0 / bit 1: lo / hi present (an absent bound is open).
+__device__ __forceinline__ uint32_t zf_range(const ZfOp& op, uint32_t v) {
+  const int64_t base = *static_cast<const int32_t*>(op.a);
+  const int64_t x = static_cast<int64_t>(v);
+  const int64_t hi = static_cast<int64_t>(reinterpret_cast<uintptr_t>(op.b));
+  const bool ok = (!(op.imm & 1) || x >= op.n - base) && (!(op.imm & 2) || x < hi - base);
+  return ok ? 1u : 0u;
 }
 
 __device__ __forceinline__ uint32_t zf_source(const ZfOp& op, int64_t i) {

@@ -33,15 +33,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.patterns import (BYTES, GATHER, I2F_DIV, LOAD, SPAN, UNPACK,
-                                       UNZIGZAG, Chain)
+from repro_torch.core.patterns import (BYTES, GATHER, I2F_DIV, LOAD, QUERY_OPS, RANGE,
+                                       SPAN, UNPACK, UNPACK_RAW, UNZIGZAG, Chain)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 MAX_OPS = 8
 _OP_CODES = {UNPACK: 0, LOAD: 1, GATHER: 2, I2F_DIV: 3, UNZIGZAG: 4, BYTES: 5,
-             SPAN: 6}
+             SPAN: 6, UNPACK_RAW: 7, RANGE: 8}
 # element code of a buffer: bytes per element, negative for a signed narrow type
 _ELEM_CODES = {torch.int32: 4, torch.uint32: 4, torch.float32: 4,
                torch.uint16: 2, torch.int16: -2, torch.uint8: 1, torch.bool: 1,
@@ -87,6 +87,41 @@ class ZfNpArgs(ctypes.Structure):
                 ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
 
 
+# kernel 4 (csrc/query_reduce.cu): one fused query's roles, predicates and
+# expression program, by value in the 4 KB parameter space
+QR_MAX_ROLES, QR_MAX_ROLE_OPS, QR_MAX_PREDS = 12, 4, 16
+QR_MAX_INSTRS, QR_MAX_REGS, QR_MAX_LANES, QR_MAX_ACC = 48, 32, 16, 64
+
+
+class ZfQRole(ctypes.Structure):
+    _fields_ = [("n_ops", ctypes.c_int32), ("kind", ctypes.c_int8), ("row", ctypes.c_int8),
+                ("src", ctypes.c_int8), ("type", ctypes.c_int8),
+                ("ops", ZfOp * QR_MAX_ROLE_OPS)]
+
+
+class ZfQPred(ctypes.Structure):
+    _fields_ = [("reg", ctypes.c_int8), ("cmp", ctypes.c_int8), ("mode", ctypes.c_int8),
+                ("pad", ctypes.c_int8 * 5), ("value", ctypes.c_int64)]
+
+
+class ZfQInstr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int8), ("type", ctypes.c_int8), ("dst", ctypes.c_int8),
+                ("a", ctypes.c_int8), ("b", ctypes.c_int8), ("src", ctypes.c_int8),
+                ("pad", ctypes.c_int8 * 2), ("imm", ctypes.c_int64)]
+
+
+class ZfQArgs(ctypes.Structure):
+    _fields_ = [("roles", ZfQRole * QR_MAX_ROLES), ("preds", ZfQPred * QR_MAX_PREDS),
+                ("prog", ZfQInstr * QR_MAX_INSTRS), ("lane_reg", ctypes.c_int8 * QR_MAX_LANES),
+                ("n_roles", ctypes.c_int32), ("n_preds", ctypes.c_int32),
+                ("n_instrs", ctypes.c_int32), ("n_lanes", ctypes.c_int32),
+                ("n_segments", ctypes.c_int32), ("key_reg", ctypes.c_int32),
+                ("accumulate", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
+                ("n", ctypes.c_int64), ("out_start", ctypes.c_int64),
+                ("out", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+                ("counter", ctypes.c_void_p)]
+
+
 def build_root() -> Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
@@ -124,7 +159,8 @@ class KernelLib:
     reports it at load; a library of an older tree (``scripts/kernel_variants.py
     --baseline``) has neither a batched entry nor ``zf_preload``: it leaves
     ``batch_max`` None and loads its kernels at their first launches.
-    ``preload_s`` is the wall time of ``zf_preload`` per device index."""
+    ``preload_s`` is the wall time of ``zf_preload`` per device index (the
+    query kernel's library has ``zf_preload`` and no batched entry)."""
 
     def __init__(self, name: str, entry: str, args_type: type):
         self.name = name
@@ -136,6 +172,7 @@ class KernelLib:
         self.build_s: float | None = None   # wall time of this process's nvcc
         self.preload_s: dict[int, float] = {}
         self._lib: ctypes.CDLL | None = None
+        self._preload = False                # the library exports zf_preload
         self._batched = None                 # the batched entry, bound at first use
 
     def path(self) -> Path:
@@ -166,11 +203,13 @@ class KernelLib:
             if hasattr(lib, "zf_batch_max"):
                 lib.zf_batch_max.restype = ctypes.c_int
                 self.batch_max = lib.zf_batch_max()
+            if hasattr(lib, "zf_preload"):
                 lib.zf_preload.argtypes = [ctypes.c_int32]
                 lib.zf_preload.restype = ctypes.c_int
+                self._preload = True
             self._lib = lib
         if device is not None and device.type == "cuda" \
-                and device.index not in self.preload_s and self.batch_max is not None:
+                and device.index not in self.preload_s and self._preload:
             index = torch.cuda.current_device() if device.index is None else device.index
             t0 = time.perf_counter()
             err = self._lib.zf_preload(index)
@@ -285,26 +324,31 @@ def out_width(t: torch.Tensor) -> int:
 
 
 def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
-               extent: int = 0) -> ZfChain:
+               extent: int = 0, query_ops: bool = False) -> ZfChain:
     """The C struct of an op chain, with each op's buffers resolved in ``env``.
 
     ``extent`` is the number of indices the chain's source is read at (the
-    kernel reads a ``LOAD`` buffer unchecked there; the other ops clamp)."""
+    kernel reads a ``LOAD`` buffer unchecked there; the other ops clamp).
+    ``UNPACK_RAW`` and ``RANGE`` reach the query kernel only (``query_ops``);
+    ``TEST`` is compiled into its predicates, never packed."""
     if len(chain) > MAX_OPS:
         raise ValueError(f"chain of {len(chain)} ops exceeds the kernels' {MAX_OPS}")
     out = ZfChain(n_ops=len(chain))
     for k, op in enumerate(chain):
+        if op.kind in QUERY_OPS and (not query_ops or op.kind not in _OP_CODES):
+            raise ValueError(f"{op}: the decode kernels do not take this op")
         ptrs = [operand(env[b], f"{op} input {b!r}", device) for b in op.bufs]
         reads = extent * (op.imm if op.kind == BYTES else 1)
         if op.kind in (LOAD, BYTES) and env[op.bufs[0]].numel() < reads:
             raise ValueError(f"{op}: buffer holds {env[op.bufs[0]].numel()} "
                              f"elements, the chain reads {reads}")
-        if op.kind == UNPACK:
+        if op.kind in (UNPACK, UNPACK_RAW):
             if _ELEM_CODES[env[op.bufs[0]].dtype] != 4:
                 raise ValueError(f"{op}: packed words must be 32-bit")
-            bw, base = env[op.bufs[1]], env[op.bufs[2]]
-            if bw.dtype != torch.int32 or base.dtype != torch.int32:
+            if any(env[b].dtype != torch.int32 for b in op.bufs[1:]):
                 raise ValueError(f"{op}: bit width and base operands must be int32")
+        if op.kind == RANGE and env[op.bufs[0]].dtype != torch.int32:
+            raise ValueError(f"{op}: the base operand must be int32")
         if op.kind == I2F_DIV and env[op.bufs[0]].dtype != torch.float32:
             raise ValueError(f"{op}: the scale must be float32")
         if op.kind == BYTES and (env[op.bufs[0]].dtype != torch.uint8 or op.imm < 1):
@@ -315,4 +359,13 @@ def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
                           elem=_ELEM_CODES[buf.dtype] if buf is not None else 4,
                           n=buf.numel() if buf is not None else 0,
                           a=ptrs[0], b=ptrs[1], c=ptrs[2])
+        if op.kind == RANGE:
+            # the bounds: n = lo, b = hi (64-bit integers), imm bits = present
+            lo, hi = op.arg
+            for x in (lo, hi):
+                if x is not None and not -2**62 <= x < 2**62:
+                    raise ValueError(f"{op}: bound {x} outside the 64-bit compare")
+            out.ops[k].n = 0 if lo is None else lo
+            out.ops[k].b = None if hi is None else hi & (2**64 - 1)
+            out.ops[k].imm = (lo is not None) | (hi is not None) << 1
     return out

@@ -9,7 +9,8 @@
 
 An ``Aux`` stays a whole-array torch op on both backends; the Fully-Parallel
 producers fusion rule 5 folded into it run first, through the same dispatch, so
-on the kernel backend they are kernel launches too.
+on the kernel backend they are kernel launches too.  A fused query's ``Reduce``
+goes to the query kernel (``query_reduce``) or its plain version.
 
 ``run_stage_batched`` runs one stage for K columns of one structure: a
 Fully-Parallel, Group-Parallel or Non-Parallel stage as one launch of the
@@ -21,11 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.patterns import (Aux, FullyParallel, GroupParallel,
-                                       NonParallel, Stage)
+                                       NonParallel, Reduce, Stage)
 from repro_torch.kernels import ref
 from repro_torch.kernels.fully_parallel import fully_parallel, fully_parallel_batched, into
 from repro_torch.kernels.group_parallel import group_parallel, group_parallel_batched
 from repro_torch.kernels.non_parallel import non_parallel, non_parallel_batched
+from repro_torch.kernels.query_reduce import query_reduce
 
 BACKENDS = ("kernel", "torch")
 
@@ -34,9 +36,10 @@ def run_stage(stage: Stage, env: dict[str, torch.Tensor], backend: str, *,
               out: torch.Tensor | None = None, **span) -> torch.Tensor:
     """One stage on ``backend``.  A chunk or a span passes its entry in
     ``span`` -- ``n`` (Fully-Parallel); ``out_start``, ``g_start``, ``n_valid``
-    and ``g_size`` (Group-Parallel); ``n_chunks`` and ``n`` (Non-Parallel) --
-    with its slices in ``env``, and ``out``, its range of the column's output,
-    which both backends write in place."""
+    and ``g_size`` (Group-Parallel); ``n_chunks`` and ``n`` (Non-Parallel);
+    ``n``, ``out_start`` and ``accumulate`` (Reduce) -- with its slices in
+    ``env``, and ``out``, its range of the column's output (a Reduce's
+    accumulator), which both backends write in place."""
     if isinstance(stage, FullyParallel):
         if backend == "kernel":
             return fully_parallel(stage, env, out=out, **span)
@@ -50,6 +53,13 @@ def run_stage(stage: Stage, env: dict[str, torch.Tensor], backend: str, *,
         if backend == "kernel":
             return non_parallel(stage, env, out=out, **span)
         return into(out, ref.non_parallel_torch(stage, env, **span), stage.name)
+    if isinstance(stage, Reduce):
+        if backend == "kernel":
+            return query_reduce(stage, env, out=out, **span)
+        res = ref.query_reduce_torch(stage, env, span.get("n"), span.get("out_start", 0))
+        if out is None:
+            return res
+        return out.add_(res) if span.get("accumulate") else into(out, res, stage.name)
     if isinstance(stage, Aux):
         if span or out is not None:
             raise ValueError(f"{stage.name}: an Aux stage runs whole, never per chunk")

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.patterns import (AFFINE, BYTES, GATHER, I2F_DIV, IDENTITY,
-                                       LOAD, SPAN, STRGATHER, UNPACK, UNZIGZAG,
-                                       Chain, FullyParallel, GroupParallel,
-                                       NonParallel, Op)
+                                       LOAD, MASK, RANGE, ROW, SPAN, STRGATHER, TEST,
+                                       UNPACK, UNPACK_RAW, UNZIGZAG, WEIGHT, Chain,
+                                       FullyParallel, GroupParallel, NonParallel, Op,
+                                       Reduce)
 
 MASK32 = 0xFFFFFFFF
 # rANS constants (algos/ans.py): renorm bound, probability scale
@@ -58,11 +59,12 @@ def u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
-def _unpack(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
-    packed, bw_op, base_op = (env[b] for b in op.bufs)
+def _field(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The bit-packed field of each element (int64, non-negative), before the
+    base is added."""
+    packed, bw_op = env[op.bufs[0]], env[op.bufs[1]]
     words = u32(packed)
     bw = bw_op[0].to(torch.int64)
-    base = base_op[0].to(torch.int64)
     last = words.numel() - 1
     # 64-bit bit position, split like the reference: w = (i>>5)*bw + ((i&31)*bw)>>5
     frac = (idx & 31) * bw
@@ -72,7 +74,11 @@ def _unpack(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Te
     hi = torch.where(off == 0, torch.zeros_like(lo),
                      (words[(w + 1).clamp(max=last)] << (32 - off)) & MASK32)
     mask = torch.where(bw >= 32, torch.full_like(bw, MASK32), (1 << (bw & 31)) - 1)
-    return wrap_i32(((lo | hi) & mask) + base)
+    return (lo | hi) & mask
+
+
+def _unpack(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
+    return wrap_i32(_field(op, idx, env) + env[op.bufs[2]][0].to(torch.int64))
 
 
 def _bytes(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -92,6 +98,8 @@ def _source(op: Op, idx: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.Te
         return take(env[op.bufs[0]], idx)
     if op.kind == BYTES:
         return _bytes(op, idx, env)
+    if op.kind == UNPACK_RAW:
+        return _field(op, idx, env)
     raise ValueError(f"{op} is not a source op")
 
 
@@ -116,6 +124,17 @@ def _transform(op: Op, v: torch.Tensor, env: dict[str, torch.Tensor]) -> torch.T
     if op.kind == UNZIGZAG:
         z = u32(v)
         return wrap_i32((z >> 1) ^ (-(z & 1) & MASK32))
+    if op.kind == RANGE:
+        # the field against the rebased bounds, in 64 bits (compare_stage)
+        x = v.to(torch.int64)
+        base = env[op.bufs[0]][0].to(torch.int64)
+        lo, hi = op.arg
+        sel = torch.ones_like(x, dtype=torch.bool)
+        if lo is not None:
+            sel &= x >= lo - base
+        if hi is not None:
+            sel &= x < hi - base
+        return sel
     raise ValueError(f"{op} is not a transform op")
 
 
@@ -127,8 +146,19 @@ def apply_ops(ops: Chain, v: torch.Tensor, env: dict[str, torch.Tensor]) -> torc
 
 def eval_chain(chain: Chain, idx: torch.Tensor,
                env: dict[str, torch.Tensor]) -> torch.Tensor:
-    """A chain's value at every index in ``idx`` (int64)."""
-    return apply_ops(chain[1:], _source(chain[0], idx, env), env)
+    """A chain's value at every index in ``idx`` (int64).  A ``TEST`` takes
+    the value so far as its dtype and gives the AND of its predicates."""
+    v = _source(chain[0], idx, env)
+    for k, op in enumerate(chain[1:], 1):
+        if op.kind == TEST:
+            preds, dtype = op.arg
+            x = to_out(v, chain[:k], dtype)
+            v = preds[0].mask(x)
+            for p in preds[1:]:
+                v = v & p.mask(x)
+        else:
+            v = _transform(op, v, env)
+    return v
 
 
 def chain_dtype(chain: Chain, env: dict[str, torch.Tensor],
@@ -142,6 +172,10 @@ def chain_dtype(chain: Chain, env: dict[str, torch.Tensor],
             dt = env[op.bufs[0]].dtype
         elif op.kind == I2F_DIV:
             dt = torch.float32
+        elif op.kind == UNPACK_RAW:
+            dt = torch.int64
+        elif op.kind in (RANGE, TEST):
+            dt = torch.bool
     return dt
 
 
@@ -262,3 +296,55 @@ def group_parallel_batched_torch(stage: GroupParallel,
 def non_parallel_batched_torch(stage: NonParallel,
                                envs: list[dict[str, torch.Tensor]]) -> list[torch.Tensor]:
     return [non_parallel_torch(stage, env) for env in envs]
+
+
+# ------------------------------------------------------------ fused queries
+
+def reduce_values(stage: Reduce, env: dict[str, torch.Tensor], n: int,
+                  out_start: int = 0):
+    """The items' values per column, their weights ``w`` (float32) and the
+    lane values (float32, not yet weighted), for the ``n`` items from
+    ``out_start``: tiled roles read their slices at local indices, ``row``
+    roles the resident column at global ones."""
+    device = env[stage.inputs[0]].device
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    vals: dict[str, torch.Tensor] = {}
+    mask = weight = None
+    for role in stage.roles:
+        v = eval_chain(role.chain, idx + out_start if role.kind == ROW else idx, env)
+        v = to_out(v, role.chain, role.dtype)
+        if role.kind == MASK:
+            mask = v if mask is None else mask & v
+        elif role.kind == WEIGHT:
+            weight = v.to(torch.float32)
+        else:
+            vals[role.col] = v
+    for p in stage.preds:
+        m = p.mask(vals[p.col])
+        mask = m if mask is None else mask & m
+    w = (torch.ones(n, dtype=torch.float32, device=device) if mask is None
+         else mask.to(torch.float32))
+    if weight is not None:
+        w = w * weight
+    lanes = [torch.as_tensor(e.eval(vals), device=device).to(torch.float32)
+             .expand(n) for e in stage.lanes]
+    return vals, w, lanes
+
+
+def query_reduce_torch(stage: Reduce, env: dict[str, torch.Tensor],
+                       n: int | None = None, out_start: int = 0) -> torch.Tensor:
+    """The partial aggregate of items ``[out_start, out_start + n)`` (default
+    all ``n_in``): per lane the sum of ``lane * w``, the last lane ``w``, per
+    segment of the key when there is one (keys outside ``[0, n_segments)``
+    drop their row, as ``jax.ops.segment_sum`` does), lane-major.  Each
+    segment is one ``torch.sum`` (a tree) over the rows of that key, so the
+    order of the sums is fixed."""
+    n = stage.n_in if n is None else int(n)
+    vals, w, lanes = reduce_values(stage, env, n, out_start)
+    stacked = torch.stack([lane * w for lane in lanes] + [w])       # (L, n)
+    if stage.key is None:
+        return stacked.sum(dim=1)
+    key = torch.as_tensor(stage.key.eval(vals), device=w.device).to(torch.int32).expand(n)
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    segs = [torch.where(key == s, stacked, zero).sum(dim=1) for s in range(stage.n_segments)]
+    return torch.stack(segs, dim=1).reshape(-1)

@@ -22,6 +22,7 @@ from repro_torch.core.patterns import (AFFINE, IDENTITY, STRGATHER, BufSpec,
                                        load_bytes, span, unpack, unzigzag)
 from repro_torch.core.executor import StreamingExecutor
 from repro_torch.core.plan import Plan, encode, host_operands, make_plan
+from repro_torch.core.query import Bin, Col, Const, Pred, QueryPlan
 from repro_torch.data.columns import TABLE2_PLANS
 from repro_torch.data.loader import ColumnPipeline
 from repro_torch.data.tpch import generate
@@ -760,3 +761,176 @@ def test_planned_pipeline_on_the_card(gpu):
         if not kw:
             assert res["L_DISCOUNT"].batched_with == ("L_TAX",)
             assert (FP.batched_launches, GP.batched_launches, NP.batched_launches) == (1, 0, 0)
+
+
+# ------------------------------------------------------- kernel 4: fused queries
+# The count lane (sums of 0/1 or of run lengths, integers below 2^24) must be
+# bitwise equal to the plain version's; the float lanes agree within 1e-5
+# relative: every row's values are the same bits (the kernel's _rn
+# intrinsics), and the kernel's block-tree sums and the plain version's
+# torch.sum differ only in the order of the additions.
+QUERY_RTOL = 1e-5
+
+
+# small queries on the expression semantics the kernel program must keep
+# (also held against the reference on the CPU, test_torch_query_run.py)
+def semantics_columns():
+    rng = np.random.default_rng(7)
+    n = 5000
+    return {"A": rng.integers(0, 100, n).astype(np.int32),
+            "F": rng.integers(0, 256, n).astype(np.uint8),
+            "S": rng.integers(-300, 300, n).astype(np.int16),
+            "X": (rng.integers(-5000, 5000, n) / 100.0).astype(np.float32)}
+
+
+SEMANTICS = {
+    # floor modulo of negatives, as a lane and as the key
+    "floor-mod": QueryPlan(
+        "fmod", aggregates=(("m", Bin("%", Bin("-", Col("A"), Const(50)), Const(7))),
+                            ("xm", Bin("%", Col("X"), Const(-3.5)))),
+        group_key=Bin("%", Bin("-", Col("A"), Const(50)), Const(7)),
+        n_segments=7),
+    # uint8 + a Python int stays uint8 (wraps); int16 * int16 stays int16
+    "narrow-wrap": QueryPlan(
+        "wrap", aggregates=(("u", Bin("+", Col("F"), Const(250))),
+                            ("s", Bin("*", Col("S"), Col("S"))),
+                            ("us", Bin("+", Col("F"), Col("S"))))),
+    # int * float -> float32; a float bound on an int value column; keys past
+    # the segments drop their rows (count lane included)
+    "promote-drop": QueryPlan(
+        "promote", predicates=(Pred("A", "<", 80.5), Pred("X", ">=", -20)),
+        aggregates=(("h", Bin("*", Col("A"), Const(0.5))),
+                    ("x", Bin("-", Const(1), Col("X")))),
+        group_key=Bin("-", Col("A"), Const(40)), n_segments=16),
+    # a float predicate on a column no aggregate reads: a post-decode mask
+    "post-decode": QueryPlan(
+        "postdec", predicates=(Pred("X", "between", -10.25, 30.5),
+                               Pred("S", "<", 0.5)),
+        aggregates=(("a", Col("A", "float32")),)),
+}
+
+
+def _query_env(fq, gpu, resident=None):
+    from repro_torch.core.compiler import device_layout
+
+    env = {k: torch.from_numpy(device_layout(v)).to(gpu) for k, v in fq.operands.items()}
+    for c, arr in (resident or {}).items():
+        env[fq.resident_input(c)] = torch.from_numpy(arr).to(gpu)
+    return env
+
+
+def _assert_query_lanes(got, plain, n_segments):
+    assert torch.equal(got[-n_segments:], plain[-n_segments:])
+    torch.testing.assert_close(got, plain, rtol=QUERY_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_query_kernel_matches_plain(q, chunks, gpu):
+    """Q1 (resident L_RETURNFLAG, a 5-lane x 8-segment accumulator) and Q6 on
+    the query kernel, whole and in chunks added into one accumulator."""
+    from repro_torch.core.executor import StreamingExecutor
+    from repro_torch.core.query import lower_query
+    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN
+    from repro_torch.data.tpch import QUERY_COLUMNS
+    from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
+
+    cols = generate(0.05, seed=0)
+    encs = {n: encode(TABLE2_PLANS[n], cols[n]) for n in QUERY_COLUMNS[q]}
+    fq = lower_query({1: Q1_PLAN, 6: Q6_PLAN}[q], encs)
+    red = fq.graph.stages[-1]
+    whole_env = _query_env(fq, gpu, {c: cols[c] for c in fq.resident})
+    plain = ref.query_reduce_torch(red, whole_env)
+    ex = StreamingExecutor("torch", gpu, chunk_bytes=None)    # for its schedule
+    cb = None if chunks == 1 else -(-sum(v.nbytes for v in fq.operands.values()) // chunks)
+    sched = ex.query_schedule(fq, cb)
+    assert sched.n_chunks == chunks or (chunks > 1 and sched.n_chunks > 1)
+    acc = torch.empty(red.n_out, dtype=torch.float32, device=gpu)
+    before = QR.launches
+    for k in range(sched.n_chunks):
+        env = dict(whole_env)
+        for leaf, sl in sched.slices.items():
+            lo, hi = sl[k]
+            env[leaf] = whole_env[leaf][lo:hi].contiguous()
+        query_reduce(red, env, n=sched.out_sizes[k], out_start=sched.out_starts[k],
+                     out=acc, accumulate=k > 0)
+    torch.cuda.synchronize()
+    assert QR.launches - before == sched.n_chunks
+    _assert_query_lanes(acc, plain, fq.n_segments)
+    # the same launch twice gives the same bits (no float atomics)
+    again = query_reduce(red, whole_env)
+    assert torch.equal(again, query_reduce(red, whole_env))
+
+
+@pytest.mark.parametrize("case", ["floor-mod", "narrow-wrap", "promote-drop", "post-decode"])
+def test_query_kernel_expression_semantics(case, gpu):
+    from repro_torch.core.query import lower_query
+    from repro_torch.kernels.query_reduce import query_reduce
+
+    cols = semantics_columns()
+    plans = {k: make_plan("bitpack") for k in "AFS"}
+    plans["X"] = Plan("float2int", children={"ints": make_plan("bitpack")})
+    qp = SEMANTICS[case]
+    fq = lower_query(qp, {c: encode(plans[c], cols[c]) for c in qp.columns()})
+    red = fq.graph.stages[-1]
+    env = _query_env(fq, gpu)
+    _assert_query_lanes(query_reduce(red, env), ref.query_reduce_torch(red, env),
+                        fq.n_segments)
+
+
+def test_query_kernel_rle_runs_and_compare_masks(gpu):
+    """The per-run RLE graph (a weight role) and a compressed-domain range on
+    32-bit fields whose int32 ``v + base`` wraps."""
+    from repro_torch.algos.rle import run_reduce_graph
+    from repro_torch.core.query import Bin, Col, Const, Pred, QueryPlan, lower_query
+    from repro_torch.kernels.query_reduce import query_reduce
+
+    rng = np.random.default_rng(3)
+    values = np.cumsum(rng.integers(1, 4, 40_000)).astype(np.int32)
+    arr = np.repeat(values, rng.integers(1, 60, 40_000)).astype(np.int32)
+    enc = encode(Plan("rle", children={"counts": make_plan("bitpack"),
+                                       "values": make_plan("bitpack")}), arr)
+    g = run_reduce_graph(enc, Pred("root", ">=", int(np.quantile(values, 0.3))),
+                         [Bin("*", Col("root"), Const(2))], digest="t")
+    env = device_buffers(enc, gpu)
+    (red,) = g.stages
+    _assert_query_lanes(query_reduce(red, env), ref.query_reduce_torch(red, env), 1)
+    wide = np.concatenate([[-2**31 + 5, 2**31 - 3],
+                           rng.integers(-2**31, 2**31, 100_000)]).astype(np.int32)
+    qp = QueryPlan("wide", predicates=(Pred("W", "between", -5, 7 * 10**8),),
+                   aggregates=(("v", Col("V")),))
+    fq = lower_query(qp, {"W": encode(make_plan("bitpack"), wide),
+                          "V": encode(make_plan("bitpack"), wide % 1000)})
+    red = fq.graph.stages[-1]
+    env = _query_env(fq, gpu)
+    got = query_reduce(red, env)
+    _assert_query_lanes(got, ref.query_reduce_torch(red, env), 1)
+    assert got[-1].item() == float(((wide >= -5) & (wide <= 7 * 10**8)).sum())
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 4096])
+def test_query_pipeline_on_the_card(chunk_bytes, gpu):
+    """``ColumnPipeline.run_query`` on the card against the same pipeline on
+    the CPU: Q1 (resident L_RETURNFLAG through ``run``) and Q6, one kernel-4
+    launch per chunk."""
+    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN
+    from repro_torch.data.tpch import QUERY_COLUMNS
+    from repro_torch.kernels.query_reduce import KERNEL as QR
+
+    cols = generate(0.01, seed=0)
+    for qp, q in ((Q1_PLAN, 1), (Q6_PLAN, 6)):
+        names = QUERY_COLUMNS[q]
+        pipe = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device=gpu,
+                              chunk_bytes=chunk_bytes, chunk_decode=True)
+        pipe.compress({n: cols[n] for n in names})
+        host = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device="cpu",
+                              chunk_bytes=chunk_bytes, chunk_decode=True)
+        host.load({n: pipe.encoded(n) for n in names})
+        want = host.run_query(qp)
+        for _ in range(2):
+            before = QR.launches
+            qe = pipe.run_query(qp)
+            assert QR.launches - before == qe.n_chunks == want.n_chunks
+            _assert_query_lanes(qe.acc.cpu(), want.acc, qe.acc.numel()
+                                // (len(qp.aggregates) + 1))
+            assert qe.makespan_s > 0 and qe.decode_s > 0

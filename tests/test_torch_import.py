@@ -35,6 +35,9 @@ for name in names:
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("repro", "jax", "jaxlib"))
 assert not leaked, leaked
+for new in ("repro_torch.core.query", "repro_torch.data.queries",
+            "repro_torch.kernels.query_reduce"):
+    assert new in names, new
 print(len(names))
 """
 
@@ -106,7 +109,8 @@ def test_abi_structs_match_the_cuda_layout():
         for name, n in re.findall(r"static_assert\(\s*sizeof\((\w+)\)\s*==\s*(\d+)",
                                   f.read_text()):
             sizes[name] = int(n)
-    assert set(sizes) == {"ZfOp", "ZfChain", "ZfFpArgs", "ZfGpArgs", "ZfNpArgs"}
+    assert set(sizes) == {"ZfOp", "ZfChain", "ZfFpArgs", "ZfGpArgs", "ZfNpArgs",
+                          "ZfQRole", "ZfQPred", "ZfQInstr", "ZfQArgs"}
     assert {k: ctypes.sizeof(getattr(cuda, k)) for k in sizes} == sizes
 
 
