@@ -76,14 +76,18 @@ non-zero before the final line:
      decisions by mode, decode units and launches per run, the batched groups
      and their batched-entry launches, and the calibrated
      ``launch_overhead_s`` beside the host time per added decode unit;
-  6. the decode-fused queries (kernel 4, ``csrc/query_reduce.cu``): TPC-H Q1
-     and Q6 lowered onto their columns (``ColumnPipeline.lower_query``), each
-     run through ``run_query`` whole (one chunk, ``executor.run_query(...,
+  6. the decode-fused queries (kernel 4, generated per query by
+     ``kernels/query_codegen.py`` around ``csrc/query_gen.cuh``): TPC-H Q1
+     and Q6 lowered onto their columns (``ColumnPipeline.lower_query``, which
+     generates, builds and loads each query's kernel; ``build_s`` per query),
+     each run through ``run_query`` whole (one chunk, ``executor.run_query(...,
      chunk_bytes=None)``), chunked at 1 MiB (``ColumnPipeline(chunk_bytes=1 <<
      20)``) and in the loader's searched configuration
      (``ColumnPipeline(chunk_bytes=None)``), each cold + ``WARM_RUNS`` warm,
      with the counts zeroed just before the query runs and read just after
-     (Q1 also runs kernel 3 for its resident L_RETURNFLAG).  The count lane
+     (Q1 also runs kernel 3 for its resident L_RETURNFLAG): every kernel-4
+     launch of those runs is a generated kernel's, and the interpreted kernel
+     (``csrc/query_reduce.cu``, kept as the "before") launches 0 times.  The count lane
      must equal a numpy count over the source columns exactly, and the result
      the materialize-then-query torch engine on the card (the port's ``run`` of
      the query's columns, then ``data/queries.py``) within ``rtol`` 1e-4, the
@@ -92,9 +96,13 @@ non-zero before the final line:
      against its plain version: the count lane bitwise, the float lanes within
      1e-5 relative (each row's values are the same bits; only the order of the
      sums differs).  ``query`` lines give the fused makespan by CUDA events and
-     the host time, ``materialize_ms``, the kernel's whole-launch time, its
-     plain version's and ``bound_ms`` (``fusion.hbm_traffic_bytes`` at the HBM
-     rate), chunks, launches and selectivity;
+     the host time, ``materialize_ms``, the kernel's whole-launch time, the
+     interpreted kernel's on the same launch (``interpreted_ms``), its plain
+     version's, the bytes bound (``fusion.hbm_traffic_bytes`` at the HBM
+     rate), the operations bound (``query_codegen.ops_per_row`` times the
+     rows at 33.5 T operations/s, INT32 and FP32 alike: the kernel emits no
+     FMA) and ``bound_ms``, the larger,
+     chunks, launches and selectivity;
   7. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
      (kernel 4's object beside the three decode kernels'), the card's name and
      power limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
@@ -123,8 +131,9 @@ KERNELS = {
     "non_parallel": ("src/repro_torch/kernels/csrc/non_parallel.cu",
                      "src/repro/kernels/non_parallel.py:29"),
 }
-# kernel 4 replaces no TPU kernel: the reference's Reduce runs under XLA jit
-QUERY_KERNEL = ("query_reduce", "src/repro_torch/kernels/csrc/query_reduce.cu",
+# kernel 4 replaces no TPU kernel: the reference's Reduce runs under XLA jit;
+# it is generated per query (kernels/query_codegen.py) around this header
+QUERY_KERNEL = ("query_reduce", "src/repro_torch/kernels/csrc/query_gen.cuh",
                 "src/repro/core/compiler.py:204 (XLA, no pallas_call)")
 QUERY_RTOL = 1e-4          # fused vs materialize-then-query: sums in another order
 QUERY_KERNEL_RTOL = 1e-5   # kernel vs plain: the same row values, another sum order
@@ -141,6 +150,10 @@ WARM_RUNS = 5
 # (33.5 TOP/s, Hopper architecture white paper)
 NP_OPS_PER_SYMBOL = 12
 INT32_OPS_PER_S = 33.5e12
+# float operations outside the tensor cores: 67 TFLOP/s counts an FMA as two;
+# kernel 4 emits no FMA, so each add, multiply, compare or divide (one
+# operation by the query's definition) issues at the instruction rate
+FP32_OPS_PER_S = 33.5e12
 CHUNK_SIZES = (1 << 20, 4 << 20)  # chunk_bytes of the chunked paths
 # kernel 2's span columns: the reference's candidate plans of the key columns
 # (no Table-2 column reaches a Group-Parallel span at SF 1)
@@ -336,15 +349,14 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
     from repro_torch.data.loader import ColumnPipeline
     from repro_torch.data.queries import Q1_PLAN, Q6_PLAN, q1_engine, q6_engine
     from repro_torch.data.tpch import QUERY_COLUMNS
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
+    from repro_torch.kernels import query_codegen, ref
+    from repro_torch.kernels.query_reduce import (INTERPRETED as QI, KERNEL as QR,
+                                                  interpreted, program, query_reduce)
 
     plans = {1: Q1_PLAN, 6: Q6_PLAN}
     engines = {1: q1_engine, 6: q6_engine}
-    runs, checks, per_query = [], [], {}
+    runs, checks, per_query, lowered = [], [], {}, {}
     err = 0.0
-    for lib in libs + (QR,):
-        lib.launches = 0
 
     def drive(q, label, call):
         """Cold + WARM_RUNS warm runs of one configuration; each result checked."""
@@ -378,18 +390,28 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
                                   chunk_bytes=None)
         for p_ in (chunked, searched):
             p_.load({c: encoded[c] for c in names})
-        fq, encs = chunked.lower_query(qp)
+        t0 = time.perf_counter()
+        fq, encs = chunked.lower_query(qp)        # generates, builds and loads its kernel
+        lowered[q] = (time.perf_counter() - t0) * 1e3
+        searched.lower_query(qp)
         pipes[q] = (chunked, searched, fq, encs)
+    for lib in libs + (QR, QI):
+        lib.launches = 0
+    for q, (chunked, searched, fq, encs) in pipes.items():
+        qp = plans[q]
         runs.append(drive(q, "whole", lambda: chunked.executor.run_query(fq, encs,
                                                                           chunk_bytes=None)))
         runs.append(drive(q, "chunked 1MiB", lambda: chunked.run_query(qp)))
         runs.append(drive(q, "searched", lambda: searched.run_query(qp)))
-    launches = {lib.name: lib.launches for lib in libs + (QR,)}
+    launches = {lib.name: lib.launches for lib in libs + (QR, QI)}
     if QR.launches <= 0 or launches["non_parallel"] <= 0:
         raise AssertionError(f"the query path did not run kernels 3 and 4: {launches}")
     want = sum(r["launches"] for r in runs) * (WARM_RUNS + 1)
     if QR.launches != want:
-        raise AssertionError(f"kernel 4 made {QR.launches} launches, the runs {want}")
+        raise AssertionError(f"the generated kernels made {QR.launches} launches, the "
+                             f"runs {want}")
+    if QI.launches != 0:
+        raise AssertionError(f"the interpreted kernel ran {QI.launches} times on a path")
 
     # every kernel-4 launch of those runs, repeated on its chunk against the plain version
     compared, rel = 0, 0.0
@@ -456,15 +478,33 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
             env[fq.resident_input(c)] = torch.from_numpy(cols[c]).cuda()
         nbytes = hbm_traffic_bytes(fq.graph.stages, {**fq.operands, **{
             k: v for k, v in env.items() if k.endswith(".resident")}})
+        prog = program(red, env)
+        n_int, n_float = query_codegen.ops_per_row(prog)
+        bytes_ms = nbytes / (hbm * 1e9) * 1e3
+        ops_ms = max(n_int * red.n_in / INT32_OPS_PER_S, n_float * red.n_in / FP32_OPS_PER_S) * 1e3
+        plain = ref.query_reduce_torch(red, env)
+        old = interpreted(red, env)
+        if not torch.equal(old[-fq.n_segments:], plain[-fq.n_segments:]):
+            raise AssertionError(f"q{q}: the interpreted kernel's count lane "
+                                 f"{old[-fq.n_segments:].tolist()} != plain")
         per_query[f"q{q}"] = {
             "ms": timer.ms(lambda: query_reduce(red, env)),
+            "interpreted_ms": timer.ms(lambda: interpreted(red, env)),
             "plain_ms": timer.ms(lambda: ref.query_reduce_torch(red, env), 3),
-            "bound_ms": nbytes / (hbm * 1e9) * 1e3, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations", "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bytes": nbytes, "rows": red.n_in, "int_ops_per_row": n_int,
+            "float_ops_per_row": n_float, "build_s": prog.build_s,
+            "lower_query_ms": lowered[q], "digest": prog.lib.digest,
             "launches_per_query": {r["config"]: r["launches"] for r in runs
                                    if r["query"] == f"q{q}"}}
+        for line in prog.lib.path().with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas query_gen q{q}: {line.strip()}")
     for r in runs:
         k = per_query[r["query"]]
-        r.update(kernel_ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"])
+        r.update(kernel_ms=k["ms"], interpreted_ms=k["interpreted_ms"],
+                 plain_ms=k["plain_ms"], bound_ms=k["bound_ms"])
         print(f"query {r['query']} {r['config']} " + " ".join(
             f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
             for key, v in r.items() if key not in ("query", "config")))
@@ -473,10 +513,15 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
           f"main-path launches {launches}")
     big = per_query["q1"]
     kernel = {"name": QUERY_KERNEL[0], "route": "cuda", "source": QUERY_KERNEL[1],
-              "replaces": QUERY_KERNEL[2], "launches": launches["query_reduce"],
+              "replaces": QUERY_KERNEL[2], "launches": launches[QR.name],
               "max_abs_err": err, "max_rel_err": rel,
               "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-              "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+              "bound_by": big["bound_by"], "library_ms": None, "matches_plain": True,
+              "design": "generated per query", "generator": "src/repro_torch/kernels/"
+              "query_codegen.py", "interpreted_ms": big["interpreted_ms"],
+              "ops_bound_ms": big["ops_bound_ms"], "bytes_bound_ms": big["bytes_bound_ms"],
+              "build_s": {k: v["build_s"] for k, v in per_query.items()},
+              "interpreted_launches": launches[QI.name],
               "at": "q1 whole (one launch over every row)", "compared": compared,
               "per_query": per_query,
               "materialize_ms": {r["query"]: r["materialize_ms"] for r in runs
@@ -520,10 +565,10 @@ def main() -> int:
     from repro_torch.kernels.non_parallel import (KERNEL as NP, decode_table, non_parallel,
                                                   non_parallel_batched)
     from repro_torch.kernels.ops import run_stage
-    from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
+    from repro_torch.kernels.query_reduce import INTERPRETED as QI
 
     columns = tuple(TABLE2_PLANS)
-    libs = (FP, GP, NP)         # the decode kernels; kernel 4 (QR) runs in phase 6
+    libs = (FP, GP, NP)         # the decode kernels; kernel 4 is built per query in phase 6
 
     name = torch.cuda.get_device_name(0)
     spec = chip_from_device(0)
@@ -534,16 +579,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    cuda.build(libs + (QR,))
-    for lib in libs + (QR,):
+    cuda.build(libs + (QI,))    # QI: kernel 4's interpreted "before", timed in phase 6
+    for lib in libs + (QI,):
         lib.load(torch.device("cuda", 0))    # every kernel loaded on the card now
-    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs + (QR,)
+    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs + (QI,)
                      if lib.build_s is not None)
     print(f"build: {time.perf_counter() - t0:.2f} s ({built or 'cached'}) -> "
           f"{FP.path().parent}")
     print("preload: " + " ".join(f"{lib.name}_ms {lib.preload_s[0] * 1e3:.4f}"
-                                 for lib in libs + (QR,)))
-    for lib in libs + (QR,):
+                                 for lib in libs + (QI,)))
+    for lib in libs + (QI,):
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where kernels 1, 2 and 3 spend their time: variants timed on one card.
+"""Where kernels 1-4 spend their time: variants timed on one card.
 
     python3 scripts/kernel_variants.py [--scale S] [--out FILE.json]
                                        [--baseline CSRC_DIR]
+                                       [--kernels decode,query]
 
 Builds, from ``src/repro_torch/kernels/csrc``, the three kernels as committed
 and variants with one part taken out or forced, and times each on SF-``S``
@@ -25,6 +26,21 @@ main-path stages that run them:
             ``deltastride-expand`` and ``rle-expand``: ``committed`` at L = 1,
             2, 4 and 8 sub-tiles per block; ``search`` (the block's group search
             only); ``search+stage`` (and the window staged, no outputs)
+  kernel 4  on TPC-H Q6 and Q1, one launch over every row (the resident
+            L_RETURNFLAG of Q1 taken from its source column): ``committed`` (the query's
+            generated kernel, R = 4 rows a thread, each row's two words of a
+            bit-packed field loaded through L1);
+            ``interpreted`` (the interpreter this kernel replaced,
+            ``csrc/query_reduce.cu``); ``decode-only`` (every role and mask
+            evaluated, the count kept, no lane accumulated); ``no-divide``
+            (I2F_DIV multiplies by its scale); ``R=1``, ``R=2`` and ``R=8``
+            rows a thread.  Variants are text substitutions of the generated
+            source (R: of ``csrc/query_gen.cuh``, inlined into it), each its
+            own build; the committed kernel's SASS (``cuobjdump``) is
+            summarised by opcode.  Also the host
+            time of one wrapper call, generated against interpreted (the
+            latter packs the program's chains per launch), and every
+            variant's time by ``torch.profiler`` in one session.
 
 With ``--baseline CSRC_DIR`` (the ``csrc`` directory of another tree, e.g. the
 parent commit unpacked beside this one) that tree's three kernels are built as
@@ -36,7 +52,10 @@ of today's (fields are only ever appended) loads as it is: kernel 2's span
 fields ``out_start`` and ``g_start`` are zero on a whole column.
 
 The committed kernels (and the baseline) must equal the plain versions
-bitwise; the variants compute something else and are only timed.  Times: CUDA
+bitwise (kernel 4 and its variants that compute the query: the count lane
+bitwise, the float lanes within 1e-5); the other variants compute something
+else and are only timed.  ``--kernels`` picks the decode kernels 1-3
+(``decode``), kernel 4 (``query``) or both (the default).  Times: CUDA
 events, L2 flushed, median of 10, the runs interleaved (each variant once in
 order, then in reverse).  Needs one NVIDIA GPU and nvcc; imports nothing of
 JAX.
@@ -46,6 +65,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -97,12 +117,180 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--baseline", type=Path, default=None,
                     help="csrc directory whose kernels are timed as 'baseline'")
+    ap.add_argument("--kernels", default="decode,query",
+                    help="decode (kernels 1-3), query (kernel 4), or both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    which = set(args.kernels.split(","))
+    rows = query_variants(args.scale) if "query" in which else []
+    if "decode" in which:
+        rows += decode_variants(args)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip()
+    print(smi)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
+    return 0
+
+
+# kernel 4: text substitutions of the generated source
+QUERY_VARIANTS = ("committed", "decode-only", "no-divide", "R=1", "R=2", "R=8")
+QUERY_EXACT = ("committed", "R=1", "R=2", "R=8")   # the variants that compute the query
+QUERY_RTOL = 1e-5
+
+
+def _sub(src: str, old: str, new: str, what: str) -> str:
+    if old not in src:
+        raise RuntimeError(f"{what}: the source no longer holds {old!r}")
+    return src.replace(old, new)
+
+
+def query_variant(src: str, v: str) -> str:
+    """Variant ``v`` of a generated kernel's source."""
+
+    from repro_torch.kernels import cuda
+
+    if v == "committed":
+        return src
+    if v == "no-divide":
+        return _sub(src, "__fdiv_rn(", "__fmul_rn(", v)
+    if v == "decode-only":
+        # no lane: every role's word folded into one test the compiler cannot
+        # drop, so each role is still evaluated, and the count kept
+        words = re.findall(r"const uint32_t (w\d+) = ", src)
+        add = re.search(r"  acc\.add\(seg, w(?:, r\d+)*\);", src).group(0)
+        src = re.sub(r"kLanes = \d+;", "kLanes = 0;", src)
+        return _sub(src, add, f"  if (({' ^ '.join(words)}) == 0x9e3779b9u) w = __fadd_rn(w, 1.f);"
+                    "\n    acc.add(seg, w);", v)
+    rows = int(v.removeprefix("R="))
+    header = (cuda.CSRC / "query_gen.cuh").read_text()
+    header = _sub(header, "#pragma once\n", "", v)
+    header = _sub(header, "#define ZF_QG_ROWS 4 ", f"#define ZF_QG_ROWS {rows} ", v)
+    return _sub(src, '#include "query_gen.cuh"', header, v)
+
+
+def sass_summary(so: Path) -> str:
+    """Instructions of a library's kernels in SASS (``cuobjdump``), in all and
+    the most frequent opcodes: what a row costs, read without a profiler."""
+    import collections
+    import shutil
+
+    from repro_torch.kernels import cuda
+
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        tool = Path(shutil.which("cuobjdump") or "")
+    if not tool.is_file():
+        return "cuobjdump not found"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          timeout=120).stdout
+    ops = collections.Counter(m.split(".")[0] for m in re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", sass))
+    return f"{sum(ops.values())} instructions; " + " ".join(
+        f"{k} {v}" for k, v in ops.most_common(16))
+
+
+def query_variants(scale: float) -> list[dict]:
+    """Kernel 4's variants on Q6 and Q1 (see the module docstring)."""
+    import time
+
+    from chip_smoke import Timer, profiled_ms
+    from repro_torch.core.compiler import device_layout
+    from repro_torch.core.query import lower_query
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN
+    from repro_torch.data.tpch import QUERY_COLUMNS, generate
+    from repro_torch.core.plan import encode
+    from repro_torch.kernels import cuda, query_codegen, ref
+    from repro_torch.kernels import query_reduce as qr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    names = sorted(set(QUERY_COLUMNS[1]) | set(QUERY_COLUMNS[6]))
+    data = generate(scale, seed=0)
+    encs = {c: encode(TABLE2_PLANS[c], data[c]) for c in names}
+    cases = []
+    for q, qp in ((6, Q6_PLAN), (1, Q1_PLAN)):
+        fq = lower_query(qp, {c: encs[c] for c in QUERY_COLUMNS[q]})
+        red = fq.graph.stages[-1]
+        env = {k: torch.from_numpy(device_layout(v)).to(dev) for k, v in fq.operands.items()}
+        for c in fq.resident:
+            env[fq.resident_input(c)] = torch.from_numpy(data[c]).to(dev)
+        prog = qr.program(red, {k: v.cpu() for k, v in env.items()})   # nothing built yet
+        libs = {}
+        for v in QUERY_VARIANTS:
+            libs[v] = qr.library(query_variant(prog.source, v))
+        if libs["committed"].source != prog.source:
+            raise RuntimeError("the committed variant is not the program's kernel")
+        cases.append((q, fq, red, env, prog, libs))
+    t0 = time.perf_counter()
+    cuda.build([lib for *_, libs in cases for lib in libs.values()] + [qr.INTERPRETED])
+    print(f"kernel 4 builds: {time.perf_counter() - t0:.1f} s for "
+          f"{sum(len(c[-1]) for c in cases)} generated kernels and the interpreted one")
+    timer = Timer()
+    rows, profiled = [], []
+    for q, fq, red, env, prog, libs in cases:
+        plain = ref.query_reduce_torch(red, env)
+        S = fq.n_segments
+
+        def call(v, red=red, env=env, prog=prog, libs=libs):
+            if v == "interpreted":
+                return qr.interpreted(red, env)
+            out = torch.empty(red.n_out, dtype=torch.float32, device=dev)
+            libs[v].load(dev)
+            args, scratch = qr._generated_args(prog, env, dev, red.n_in, 0, out, False,
+                                               libs[v].max_blocks[dev.index])
+            libs[v].launch(args, qr.THREADS, dev)
+            return out
+
+        order = list(QUERY_VARIANTS) + ["interpreted"]
+        for v in order:
+            got = call(v)
+            if v in QUERY_EXACT + ("interpreted",) and not torch.equal(got[-S:], plain[-S:]):
+                raise AssertionError(f"q{q} {v}: count lane {got[-S:].tolist()} != plain "
+                                     f"{plain[-S:].tolist()}")
+            if v in QUERY_EXACT and not torch.allclose(got, plain, rtol=QUERY_RTOL, atol=0):
+                raise AssertionError(f"q{q} {v}: {got.tolist()} vs plain {plain.tolist()}")
+        times = {}
+        for v in order + order[::-1]:
+            times.setdefault(v, []).append(timer.ms(lambda: call(v)))
+        host = {}
+        for v, fn in (("committed", lambda: qr.query_reduce(red, env)),
+                      ("interpreted", lambda: qr.interpreted(red, env))):
+            ts = []
+            for _ in range(50):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            host[f"host_ms {v}"] = float(np.median(ts))
+        n_int, n_float = query_codegen.ops_per_row(prog)
+        for v, lib in libs.items():
+            regs = re.findall(r"Used (\d+) registers", lib.path().with_suffix(".log").read_text())
+            print(f"q{q} {v}: {regs} registers, grid {lib.max_blocks[dev.index]} blocks")
+        print(f"q{q} committed sass: {sass_summary(libs['committed'].path())}")
+        rows.append({"kernel": "query_reduce", "query": f"q{q}", "n": red.n_in,
+                     "int_ops_per_row": n_int, "float_ops_per_row": n_float,
+                     **{v: float(np.median(ts)) for v, ts in times.items()}, **host})
+        for v in order:
+            profiled.append((rows[-1], v, lambda v=v, call=call: call(v)))
+    names_ = {v: "zf_query_reduce_kernel" if v == "interpreted" else "zf_qg_kernel"
+              for v in list(QUERY_VARIANTS) + ["interpreted"]}
+    for (row, v, _), t_ms in zip(profiled, profiled_ms([(fn, names_[v]) for _, v, fn in profiled],
+                                                       timer.flush)):
+        row[f"profiler {v}"] = t_ms
+    for row in rows:
+        print(json.dumps(row))
+    return rows
+
+
+def decode_variants(args) -> list[dict]:
+    """Kernels 1-3's variants (see the module docstring)."""
     from chip_smoke import Timer, profiled_ms
     from repro_torch.core.compiler import device_buffers
     from repro_torch.core.geometry import Geometry
@@ -249,14 +437,7 @@ def main() -> int:
             print(f"{kname}: {len(theirs)} launches, events_ms committed "
                   f"{sum(r['committed'] for r in theirs):.4f} baseline "
                   f"{sum(r['baseline'] for r in theirs):.4f}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
-    print(smi)
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

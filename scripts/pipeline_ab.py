@@ -3,6 +3,7 @@
 
     python3 scripts/pipeline_ab.py --baseline TREE [--pairs N] [--scale S]
                                    [--warm-runs N] [--chunk-kib N] [--chunk-decode]
+                                   [--query Q]
 
 Each run is a fresh process that imports one tree's ``repro_torch`` (this
 checkout, or ``TREE``: another checkout, e.g. the parent commit unpacked beside
@@ -16,7 +17,9 @@ source.  It prints the median warm makespan (CUDA events) and host time of
 Without ``--chunk-kib`` (or with 0) the pipeline gets no chunk arguments, so a
 tree from before chunked streaming runs the same whole-column path; a tree with
 the planner gets ``policy="fifo"``, ``batch_columns=False`` (and
-``chunk_bytes=None`` unless ``--chunk-kib`` is given), its FIFO path.
+``chunk_bytes=None`` unless ``--chunk-kib`` is given), its FIFO path.  With
+``--query Q`` only the columns TPC-H query Q reads are compressed and run
+(``data.tpch.QUERY_COLUMNS``; the decode that materialize-then-query pays).
 """
 from __future__ import annotations
 
@@ -41,13 +44,17 @@ def worker(args) -> None:
     from repro_torch.data.tpch import generate
 
     cols = {k: v for k, v in generate(args.scale, seed=0).items() if k in TABLE2_PLANS}
+    if args.query:
+        from repro_torch.data.tpch import QUERY_COLUMNS
+        cols = {k: cols[k] for k in QUERY_COLUMNS[args.query]}
     chunking = ({"chunk_bytes": args.chunk_kib << 10, "chunk_decode": args.chunk_decode}
                 if args.chunk_kib else {})
     if "policy" in inspect.signature(ColumnPipeline).parameters:
         # a tree with the planner: its FIFO path without batching, as before it
         chunking = {"chunk_bytes": None, **chunking, "policy": "fifo",
                     "batch_columns": False}
-    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", **chunking)
+    pipe = ColumnPipeline({k: p for k, p in TABLE2_PLANS.items() if k in cols}, device="cuda",
+                          **chunking)
     pipe.compress(cols)
     makespans, host_ms = [], []
     for _ in range(1 + args.warm_runs):
@@ -73,6 +80,7 @@ def main() -> int:
     ap.add_argument("--warm-runs", type=int, default=10)
     ap.add_argument("--chunk-kib", type=int, default=0)
     ap.add_argument("--chunk-decode", action="store_true")
+    ap.add_argument("--query", type=int, default=0, help="only TPC-H query Q's columns")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -82,7 +90,7 @@ def main() -> int:
         ap.error("--baseline is required")
     trees = {"baseline": args.baseline.resolve(), "change": ROOT}
     flags = [f"--scale={args.scale}", f"--warm-runs={args.warm_runs}",
-             f"--chunk-kib={args.chunk_kib}"] + (["--chunk-decode"] * args.chunk_decode)
+             f"--chunk-kib={args.chunk_kib}", f"--query={args.query}"] + (["--chunk-decode"] * args.chunk_decode)
     got: dict[str, list[dict]] = {"baseline": [], "change": []}
     for i in range(args.pairs):
         for side in (("baseline", "change") if i % 2 == 0 else ("change", "baseline")):

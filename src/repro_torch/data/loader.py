@@ -121,7 +121,9 @@ class ColumnPipeline:
         """Graft a ``core.query.QueryPlan`` onto the registered columns' decode
         graphs: ``(FusedQuery, encs)``, the blobs those ``compress`` built.
         Memoised by query digest (``compress``/``load`` invalidate), so warm
-        ``run_query`` calls measure execution, not lowering."""
+        ``run_query`` calls measure execution, not lowering.  On a card the
+        query's kernel is generated, built (``nvcc``, ~3 s the first time a
+        program is met; ``build/`` keeps it) and loaded here."""
         key = qplan.digest()
         hit = self._queries.get(key)
         if hit is None:
@@ -129,6 +131,7 @@ class ColumnPipeline:
 
             encs = {c: self._encoded[c] for c in qplan.columns()}
             hit = (lower_query(qplan, encs), encs)
+            self.executor.prepare_query(hit[0])
             self._queries[key] = hit
         return hit
 

@@ -19,6 +19,8 @@ library also has a batched entry (``<entry>_batched``) that decodes up to
 loading.  Operands
 reach the kernels at their own width (8-, 16- or 32-bit elements); each op
 carries its buffer's element code, and each launch its output's width.
+Kernel 4's sources are generated per query (``query_reduce.py``,
+``query_codegen.py``) and built by the same ``build``, each under its digest.
 """
 from __future__ import annotations
 
@@ -122,6 +124,22 @@ class ZfQArgs(ctypes.Structure):
                 ("counter", ctypes.c_void_p)]
 
 
+# kernel 4 generated per query (csrc/query_gen.cuh): only what changes per
+# launch, every role op's buffers in role order; the program is compiled in
+QG_MAX_BUFS = QR_MAX_ROLES * (3 + QR_MAX_ROLE_OPS - 1)   # a source's 3, a transform's 1
+
+
+class ZfQgBuf(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p), ("n", ctypes.c_int64)]
+
+
+class ZfQgArgs(ctypes.Structure):
+    _fields_ = [("bufs", ZfQgBuf * QG_MAX_BUFS), ("n", ctypes.c_int64),
+                ("out_start", ctypes.c_int64), ("out", ctypes.c_void_p),
+                ("partials", ctypes.c_void_p), ("counter", ctypes.c_void_p),
+                ("accumulate", ctypes.c_int32), ("n_blocks", ctypes.c_int32)]
+
+
 def build_root() -> Path:
     env = os.environ.get("REPRO_TORCH_BUILD_DIR")
     if env:
@@ -174,6 +192,10 @@ class KernelLib:
         self._lib: ctypes.CDLL | None = None
         self._preload = False                # the library exports zf_preload
         self._batched = None                 # the batched entry, bound at first use
+
+    @property
+    def loaded(self) -> bool:
+        return self._lib is not None
 
     def path(self) -> Path:
         return build_root() / _source_hash() / f"lib{self.name}.so"
@@ -323,6 +345,30 @@ def out_width(t: torch.Tensor) -> int:
     return t.element_size()
 
 
+def check_op_types(op, env: dict[str, torch.Tensor]) -> None:
+    """What an op's buffers must be for the kernels (kernel 4's generated ones
+    included) to read them: their element types, and a ``RANGE``'s bounds."""
+    for b in op.bufs:
+        if env[b].dtype not in _ELEM_CODES:
+            raise ValueError(f"{op} input {b!r} has dtype {env[b].dtype}; the kernels take "
+                             f"8-, 16- and 32-bit elements")
+    if op.kind in (UNPACK, UNPACK_RAW):
+        if _ELEM_CODES[env[op.bufs[0]].dtype] != 4:
+            raise ValueError(f"{op}: packed words must be 32-bit")
+        if any(env[b].dtype != torch.int32 for b in op.bufs[1:]):
+            raise ValueError(f"{op}: bit width and base operands must be int32")
+    if op.kind == RANGE:
+        if env[op.bufs[0]].dtype != torch.int32:
+            raise ValueError(f"{op}: the base operand must be int32")
+        for x in op.arg:
+            if x is not None and not -2**62 <= x < 2**62:
+                raise ValueError(f"{op}: bound {x} outside the 64-bit compare")
+    if op.kind == I2F_DIV and env[op.bufs[0]].dtype != torch.float32:
+        raise ValueError(f"{op}: the scale must be float32")
+    if op.kind == BYTES and (env[op.bufs[0]].dtype != torch.uint8 or op.imm < 1):
+        raise ValueError(f"{op}: reads a uint8 buffer, item size >= 1")
+
+
 def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
                extent: int = 0, query_ops: bool = False) -> ZfChain:
     """The C struct of an op chain, with each op's buffers resolved in ``env``.
@@ -342,17 +388,7 @@ def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
         if op.kind in (LOAD, BYTES) and env[op.bufs[0]].numel() < reads:
             raise ValueError(f"{op}: buffer holds {env[op.bufs[0]].numel()} "
                              f"elements, the chain reads {reads}")
-        if op.kind in (UNPACK, UNPACK_RAW):
-            if _ELEM_CODES[env[op.bufs[0]].dtype] != 4:
-                raise ValueError(f"{op}: packed words must be 32-bit")
-            if any(env[b].dtype != torch.int32 for b in op.bufs[1:]):
-                raise ValueError(f"{op}: bit width and base operands must be int32")
-        if op.kind == RANGE and env[op.bufs[0]].dtype != torch.int32:
-            raise ValueError(f"{op}: the base operand must be int32")
-        if op.kind == I2F_DIV and env[op.bufs[0]].dtype != torch.float32:
-            raise ValueError(f"{op}: the scale must be float32")
-        if op.kind == BYTES and (env[op.bufs[0]].dtype != torch.uint8 or op.imm < 1):
-            raise ValueError(f"{op}: reads a uint8 buffer, item size >= 1")
+        check_op_types(op, env)
         ptrs += [None] * (3 - len(ptrs))
         buf = env[op.bufs[0]] if op.bufs else None
         out.ops[k] = ZfOp(kind=_OP_CODES[op.kind], imm=op.imm,
@@ -362,9 +398,6 @@ def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
         if op.kind == RANGE:
             # the bounds: n = lo, b = hi (64-bit integers), imm bits = present
             lo, hi = op.arg
-            for x in (lo, hi):
-                if x is not None and not -2**62 <= x < 2**62:
-                    raise ValueError(f"{op}: bound {x} outside the 64-bit compare")
             out.ops[k].n = 0 if lo is None else lo
             out.ops[k].b = None if hi is None else hi & (2**64 - 1)
             out.ops[k].imm = (lo is not None) | (hi is not None) << 1

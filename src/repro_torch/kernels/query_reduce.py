@@ -2,37 +2,107 @@
 
 No TPU kernel corresponds: the reference runs its terminal ``Reduce`` under XLA
 jit (``src/repro/core/compiler.py:204 compile_query_chunk_graph``), which fuses
-the decode chains into the reduction.  ``query_reduce`` launches the port's
-counterpart, ``csrc/query_reduce.cu``, over one chunk of items: every role's
-op chain, the masks and predicates, the lanes and the group key per item, and
-partial sums per block summed in a fixed order (what bounds it and how it is
-laid out is noted there).  The decoded columns never reach device memory.
+the decode chains into the reduction and emits straight-line code per query.
+``query_reduce`` launches the port's counterpart over one chunk of items: a
+kernel generated for the query (``kernels/query_codegen.py`` writes it,
+``csrc/query_gen.cuh`` holds its loop, loads and sums; what bounds it and
+how it is laid out is noted there).  Per item it evaluates every role's op
+chain, the masks and predicates, the lanes and the group key, and it sums
+per block in a fixed order.  The decoded columns never reach device memory.
 Its plain version is ``repro_torch.kernels.ref.query_reduce_torch``.
 
-The expressions (``core/query.py`` trees) become a small program the kernel
-interprets: one register per role (the role's value, in its type), then one
-per constant, cast and arithmetic node, with common subtrees shared.  Each
-node's type is the one torch gives the plain version (the expression
-evaluated on empty tensors of the roles' types), so the kernel converts and
-wraps where torch does.  A query that needs more roles, ops, predicates,
-instructions, registers or lanes than the argument struct holds raises.
+The expressions (``core/query.py`` trees) become a small register program:
+one register per role (the role's value, in its type), then one per
+constant, cast and arithmetic node, with common subtrees shared.  Each node's
+type is the one torch gives the plain version (the expression evaluated on
+empty tensors of the roles' types), so the kernel converts and wraps where
+torch does.  A query that needs more roles, ops, predicates, instructions,
+registers or lanes than the kernel takes raises.  ``program`` builds the
+program once per stage and buffer types and, when it first meets a CUDA
+device, builds its kernel with ``nvcc`` (into ``cuda.build_root()/<digest>/``,
+one build per distinct program) and loads it there, so ``lower_query`` on a
+card (``ColumnPipeline.lower_query``) compiles before any timed run.
+
+The interpreted kernel (``csrc/query_reduce.cu``, the program passed
+by value in ``ZfQArgs`` and interpreted per row) stays only as the "before"
+that ``scripts/kernel_variants.py``, ``chip_smoke.py`` (``interpreted_ms``)
+and one card test time or check (``interpreted``): no path launches it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 
 import numpy as np
 import torch
 
-from repro_torch.core.patterns import BYTES, MASK, ROW, TEST, WEIGHT, Reduce
+from repro_torch.core.patterns import BYTES, LOAD, MASK, ROW, TEST, WEIGHT, Reduce
 from repro_torch.core.query import Col
-from repro_torch.kernels import cuda, ref
+from repro_torch.kernels import cuda, query_codegen, ref
 from repro_torch.kernels.fully_parallel import check_out, stage_device
 
-KERNEL = cuda.KernelLib("query_reduce", "zf_query_reduce", cuda.ZfQArgs)
-THREADS = 128
-ROWS_PER_THREAD = 4       # items a thread takes at least, before the grid is capped
+THREADS = 128             # csrc/query_gen.cuh ZF_QG_THREADS
+ROWS_PER_THREAD = 4       # consecutive items a thread takes per tile (ZF_QG_ROWS)
 MAX_BLOCKS = 132 * 8      # 8 blocks on each of the H100's 132 SMs
+
+
+class _Launches:
+    """The generated kernels' launch count, every query's together: ``query_reduce``
+    adds one where it launches one, and nowhere else."""
+
+    name = "query_gen"
+
+    def __init__(self):
+        self.launches = 0
+
+
+KERNEL = _Launches()
+# the interpreted kernel, kept as the "before" (``interpreted``); no path launches it
+INTERPRETED = cuda.KernelLib("query_reduce", "zf_query_reduce", cuda.ZfQArgs)
+
+
+class _GeneratedLib(cuda.KernelLib):
+    """One generated kernel's library: ``cuda.build_root()/<digest>/`` holds its
+    source and its ``.so``."""
+
+    def __init__(self, digest: str, source: str):
+        super().__init__("query_gen", "zf_query_gen", cuda.ZfQgArgs)
+        self.digest, self.source = digest, source
+        self.max_blocks: dict[int, int] = {}   # per device: the blocks that run at once
+
+    def load(self, device: torch.device | None = None):
+        lib = super().load(device)
+        if device is not None and device.type == "cuda" and device.index not in self.max_blocks:
+            lib.zf_max_blocks.argtypes = [ctypes.c_int32]
+            lib.zf_max_blocks.restype = ctypes.c_int
+            blocks = lib.zf_max_blocks(device.index)
+            if blocks < 1:
+                raise RuntimeError(f"query_gen {self.digest}: no block fits an SM "
+                                   f"({lib.zf_error_string(-blocks).decode()})")
+            self.max_blocks[device.index] = blocks
+        return lib
+
+    def path(self):
+        return cuda.build_root() / self.digest / "libquery_gen.so"
+
+    def compile_cmd(self, out):
+        src = self.path().with_name("query_gen.cu")
+        tmp = src.with_name(f"query_gen.{os.getpid()}.cu")
+        tmp.write_text(self.source)
+        os.replace(tmp, src)
+        return [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC), "-o", str(out), str(src)]
+
+
+_LIBRARIES: dict[str, _GeneratedLib] = {}
+
+
+def library(source: str) -> _GeneratedLib:
+    """The library of a generated source, one per digest in a process."""
+    digest = query_codegen.digest(source)
+    if digest not in _LIBRARIES:
+        _LIBRARIES[digest] = _GeneratedLib(digest, source)
+    return _LIBRARIES[digest]
 
 _TYPES = {torch.float32: 0, torch.int32: 4, torch.uint8: 1, torch.bool: 1,
           torch.int8: -1, torch.uint16: 2, torch.int16: -2}
@@ -59,13 +129,23 @@ def _word(value, dt: torch.dtype) -> int:
 class _Program:
     """A Reduce's kernel-side description that does not change per chunk: per
     role (chain without its ``TEST``, kind, source and target types), the
-    predicates, the instructions, the lane and key registers."""
+    predicates, the instructions, the lane and key registers, the segments
+    and each buffer's element code; its generated kernel (``source``, ``lib``)
+    and the wall time of the ``nvcc`` this program started (``build_s``, None
+    when the build existed)."""
 
     def __init__(self, stage: Reduce, env: dict[str, torch.Tensor]):
         self.roles = []          # (chain, kind code, row?, src type, type)
         self.preds = []          # (reg, cmp, mode, value)
         self.instrs = []         # (op, type, dst, a, b, src, imm)
+        self.n_segments = stage.n_segments
+        self.lib: _GeneratedLib | None = None
+        self.build_s: float | None = None
         regs: dict[str, tuple[int, torch.dtype]] = {}
+        for role in stage.roles:
+            for op in role.chain:
+                cuda.check_op_types(op, env)
+        self.elems = {b: cuda._ELEM_CODES[env[b].dtype] for b in stage.inputs}
         for k, role in enumerate(stage.roles):
             chain, kind, dt = role.chain, _ROLE_KINDS.get(role.kind, 0), ref.torch_dtype(role.dtype)
             tests = [op for op in chain if op.kind == TEST]
@@ -104,17 +184,38 @@ class _Program:
                 f"{len(self.lanes)} lanes x {stage.n_segments} segments exceed the query "
                 f"kernel's {cuda.QR_MAX_ROLES}, {cuda.QR_MAX_PREDS}, {cuda.QR_MAX_INSTRS}, "
                 f"{cuda.QR_MAX_REGS}, {cuda.QR_MAX_LANES} and {cuda.QR_MAX_ACC} accumulators")
-        self.template = self._template(stage)
-
-    def _template(self, stage: Reduce) -> cuda.ZfQArgs:
-        """The argument struct's fields that every launch of this program shares."""
-        args = cuda.ZfQArgs(n_roles=len(self.roles), n_preds=len(self.preds),
-                            n_instrs=len(self.instrs), n_lanes=len(self.lanes),
-                            n_segments=stage.n_segments, key_reg=self.key)
-        for k, (chain, kind, row, src, dt) in enumerate(self.roles):
+        for chain, *_ in self.roles:
             if len(chain) > cuda.QR_MAX_ROLE_OPS:
                 raise ValueError(f"{stage.name}: a role chain of {len(chain)} ops exceeds "
                                  f"the query kernel's {cuda.QR_MAX_ROLE_OPS}")
+        # per buffer slot of the launch struct: its name, and for a LOAD or
+        # BYTES source the elements an item reads and whether at the global row
+        self.slots = []
+        for k, o, _, b in query_codegen.slots(self):
+            chain, _, row = self.roles[k][:3]
+            op = chain[o]
+            per = (op.imm if op.kind == BYTES else 1) if o == 0 and op.kind in (LOAD, BYTES) else 0
+            self.slots.append((b, per, row))
+
+    @functools.cached_property
+    def source(self) -> str:
+        """The CUDA source of this program's kernel."""
+        return query_codegen.generate(self)
+
+    def kernel(self, device: torch.device) -> cuda.KernelLib:
+        """This program's kernel, built at first use and loaded on ``device``."""
+        if self.lib is None or not self.lib.loaded:
+            build_programs([self])
+        self.lib.load(device)
+        return self.lib
+
+    def interpreted_template(self) -> cuda.ZfQArgs:
+        """The interpreted kernel's argument struct as far as every launch of
+        this program shares it (``_launch_args`` fills in the rest)."""
+        args = cuda.ZfQArgs(n_roles=len(self.roles), n_preds=len(self.preds),
+                            n_instrs=len(self.instrs), n_lanes=len(self.lanes),
+                            n_segments=self.n_segments, key_reg=self.key)
+        for k, (chain, kind, row, src, dt) in enumerate(self.roles):
             role = args.roles[k]
             role.n_ops, role.kind, role.row, role.src, role.type = len(chain), kind, row, src, dt
         for k, (reg, cmp, mode, value) in enumerate(self.preds):
@@ -170,28 +271,52 @@ class _Program:
 
 
 def program(stage: Reduce, env: dict[str, torch.Tensor]) -> _Program:
-    """The stage's compiled program, built once per stage and role types."""
-    sig = tuple(ref.chain_dtype(r.chain, env) for r in stage.roles)
+    """The stage's compiled program, built once per stage and buffer types.  On
+    a CUDA device its kernel is built (at its first use anywhere: ``nvcc`` into
+    ``cuda.build_root()/<digest>/``) and loaded there too."""
+    sig = tuple(env[b].dtype for b in stage.inputs)
     memo = stage.__dict__.setdefault("_kernel_programs", {})
     if sig not in memo:
         memo[sig] = _Program(stage, env)
-    return memo[sig]
+    prog = memo[sig]
+    device = stage_device(stage.inputs, env)
+    if device.type == "cuda":
+        prog.kernel(device)
+    return prog
 
 
-def n_blocks(n: int) -> int:
-    return max(1, min(-(-n // (THREADS * ROWS_PER_THREAD)), MAX_BLOCKS))
+def build_programs(progs) -> None:
+    """Build the kernels of ``progs`` that are not built yet in one ``cuda.build``
+    (one ``nvcc`` per source, all at once).  A program whose kernel this call
+    built records the build's wall time in ``build_s``; a failed build raises."""
+    fresh: dict[str, _Program] = {}
+    for p in progs:
+        if p.lib is None:
+            p.lib = library(p.source)
+        if not p.lib.path().is_file():
+            fresh.setdefault(p.lib.digest, p)
+    cuda.build([p.lib for p in fresh.values()])
+    for p in fresh.values():
+        p.build_s = p.lib.build_s
+
+
+def n_blocks(n: int, max_blocks: int = MAX_BLOCKS) -> int:
+    """The grid of a launch over n items: a tile of THREADS x ROWS_PER_THREAD
+    items a block, at most ``max_blocks`` (a generated kernel's: the blocks its
+    SMs hold at once, so no block waits for a second wave)."""
+    return max(1, min(-(-n // (THREADS * ROWS_PER_THREAD)), max_blocks))
 
 
 def _launch_args(stage: Reduce, env, device, n: int, out_start: int, out: torch.Tensor,
                  accumulate: bool):
-    """The argument struct and the scratch (block partials + the counter) it
-    points into: the program's template with this launch's pointers, length
-    and offsets."""
+    """The interpreted kernel's argument struct and the scratch (block partials +
+    the counter) it points into: the program's shared fields with this
+    launch's chains, pointers, length and offsets."""
     prog = program(stage, env)
     grid = n_blocks(n)
     n_acc = (len(prog.lanes) + 1) * stage.n_segments
     scratch = torch.empty(grid * n_acc + 1, dtype=torch.float32, device=device)
-    args = cuda.ZfQArgs.from_buffer_copy(prog.template)
+    args = prog.interpreted_template()
     args.accumulate, args.n_blocks, args.n, args.out_start = int(accumulate), grid, n, out_start
     args.out, args.partials = out.data_ptr(), scratch.data_ptr()
     args.counter = scratch.data_ptr() + 4 * grid * n_acc
@@ -203,17 +328,34 @@ def _launch_args(stage: Reduce, env, device, n: int, out_start: int, out: torch.
     return args, scratch
 
 
-def query_reduce(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None = None,
-                 out_start: int = 0, out: torch.Tensor | None = None,
-                 accumulate: bool = False) -> torch.Tensor:
-    """The partial aggregate of items ``[out_start, out_start + n)`` (default all
-    ``n_in``): the CUDA kernel on a CUDA device, the plain version on the CPU.
-    On CUDA it launches or raises.
+def _generated_args(prog: _Program, env, device, n: int, out_start: int,
+                    out: torch.Tensor, accumulate: bool, max_blocks: int = MAX_BLOCKS):
+    """A generated kernel's argument struct and the scratch (block partials + the
+    counter) it points into: each buffer slot's pointer and element count, and
+    the launch's own fields.  The program is compiled in, so nothing of it is
+    packed here."""
+    grid = n_blocks(n, max_blocks)
+    n_acc = (len(prog.lanes) + 1) * prog.n_segments
+    scratch = torch.empty(grid * n_acc + 1, dtype=torch.float32, device=device)
+    args = cuda.ZfQgArgs(n=n, out_start=out_start, accumulate=int(accumulate), n_blocks=grid,
+                         out=out.data_ptr(), partials=scratch.data_ptr(),
+                         counter=scratch.data_ptr() + 4 * grid * n_acc)
+    for s, (name, per, row) in enumerate(prog.slots):
+        t = env[name]
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the launch on {device}")
+        if not t.is_contiguous() or t.numel() == 0:
+            raise ValueError(f"{name} must be a non-empty contiguous tensor")
+        if per and t.numel() < per * (out_start + n if row else n):
+            raise ValueError(f"{name}: buffer holds {t.numel()} elements, the query reads "
+                             f"{per * (out_start + n if row else n)}")
+        args.bufs[s].p, args.bufs[s].n = t.data_ptr(), t.numel()
+    return args, scratch
 
-    A chunk passes its slices of the tiled leaves in ``env`` (read at local
-    indices; resident "row" columns whole, read at global ones).  ``out``, when
-    given, receives the ``n_out`` lanes, or has them added (``accumulate``: the
-    executor's running sum over chunks, in chunk order)."""
+
+def _prepare(stage: Reduce, env, n, out, accumulate):
+    """The launch's length, device and output after the wrapper's checks; the
+    device is None when the inputs lie on the CPU (the plain version's case)."""
     n = stage.n_in if n is None else int(n)
     if n < 1:
         raise ValueError(f"{stage.name}: a launch covers at least one item, not {n}")
@@ -223,18 +365,53 @@ def query_reduce(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None =
     elif accumulate:
         raise ValueError(f"{stage.name}: accumulate needs an out")
     if device.type == "cpu":
-        res = ref.query_reduce_torch(stage, env, n, out_start)
-        if out is None:
-            return res
-        return out.add_(res) if accumulate else out.copy_(res)
+        return n, None, out
     if device.type != "cuda":
         raise ValueError(f"no query kernel for device {device}")
     if out is None:
         out = torch.empty(stage.n_out, dtype=torch.float32, device=device)
     elif out.device != device:
         raise ValueError(f"{stage.name}: out is on {out.device}, the launch on {device}")
+    return n, device, out
+
+
+def query_reduce(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None = None,
+                 out_start: int = 0, out: torch.Tensor | None = None,
+                 accumulate: bool = False) -> torch.Tensor:
+    """The partial aggregate of items ``[out_start, out_start + n)`` (default all
+    ``n_in``): the query's generated CUDA kernel on a CUDA device, the plain
+    version on the CPU.  On CUDA it launches or raises (a failed build or
+    launch included); nothing falls back to another kernel or the plain version.
+
+    A chunk passes its slices of the tiled leaves in ``env`` (read at local
+    indices; resident "row" columns whole, read at global ones).  ``out``, when
+    given, receives the ``n_out`` lanes, or has them added (``accumulate``: the
+    executor's running sum over chunks, in chunk order)."""
+    n, device, out = _prepare(stage, env, n, out, accumulate)
+    if device is None:
+        res = ref.query_reduce_torch(stage, env, n, out_start)
+        if out is None:
+            return res
+        return out.add_(res) if accumulate else out.copy_(res)
+    prog = program(stage, env)
     # the scratch is freed on return: the caching allocator hands it out again
     # only to work queued after this launch on the same stream
+    args, _scratch = _generated_args(prog, env, device, n, out_start, out, accumulate,
+                                     max_blocks=prog.lib.max_blocks[device.index])
+    prog.lib.launch(args, THREADS, device)
+    KERNEL.launches += 1
+    return out
+
+
+def interpreted(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None = None,
+                out_start: int = 0, out: torch.Tensor | None = None,
+                accumulate: bool = False) -> torch.Tensor:
+    """``query_reduce`` on the interpreted kernel (``csrc/query_reduce.cu``), the
+    "before" that ``scripts/kernel_variants.py`` times beside the generated one.
+    CUDA tensors only."""
+    n, device, out = _prepare(stage, env, n, out, accumulate)
+    if device is None:
+        raise ValueError(f"{stage.name}: the interpreted kernel runs on a CUDA device only")
     args, _scratch = _launch_args(stage, env, device, n, out_start, out, accumulate)
-    KERNEL.launch(args, THREADS, device)
+    INTERPRETED.launch(args, THREADS, device)
     return out

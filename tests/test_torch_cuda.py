@@ -6,6 +6,7 @@ machine with a card (no JAX needed there):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import functools
 import itertools
 
 import numpy as np
@@ -768,8 +769,25 @@ def test_planned_pipeline_on_the_card(gpu):
 # bitwise equal to the plain version's; the float lanes agree within 1e-5
 # relative: every row's values are the same bits (the kernel's _rn
 # intrinsics), and the kernel's block-tree sums and the plain version's
-# torch.sum differ only in the order of the additions.
+# torch.sum differ only in the order of the additions.  Each query has its own
+# generated kernel; the module's are built at once (``query_kernels``).
 QUERY_RTOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _tpch(scale: float) -> dict:
+    return generate(scale, seed=0)
+
+
+def _tpch_query(q: int, scale: float):
+    """TPC-H Q1 or Q6 lowered onto SF-``scale`` columns: (FusedQuery, columns)."""
+    from repro_torch.core.query import lower_query
+    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    cols = _tpch(scale)
+    encs = {n: encode(TABLE2_PLANS[n], cols[n]) for n in QUERY_COLUMNS[q]}
+    return lower_query({1: Q1_PLAN, 6: Q6_PLAN}[q], encs), cols
 
 
 # small queries on the expression semantics the kernel program must keep
@@ -810,6 +828,94 @@ SEMANTICS = {
 }
 
 
+def _semantics_query(case: str):
+    from repro_torch.core.query import lower_query
+
+    cols = semantics_columns()
+    plans = {k: make_plan("bitpack") for k in "AFS"}
+    plans["X"] = Plan("float2int", children={"ints": make_plan("bitpack")})
+    qp = SEMANTICS[case]
+    return lower_query(qp, {c: encode(plans[c], cols[c]) for c in qp.columns()})
+
+
+def _rle_case():
+    """A per-run RLE graph (a weight role) and a compressed-domain range on
+    32-bit fields whose int32 ``v + base`` wraps: (graph, blob, wide query,
+    wide column)."""
+    from repro_torch.algos.rle import run_reduce_graph
+    from repro_torch.core.query import lower_query
+
+    rng = np.random.default_rng(3)
+    values = np.cumsum(rng.integers(1, 4, 40_000)).astype(np.int32)
+    arr = np.repeat(values, rng.integers(1, 60, 40_000)).astype(np.int32)
+    enc = encode(Plan("rle", children={"counts": make_plan("bitpack"),
+                                       "values": make_plan("bitpack")}), arr)
+    g = run_reduce_graph(enc, Pred("root", ">=", int(np.quantile(values, 0.3))),
+                         [Bin("*", Col("root"), Const(2))], digest="t")
+    wide = np.concatenate([[-2**31 + 5, 2**31 - 3],
+                           rng.integers(-2**31, 2**31, 100_000)]).astype(np.int32)
+    qp = QueryPlan("wide", predicates=(Pred("W", "between", -5, 7 * 10**8),),
+                   aggregates=(("v", Col("V")),))
+    fq = lower_query(qp, {"W": encode(make_plan("bitpack"), wide),
+                          "V": encode(make_plan("bitpack"), wide % 1000)})
+    return g, enc, fq, wide
+
+
+def _fma_case():
+    """A lane ``x * y + z`` whose first row an FMA would round differently:
+    (FusedQuery, the unfused float32 value of row 0, the fused one)."""
+    from repro_torch.core.query import lower_query
+
+    rng = np.random.default_rng(11)
+    x, y, z = ((rng.integers(-10**6, 10**6, 4096) / 100.0).astype(np.float32)
+               for _ in range(3))
+    unfused = (x * y) + z                                    # float32, rounded twice
+    fused = (x.astype(np.float64) * y + z).astype(np.float32)
+    k = int(np.flatnonzero(unfused != fused)[0])
+    cols = {c: np.roll(v, -k) for c, v in zip("XYZ", (x, y, z))}
+    plan = Plan("float2int", children={"ints": make_plan("bitpack")})
+    qp = QueryPlan("fma", aggregates=(("f", Bin("+", Bin("*", Col("X"), Col("Y")),
+                                                  Col("Z"))),))
+    fq = lower_query(qp, {c: encode(plan, v) for c, v in cols.items()})
+    return fq, unfused[k], fused[k]
+
+
+def _query_stages():
+    """Every Reduce this module launches kernel 4 on, with its inputs on the CPU."""
+    from repro_torch.core.compiler import device_layout
+
+    def host_env(fq, resident=None):
+        env = {k: torch.from_numpy(device_layout(v)) for k, v in fq.operands.items()}
+        for c, arr in (resident or {}).items():
+            env[fq.resident_input(c)] = torch.from_numpy(arr)
+        return fq.graph.stages[-1], env
+
+    for q, scale in itertools.product((1, 6), (0.05, 0.01)):
+        fq, cols = _tpch_query(q, scale)
+        yield host_env(fq, {c: cols[c] for c in fq.resident})
+    for case in SEMANTICS:
+        yield host_env(_semantics_query(case))
+    g, enc, fq, _ = _rle_case()
+    yield g.stages[0], {k: torch.from_numpy(device_layout(v))
+                        for k, v in host_operands(enc).items()}
+    yield host_env(fq)
+    yield host_env(_fma_case()[0])
+
+
+@pytest.fixture(scope="module")
+def query_kernels():
+    """Build every generated kernel of this module, and the interpreted kernel,
+    in one ``cuda.build`` (one nvcc per source, all at once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.query_reduce import INTERPRETED, library, program
+
+    progs = [program(red, env) for red, env in _query_stages()]   # CPU inputs: nothing built
+    cuda.build([library(p.source) for p in progs] + [INTERPRETED])
+    return progs
+
+
 def _query_env(fq, gpu, resident=None):
     from repro_torch.core.compiler import device_layout
 
@@ -824,20 +930,16 @@ def _assert_query_lanes(got, plain, n_segments):
     torch.testing.assert_close(got, plain, rtol=QUERY_RTOL, atol=0)
 
 
+@pytest.mark.usefixtures("query_kernels")
 @pytest.mark.parametrize("q", [1, 6])
 @pytest.mark.parametrize("chunks", [1, 3])
 def test_query_kernel_matches_plain(q, chunks, gpu):
     """Q1 (resident L_RETURNFLAG, a 5-lane x 8-segment accumulator) and Q6 on
     the query kernel, whole and in chunks added into one accumulator."""
     from repro_torch.core.executor import StreamingExecutor
-    from repro_torch.core.query import lower_query
-    from repro_torch.data.queries import Q1_PLAN, Q6_PLAN
-    from repro_torch.data.tpch import QUERY_COLUMNS
     from repro_torch.kernels.query_reduce import KERNEL as QR, query_reduce
 
-    cols = generate(0.05, seed=0)
-    encs = {n: encode(TABLE2_PLANS[n], cols[n]) for n in QUERY_COLUMNS[q]}
-    fq = lower_query({1: Q1_PLAN, 6: Q6_PLAN}[q], encs)
+    fq, cols = _tpch_query(q, 0.05)
     red = fq.graph.stages[-1]
     whole_env = _query_env(fq, gpu, {c: cols[c] for c in fq.resident})
     plain = ref.query_reduce_torch(red, whole_env)
@@ -862,45 +964,28 @@ def test_query_kernel_matches_plain(q, chunks, gpu):
     assert torch.equal(again, query_reduce(red, whole_env))
 
 
+@pytest.mark.usefixtures("query_kernels")
 @pytest.mark.parametrize("case", ["floor-mod", "narrow-wrap", "promote-drop", "post-decode"])
 def test_query_kernel_expression_semantics(case, gpu):
-    from repro_torch.core.query import lower_query
     from repro_torch.kernels.query_reduce import query_reduce
 
-    cols = semantics_columns()
-    plans = {k: make_plan("bitpack") for k in "AFS"}
-    plans["X"] = Plan("float2int", children={"ints": make_plan("bitpack")})
-    qp = SEMANTICS[case]
-    fq = lower_query(qp, {c: encode(plans[c], cols[c]) for c in qp.columns()})
+    fq = _semantics_query(case)
     red = fq.graph.stages[-1]
     env = _query_env(fq, gpu)
     _assert_query_lanes(query_reduce(red, env), ref.query_reduce_torch(red, env),
                         fq.n_segments)
 
 
+@pytest.mark.usefixtures("query_kernels")
 def test_query_kernel_rle_runs_and_compare_masks(gpu):
     """The per-run RLE graph (a weight role) and a compressed-domain range on
     32-bit fields whose int32 ``v + base`` wraps."""
-    from repro_torch.algos.rle import run_reduce_graph
-    from repro_torch.core.query import Bin, Col, Const, Pred, QueryPlan, lower_query
     from repro_torch.kernels.query_reduce import query_reduce
 
-    rng = np.random.default_rng(3)
-    values = np.cumsum(rng.integers(1, 4, 40_000)).astype(np.int32)
-    arr = np.repeat(values, rng.integers(1, 60, 40_000)).astype(np.int32)
-    enc = encode(Plan("rle", children={"counts": make_plan("bitpack"),
-                                       "values": make_plan("bitpack")}), arr)
-    g = run_reduce_graph(enc, Pred("root", ">=", int(np.quantile(values, 0.3))),
-                         [Bin("*", Col("root"), Const(2))], digest="t")
+    g, enc, fq, wide = _rle_case()
     env = device_buffers(enc, gpu)
     (red,) = g.stages
     _assert_query_lanes(query_reduce(red, env), ref.query_reduce_torch(red, env), 1)
-    wide = np.concatenate([[-2**31 + 5, 2**31 - 3],
-                           rng.integers(-2**31, 2**31, 100_000)]).astype(np.int32)
-    qp = QueryPlan("wide", predicates=(Pred("W", "between", -5, 7 * 10**8),),
-                   aggregates=(("v", Col("V")),))
-    fq = lower_query(qp, {"W": encode(make_plan("bitpack"), wide),
-                          "V": encode(make_plan("bitpack"), wide % 1000)})
     red = fq.graph.stages[-1]
     env = _query_env(fq, gpu)
     got = query_reduce(red, env)
@@ -908,6 +993,7 @@ def test_query_kernel_rle_runs_and_compare_masks(gpu):
     assert got[-1].item() == float(((wide >= -5) & (wide <= 7 * 10**8)).sum())
 
 
+@pytest.mark.usefixtures("query_kernels")
 @pytest.mark.parametrize("chunk_bytes", [None, 4096])
 def test_query_pipeline_on_the_card(chunk_bytes, gpu):
     """``ColumnPipeline.run_query`` on the card against the same pipeline on
@@ -917,7 +1003,7 @@ def test_query_pipeline_on_the_card(chunk_bytes, gpu):
     from repro_torch.data.tpch import QUERY_COLUMNS
     from repro_torch.kernels.query_reduce import KERNEL as QR
 
-    cols = generate(0.01, seed=0)
+    cols = _tpch(0.01)
     for qp, q in ((Q1_PLAN, 1), (Q6_PLAN, 6)):
         names = QUERY_COLUMNS[q]
         pipe = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device=gpu,
@@ -934,3 +1020,75 @@ def test_query_pipeline_on_the_card(chunk_bytes, gpu):
             _assert_query_lanes(qe.acc.cpu(), want.acc, qe.acc.numel()
                                 // (len(qp.aggregates) + 1))
             assert qe.makespan_s > 0 and qe.decode_s > 0
+
+
+@pytest.mark.usefixtures("query_kernels")
+@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_generated_and_interpreted_kernels_agree(q, chunks, gpu):
+    """The same whole and chunked Q1 and Q6 launches on the generated kernel and
+    on the interpreted one it replaced: count lanes equal, float lanes within
+    1e-5 (the sums are taken in another order).  Only ``interpreted`` launches
+    the interpreted kernel."""
+    from repro_torch.core.executor import StreamingExecutor
+    from repro_torch.kernels.query_reduce import (INTERPRETED, KERNEL, interpreted,
+                                                  query_reduce)
+
+    fq, cols = _tpch_query(q, 0.05)
+    red = fq.graph.stages[-1]
+    whole_env = _query_env(fq, gpu, {c: cols[c] for c in fq.resident})
+    cb = None if chunks == 1 else -(-sum(v.nbytes for v in fq.operands.values()) // chunks)
+    sched = StreamingExecutor("torch", gpu, chunk_bytes=None).query_schedule(fq, cb)
+    before = (KERNEL.launches, INTERPRETED.launches)
+    for k in range(sched.n_chunks):
+        env = dict(whole_env)
+        for leaf, sl in sched.slices.items():
+            lo, hi = sl[k]
+            env[leaf] = whole_env[leaf][lo:hi].contiguous()
+        kw = dict(n=sched.out_sizes[k], out_start=sched.out_starts[k])
+        gen = query_reduce(red, env, **kw)
+        old = interpreted(red, env, **kw)
+        _assert_query_lanes(gen, old, fq.n_segments)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches - before[0], INTERPRETED.launches - before[1]) == \
+        (sched.n_chunks, sched.n_chunks)
+
+
+@pytest.mark.usefixtures("query_kernels")
+def test_a_second_program_of_the_same_structure_builds_nothing(gpu):
+    """Two lowerings of one query are two programs of one kernel: the second
+    builds nothing and loads the library that the first built, in this
+    process or from ``build/`` in another."""
+    from repro_torch.kernels import query_reduce as qr
+
+    fq, cols = _tpch_query(6, 0.05)
+    first = qr.program(fq.graph.stages[-1], _query_env(fq, gpu))
+    fq2, _ = _tpch_query(6, 0.05)
+    second = qr.program(fq2.graph.stages[-1], _query_env(fq2, gpu))
+    assert second is not first and second.source == first.source
+    assert second.build_s is None and second.lib is first.lib and second.lib.loaded
+    lib = qr._LIBRARIES.pop(first.lib.digest)        # as a fresh process finds it
+    try:
+        fq3, _ = _tpch_query(6, 0.05)
+        third = qr.program(fq3.graph.stages[-1], _query_env(fq3, gpu))
+        assert third.build_s is None and third.lib is not lib and third.lib.loaded
+        assert third.lib.build_s is None and third.lib.path() == lib.path()
+    finally:
+        qr._LIBRARIES[lib.digest] = lib
+
+
+@pytest.mark.usefixtures("query_kernels")
+def test_generated_lane_is_not_contracted_into_an_fma(gpu):
+    """A lane ``x * y + z`` on a row where an FMA rounds differently: the
+    single-row launch equals the plain version bitwise, and the unfused
+    float32 value, not the fused one."""
+    from repro_torch.kernels.query_reduce import query_reduce
+
+    fq, unfused, fused = _fma_case()
+    assert unfused != fused
+    red = fq.graph.stages[-1]
+    env = _query_env(fq, gpu)
+    got = query_reduce(red, env, n=1)
+    plain = ref.query_reduce_torch(red, env, n=1)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    assert got[0].item() == float(unfused) != float(fused) and got[1].item() == 1.0

@@ -110,7 +110,7 @@ def test_abi_structs_match_the_cuda_layout():
                                   f.read_text()):
             sizes[name] = int(n)
     assert set(sizes) == {"ZfOp", "ZfChain", "ZfFpArgs", "ZfGpArgs", "ZfNpArgs",
-                          "ZfQRole", "ZfQPred", "ZfQInstr", "ZfQArgs"}
+                          "ZfQRole", "ZfQPred", "ZfQInstr", "ZfQArgs", "ZfQgBuf", "ZfQgArgs"}
     assert {k: ctypes.sizeof(getattr(cuda, k)) for k in sizes} == sizes
 
 
