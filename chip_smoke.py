@@ -7,7 +7,7 @@ Phases, in order; none catches its own failure, so any error or mismatch exits
 non-zero before the final line:
 
   1. fail unless CUDA is available;
-  2. build the four hand-written kernels from ``src/repro_torch/kernels/csrc``
+  2. build the three hand-written decode kernels from ``src/repro_torch/kernels/csrc``
      (``nvcc``, ``sm_90a``, one process per source, all at once) and load
      every kernel of them on the card (``preload`` line: the time CUDA's lazy
      module loading would otherwise add to first launches), then generate
@@ -76,7 +76,33 @@ non-zero before the final line:
      decisions by mode, decode units and launches per run, the batched groups
      and their batched-entry launches, and the calibrated
      ``launch_overhead_s`` beside the host time per added decode unit;
-  6. the decode-fused queries (kernel 4, generated per query by
+  6. dispatch and serving.  The inline issuer against the dispatch engine's
+     transfer thread (``executor.run(plan=..., async_dispatch=False|True)``)
+     on FIFO whole, FIFO chunked 1 MiB with per-chunk decode and the
+     reference's defaults, the two modes interleaved, cold + ``WARM_RUNS``
+     warm each, every column of every run bitwise equal to its source
+     (``dispatch`` lines: makespan by events, host time of ``run``, effective
+     plain GB/s, the plain copy of phase 4).  Then the serving mixes of the
+     reference's ``benchmarks/fig20_serving.py`` through
+     ``ColumnPipeline(..., chunk_bytes="auto", chunk_decode=True,
+     policy="adaptive").serve_planner(...)``, each request shipping its own
+     shallow copies of the SF-1 blobs: the closed mix (Q1, Q6 and Q13's
+     columns, twice, at once) in a cold and a warm shared wave and through the
+     naive server (``fifo-per-query``, ``max_wave=1``); the open loop (three
+     arrival batches of two, each drained); the same through the drain loop
+     (``start``/``submit``/``wait``/``stop``); the SLO mix (a bulk Q1 and three
+     point ``O_ORDERKEY`` requests); and a deterministic preemption (the three
+     points submitted at the bulk wave's first preempt call must cut in:
+     ``preempted == 3``).  Every column of every request is checked bitwise,
+     and a request's error or a wait that times out fails the script
+     (``serve`` lines: requests, waves, wall, makespan by events over the
+     waves, p50/p99 latency, modeled shared and naive makespans, decode units,
+     ``cross_batched_saved``, the largest batch per kernel, registration host
+     ms per wave and its parts summed over the waves, ``preempted``, the
+     chosen candidates), with the counts zeroed just before each mix; the
+     warm shared wave must launch every decode kernel, and no drain or
+     transfer thread may outlive ``stop()``;
+  7. the decode-fused queries (kernel 4, generated per query by
      ``kernels/query_codegen.py`` around ``csrc/query_gen.cuh``): TPC-H Q1
      and Q6 lowered onto their columns (``ColumnPipeline.lower_query``, which
      generates, builds and loads each query's kernel; ``build_s`` per query),
@@ -86,8 +112,7 @@ non-zero before the final line:
      (``ColumnPipeline(chunk_bytes=None)``), each cold + ``WARM_RUNS`` warm,
      with the counts zeroed just before the query runs and read just after
      (Q1 also runs kernel 3 for its resident L_RETURNFLAG): every kernel-4
-     launch of those runs is a generated kernel's, and the interpreted kernel
-     (``csrc/query_reduce.cu``, kept as the "before") launches 0 times.  The count lane
+     launch of those runs is a generated kernel's.  The count lane
      must equal a numpy count over the source columns exactly, and the result
      the materialize-then-query torch engine on the card (the port's ``run`` of
      the query's columns, then ``data/queries.py``) within ``rtol`` 1e-4, the
@@ -96,14 +121,13 @@ non-zero before the final line:
      against its plain version: the count lane bitwise, the float lanes within
      1e-5 relative (each row's values are the same bits; only the order of the
      sums differs).  ``query`` lines give the fused makespan by CUDA events and
-     the host time, ``materialize_ms``, the kernel's whole-launch time, the
-     interpreted kernel's on the same launch (``interpreted_ms``), its plain
-     version's, the bytes bound (``fusion.hbm_traffic_bytes`` at the HBM
+     the host time, ``materialize_ms``, the kernel's whole-launch time, its
+     plain version's, the bytes bound (``fusion.hbm_traffic_bytes`` at the HBM
      rate), the operations bound (``query_codegen.ops_per_row`` times the
      rows at 33.5 T operations/s, INT32 and FP32 alike: the kernel emits no
      FMA) and ``bound_ms``, the larger,
      chunks, launches and selectivity;
-  7. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
+  8. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
      (kernel 4's object beside the three decode kernels'), the card's name and
      power limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +140,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -342,7 +367,7 @@ def query_truth(q: int, cols: dict) -> np.ndarray:
 
 
 def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dict:
-    """Phase 6: TPC-H Q1 and Q6 decode-fused on the card (see the module
+    """Phase 7: TPC-H Q1 and Q6 decode-fused on the card (see the module
     docstring); returns the ``query`` records and kernel 4's ``kernels`` object."""
     from repro_torch.core.fusion import hbm_traffic_bytes
     from repro_torch.data.columns import TABLE2_PLANS
@@ -350,8 +375,7 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
     from repro_torch.data.queries import Q1_PLAN, Q6_PLAN, q1_engine, q6_engine
     from repro_torch.data.tpch import QUERY_COLUMNS
     from repro_torch.kernels import query_codegen, ref
-    from repro_torch.kernels.query_reduce import (INTERPRETED as QI, KERNEL as QR,
-                                                  interpreted, program, query_reduce)
+    from repro_torch.kernels.query_reduce import KERNEL as QR, program, query_reduce
 
     plans = {1: Q1_PLAN, 6: Q6_PLAN}
     engines = {1: q1_engine, 6: q6_engine}
@@ -395,7 +419,7 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
         lowered[q] = (time.perf_counter() - t0) * 1e3
         searched.lower_query(qp)
         pipes[q] = (chunked, searched, fq, encs)
-    for lib in libs + (QR, QI):
+    for lib in libs + (QR,):
         lib.launches = 0
     for q, (chunked, searched, fq, encs) in pipes.items():
         qp = plans[q]
@@ -403,15 +427,13 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
                                                                           chunk_bytes=None)))
         runs.append(drive(q, "chunked 1MiB", lambda: chunked.run_query(qp)))
         runs.append(drive(q, "searched", lambda: searched.run_query(qp)))
-    launches = {lib.name: lib.launches for lib in libs + (QR, QI)}
+    launches = {lib.name: lib.launches for lib in libs + (QR,)}
     if QR.launches <= 0 or launches["non_parallel"] <= 0:
         raise AssertionError(f"the query path did not run kernels 3 and 4: {launches}")
     want = sum(r["launches"] for r in runs) * (WARM_RUNS + 1)
     if QR.launches != want:
         raise AssertionError(f"the generated kernels made {QR.launches} launches, the "
                              f"runs {want}")
-    if QI.launches != 0:
-        raise AssertionError(f"the interpreted kernel ran {QI.launches} times on a path")
 
     # every kernel-4 launch of those runs, repeated on its chunk against the plain version
     compared, rel = 0, 0.0
@@ -482,14 +504,8 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
         n_int, n_float = query_codegen.ops_per_row(prog)
         bytes_ms = nbytes / (hbm * 1e9) * 1e3
         ops_ms = max(n_int * red.n_in / INT32_OPS_PER_S, n_float * red.n_in / FP32_OPS_PER_S) * 1e3
-        plain = ref.query_reduce_torch(red, env)
-        old = interpreted(red, env)
-        if not torch.equal(old[-fq.n_segments:], plain[-fq.n_segments:]):
-            raise AssertionError(f"q{q}: the interpreted kernel's count lane "
-                                 f"{old[-fq.n_segments:].tolist()} != plain")
         per_query[f"q{q}"] = {
             "ms": timer.ms(lambda: query_reduce(red, env)),
-            "interpreted_ms": timer.ms(lambda: interpreted(red, env)),
             "plain_ms": timer.ms(lambda: ref.query_reduce_torch(red, env), 3),
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
             else "operations", "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
@@ -503,8 +519,7 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
                 print(f"  ptxas query_gen q{q}: {line.strip()}")
     for r in runs:
         k = per_query[r["query"]]
-        r.update(kernel_ms=k["ms"], interpreted_ms=k["interpreted_ms"],
-                 plain_ms=k["plain_ms"], bound_ms=k["bound_ms"])
+        r.update(kernel_ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"])
         print(f"query {r['query']} {r['config']} " + " ".join(
             f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
             for key, v in r.items() if key not in ("query", "config")))
@@ -518,15 +533,206 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
               "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
               "bound_by": big["bound_by"], "library_ms": None, "matches_plain": True,
               "design": "generated per query", "generator": "src/repro_torch/kernels/"
-              "query_codegen.py", "interpreted_ms": big["interpreted_ms"],
-              "ops_bound_ms": big["ops_bound_ms"], "bytes_bound_ms": big["bytes_bound_ms"],
+              "query_codegen.py", "ops_bound_ms": big["ops_bound_ms"], "bytes_bound_ms": big["bytes_bound_ms"],
               "build_s": {k: v["build_s"] for k, v in per_query.items()},
-              "interpreted_launches": launches[QI.name],
               "at": "q1 whole (one launch over every row)", "compared": compared,
               "per_query": per_query,
               "materialize_ms": {r["query"]: r["materialize_ms"] for r in runs
                                  if r["config"] == "whole"}}
     return {"runs": runs, "kernel": kernel}
+
+
+def run_serving(cols: dict, encoded: dict, libs, plain_copy_ms: float) -> dict:
+    """Phase 6: the dispatch engine and the serving planner on the card (see
+    the module docstring); returns the ``dispatch`` and ``serve`` records and
+    per kernel the launches of one warm shared wave of the closed mix."""
+    import copy
+
+    from repro_torch.core.serve_planner import BULK, POINT
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.loader import ColumnPipeline
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    columns = tuple(TABLE2_PLANS)
+    plain_b = sum(cols[c].nbytes for c in columns)
+    truth = {c: bits(torch.from_numpy(cols[c]).cuda()) for c in columns}
+
+    def check(c: str, arr: torch.Tensor, what: str) -> None:
+        if not torch.equal(bits(arr), truth[c]):
+            raise AssertionError(f"{what} {c}: differs from its source")
+
+    # inline against async dispatch, interleaved, on three paths
+    paths = {"fifo whole": dict(FIFO_WHOLE),
+             "fifo chunked 1MiB": {"policy": "fifo", "chunk_bytes": 1 << 20,
+                                   "chunk_decode": True, "batch_columns": False},
+             "reference-default": {}}
+    dispatch = []
+    for label, kw in paths.items():
+        p_ = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", **kw)
+        p_.load(encoded)
+        plan = p_.plan() if label == "reference-default" else p_.plan(window=2)
+        for lib in libs:
+            lib.launches = 0
+        spans, hosts, issue, wait = ({False: [], True: []} for _ in range(4))
+        for rep in range(WARM_RUNS + 1):             # the first pair is cold
+            for mode in ((False, True) if rep % 2 == 0 else (True, False)):
+                res = None
+                t0 = time.perf_counter()
+                res = p_.executor.run(plan=plan, async_dispatch=mode)
+                hosts[mode].append((time.perf_counter() - t0) * 1e3)
+                spans[mode].append(p_.makespan_s * 1e3)
+                issue[mode].append(p_.executor.last_issue_s * 1e3)
+                wait[mode].append(p_.executor.last_wait_s * 1e3)
+                for c in columns:
+                    check(c, res[c].array, f"dispatch {label} async={int(mode)}")
+        counts = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"dispatch {label}: a kernel did not run: {counts}")
+        for mode in (False, True):
+            ms = float(np.median(spans[mode][1:]))
+            rec = {"path": label, "mode": "async" if mode else "inline",
+                   "makespan_ms": ms, "makespan_ms_cold": spans[mode][0],
+                   "makespan_ms_warm_min": min(spans[mode][1:]),
+                   "makespan_ms_warm_max": max(spans[mode][1:]),
+                   "host_run_ms": float(np.median(hosts[mode][1:])),
+                   # host time of the copies' issue, and the dispatcher's waits
+                   # for the transfer thread
+                   "issue_ms": float(np.median(issue[mode][1:])),
+                   "wait_ms": float(np.median(wait[mode][1:])),
+                   "effective_plain_gbps": plain_b / ms / 1e6, "plain_copy_ms": plain_copy_ms,
+                   "decode_units": sum(r.decode_launches for r in res.values())
+                   - sum(len(g) - 1 for g in {tuple(sorted((c,) + r.batched_with))
+                                              for c, r in res.items() if r.batched_with}),
+                   "launches_per_run": {k: v // (2 * (WARM_RUNS + 1))
+                                        for k, v in counts.items()}}
+            dispatch.append(rec)
+            print(f"dispatch {label} {rec['mode']} " + " ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in rec.items() if k not in ("path", "mode")))
+        p_ = res = None
+
+    # the serving mixes of the reference's benchmarks/fig20_serving.py
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device="cuda", chunk_bytes="auto",
+                          chunk_decode=True, policy="adaptive")
+    mix = [QUERY_COLUMNS[1], QUERY_COLUMNS[6], QUERY_COLUMNS[13]] * 2
+    serve = []
+
+    def request(names) -> dict:
+        """A client's own blobs: a shallow copy of each SF-1 blob (the bytes
+        a fresh encode gives; distinct objects, as distinct clients ship)."""
+        return {c: copy.copy(encoded[c]) for c in names}
+
+    def finish(label: str, planner, reqs: list, wall_s: float) -> dict:
+        for req in reqs:
+            if not req.done or req.error is not None:
+                raise AssertionError(f"serve {label} {req.rid}: done {req.done}, "
+                                     f"error {req.error!r}")
+            if set(req.results) != set(req.encs):
+                raise AssertionError(f"serve {label} {req.rid}: columns missing")
+            for c, r in req.results.items():
+                check(c, r.array, f"serve {label} {req.rid}")
+        reports = planner.reports
+        lat = [r.latency_s * 1e3 for r in reqs]
+        rec = {"mix": label, "requests": len(reqs), "waves": len(reports),
+               "wall_ms": wall_s * 1e3,
+               "makespan_ms": sum(r.makespan_s for r in reports) * 1e3,
+               "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+               "shared_mk_ms": sum(r.shared_makespan_s for r in reports) * 1e3,
+               "naive_mk_ms": sum(r.naive_makespan_s for r in reports) * 1e3,
+               "decode_launches": sum(r.decode_launches for r in reports),
+               "cross_batched_saved": sum(r.cross_batched_saved for r in reports),
+               "largest_batch": {k: lib.largest_batch for k, lib in zip(KERNELS, libs)},
+               "register_ms_per_wave": [round(r.register_s * 1e3, 4) for r in reports],
+               # its parts summed over the waves: program, profile, schedule,
+               # staging layout, pinned allocation, packing
+               "register_split_ms": {k: round(sum(r.register_split_s.get(k, 0.0)
+                                                  for r in reports) * 1e3, 4)
+                                     for k in reports[0].register_split_s},
+               "preempted": sum(r.preempted for r in reports),
+               "chosen": [r.chosen for r in reports],
+               "columns": sum(len(r.order) for r in reports),
+               "kernel_launches": {k: lib.launches for k, lib in zip(KERNELS, libs)}}
+        serve.append(rec)
+        print(f"serve {label} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items() if k != "mix"))
+        return rec
+
+    def zero():
+        for lib in libs:
+            lib.launches = lib.batched_launches = lib.largest_batch = 0
+
+    def drain_mix(label, planner, batches, klass=BULK):
+        zero()
+        reqs = []
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            for i, names in enumerate(batch):
+                reqs.append(planner.submit(f"b{b}x{i}", request(names), klass=klass))
+            planner.drain()
+        return finish(label, planner, reqs, time.perf_counter() - t0)
+
+    drain_mix("closed_mix shared cold", pipe.serve_planner("shared"), [mix])
+    warm = drain_mix("closed_mix shared warm", pipe.serve_planner("shared"), [mix])
+    if min(warm["kernel_launches"].values()) <= 0:
+        raise AssertionError(f"the closed mix's warm wave did not run every kernel: {warm}")
+    drain_mix("closed_mix naive", pipe.serve_planner("fifo-per-query", max_wave=1), [mix])
+    batches = [mix[:2], mix[2:4], mix[4:]]
+    drain_mix("open_loop", pipe.serve_planner("shared"), batches)
+    planner = pipe.serve_planner("shared").start()
+    drain_thread = planner._drain_thread
+    zero()
+    reqs = []
+    try:
+        t0 = time.perf_counter()
+        for b, batch in enumerate(batches):
+            for i, names in enumerate(batch):
+                reqs.append(planner.submit(f"d{b}x{i}", request(names)))
+        for req in reqs:
+            if not req.wait(timeout=300.0):
+                raise AssertionError(f"serve open_loop_drain {req.rid}: no completion "
+                                     "within 300 s")
+        wall = time.perf_counter() - t0
+    finally:
+        planner.stop()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith(("zipflow-serve-drain", "zipflow-xfer"))]
+    if drain_thread is None or drain_thread.is_alive() or left:
+        raise AssertionError(f"threads outlived stop(): {left}")
+    finish("open_loop_drain", planner, reqs, wall)
+    # one bulk scan and three point requests at once under the SLO policy
+    planner = pipe.serve_planner("slo")
+    zero()
+    t0 = time.perf_counter()
+    reqs = [planner.submit("bulk0", request(QUERY_COLUMNS[1]), klass=BULK)]
+    reqs += [planner.submit(f"pt{i}", request(["O_ORDERKEY"]), klass=POINT) for i in range(3)]
+    planner.drain()
+    finish("slo_mix", planner, reqs, time.perf_counter() - t0)
+    # deterministic preemption: the points arrive at the bulk wave's first
+    # preempt call and cut in there, as a nested wave
+    planner = pipe.serve_planner("slo")
+    zero()
+    preempt = planner._preempt
+    points = []
+
+    def arrive():
+        if not points:
+            points.extend(planner.submit(f"late{i}", request(["O_ORDERKEY"]), klass=POINT)
+                          for i in range(3))
+        preempt()
+
+    planner._preempt = arrive
+    t0 = time.perf_counter()
+    reqs = [planner.submit("bulk", request(QUERY_COLUMNS[1]), klass=BULK)]
+    planner.drain()
+    finish("slo_preempt", planner, reqs + points, time.perf_counter() - t0)
+    bulk = next(r for r in planner.reports if r.rids == ("bulk",))
+    if bulk.preempted != 3 or not all(p.preempted_in for p in points):
+        raise AssertionError(f"serve slo_preempt: preempted {bulk.preempted}, points "
+                             f"{[p.preempted_in for p in points]}")
+    return {"dispatch": dispatch, "serve": serve,
+            "warm_wave_launches": warm["kernel_launches"],
+            "largest_batch": {k: max(r["largest_batch"][k] for r in serve) for k in KERNELS}}
 
 
 def main() -> int:
@@ -565,10 +771,9 @@ def main() -> int:
     from repro_torch.kernels.non_parallel import (KERNEL as NP, decode_table, non_parallel,
                                                   non_parallel_batched)
     from repro_torch.kernels.ops import run_stage
-    from repro_torch.kernels.query_reduce import INTERPRETED as QI
 
     columns = tuple(TABLE2_PLANS)
-    libs = (FP, GP, NP)         # the decode kernels; kernel 4 is built per query in phase 6
+    libs = (FP, GP, NP)         # the decode kernels; kernel 4 is built per query in phase 7
 
     name = torch.cuda.get_device_name(0)
     spec = chip_from_device(0)
@@ -579,16 +784,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    cuda.build(libs + (QI,))    # QI: kernel 4's interpreted "before", timed in phase 6
-    for lib in libs + (QI,):
+    cuda.build(libs)
+    for lib in libs:
         lib.load(torch.device("cuda", 0))    # every kernel loaded on the card now
-    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs + (QI,)
+    built = " ".join(f"{lib.name} {lib.build_s:.1f} s" for lib in libs
                      if lib.build_s is not None)
     print(f"build: {time.perf_counter() - t0:.2f} s ({built or 'cached'}) -> "
           f"{FP.path().parent}")
     print("preload: " + " ".join(f"{lib.name}_ms {lib.preload_s[0] * 1e3:.4f}"
-                                 for lib in libs + (QI,)))
-    for lib in libs + (QI,):
+                                 for lib in libs))
+    for lib in libs:
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}")
@@ -1356,9 +1561,12 @@ def main() -> int:
     auto_pipe = None
 
     # ---------------------------------------------------------------- phase 6
-    queries = run_queries(args, cols, encoded, timer, hbm, libs)
+    served = run_serving(cols, encoded, libs, plain_copy_ms)
 
     # ---------------------------------------------------------------- phase 7
+    queries = run_queries(args, cols, encoded, timer, hbm, libs)
+
+    # ---------------------------------------------------------------- phase 8
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
     comp_b = sum(r.compressed_bytes for r in res.values())
@@ -1424,7 +1632,9 @@ def main() -> int:
             "planner_launches_per_run": {k: v["launches_per_run"][kname]
                                          for k, v in planned.items()},
             "planner_batched_launches_per_run": {k: v["batched_launches_per_run"][kname]
-                                                 for k, v in planned.items()}})
+                                                 for k, v in planned.items()},
+            "serve_launches_per_warm_wave": served["warm_wave_launches"][kname],
+            "serve_largest_batch": served["largest_batch"][kname]})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -1433,6 +1643,8 @@ def main() -> int:
                                         "entries": entries, "chunked": chunked,
                                         "batched": batched, "host_split": host_split,
                                         "planner": planned, "queries": queries["runs"],
+                                        "dispatch": served["dispatch"],
+                                        "serve": served["serve"],
                                         "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -29,18 +29,15 @@ main-path stages that run them:
   kernel 4  on TPC-H Q6 and Q1, one launch over every row (the resident
             L_RETURNFLAG of Q1 taken from its source column): ``committed`` (the query's
             generated kernel, R = 4 rows a thread, each row's two words of a
-            bit-packed field loaded through L1);
-            ``interpreted`` (the interpreter this kernel replaced,
-            ``csrc/query_reduce.cu``); ``decode-only`` (every role and mask
+            bit-packed field loaded through L1); ``decode-only`` (every role and mask
             evaluated, the count kept, no lane accumulated); ``no-divide``
             (I2F_DIV multiplies by its scale); ``R=1``, ``R=2`` and ``R=8``
             rows a thread.  Variants are text substitutions of the generated
             source (R: of ``csrc/query_gen.cuh``, inlined into it), each its
             own build; the committed kernel's SASS (``cuobjdump``) is
             summarised by opcode.  Also the host
-            time of one wrapper call, generated against interpreted (the
-            latter packs the program's chains per launch), and every
-            variant's time by ``torch.profiler`` in one session.
+            time of one wrapper call, and every variant's time by
+            ``torch.profiler`` in one session.
 
 With ``--baseline CSRC_DIR`` (the ``csrc`` directory of another tree, e.g. the
 parent commit unpacked beside this one) that tree's three kernels are built as
@@ -229,18 +226,16 @@ def query_variants(scale: float) -> list[dict]:
             raise RuntimeError("the committed variant is not the program's kernel")
         cases.append((q, fq, red, env, prog, libs))
     t0 = time.perf_counter()
-    cuda.build([lib for *_, libs in cases for lib in libs.values()] + [qr.INTERPRETED])
+    cuda.build([lib for *_, libs in cases for lib in libs.values()])
     print(f"kernel 4 builds: {time.perf_counter() - t0:.1f} s for "
-          f"{sum(len(c[-1]) for c in cases)} generated kernels and the interpreted one")
+          f"{sum(len(c[-1]) for c in cases)} generated kernels")
     timer = Timer()
     rows, profiled = [], []
     for q, fq, red, env, prog, libs in cases:
         plain = ref.query_reduce_torch(red, env)
         S = fq.n_segments
 
-        def call(v, red=red, env=env, prog=prog, libs=libs):
-            if v == "interpreted":
-                return qr.interpreted(red, env)
+        def call(v, env=env, prog=prog, libs=libs):
             out = torch.empty(red.n_out, dtype=torch.float32, device=dev)
             libs[v].load(dev)
             args, scratch = qr._generated_args(prog, env, dev, red.n_in, 0, out, False,
@@ -248,10 +243,10 @@ def query_variants(scale: float) -> list[dict]:
             libs[v].launch(args, qr.THREADS, dev)
             return out
 
-        order = list(QUERY_VARIANTS) + ["interpreted"]
+        order = list(QUERY_VARIANTS)
         for v in order:
             got = call(v)
-            if v in QUERY_EXACT + ("interpreted",) and not torch.equal(got[-S:], plain[-S:]):
+            if v in QUERY_EXACT and not torch.equal(got[-S:], plain[-S:]):
                 raise AssertionError(f"q{q} {v}: count lane {got[-S:].tolist()} != plain "
                                      f"{plain[-S:].tolist()}")
             if v in QUERY_EXACT and not torch.allclose(got, plain, rtol=QUERY_RTOL, atol=0):
@@ -259,16 +254,13 @@ def query_variants(scale: float) -> list[dict]:
         times = {}
         for v in order + order[::-1]:
             times.setdefault(v, []).append(timer.ms(lambda: call(v)))
-        host = {}
-        for v, fn in (("committed", lambda: qr.query_reduce(red, env)),
-                      ("interpreted", lambda: qr.interpreted(red, env))):
-            ts = []
-            for _ in range(50):
-                t0 = time.perf_counter()
-                fn()
-                ts.append((time.perf_counter() - t0) * 1e3)
-                torch.cuda.synchronize()
-            host[f"host_ms {v}"] = float(np.median(ts))
+        ts = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            qr.query_reduce(red, env)
+            ts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        host = {"host_ms committed": float(np.median(ts))}
         n_int, n_float = query_codegen.ops_per_row(prog)
         for v, lib in libs.items():
             regs = re.findall(r"Used (\d+) registers", lib.path().with_suffix(".log").read_text())
@@ -279,9 +271,8 @@ def query_variants(scale: float) -> list[dict]:
                      **{v: float(np.median(ts)) for v, ts in times.items()}, **host})
         for v in order:
             profiled.append((rows[-1], v, lambda v=v, call=call: call(v)))
-    names_ = {v: "zf_query_reduce_kernel" if v == "interpreted" else "zf_qg_kernel"
-              for v in list(QUERY_VARIANTS) + ["interpreted"]}
-    for (row, v, _), t_ms in zip(profiled, profiled_ms([(fn, names_[v]) for _, v, fn in profiled],
+    for (row, v, _), t_ms in zip(profiled, profiled_ms([(fn, "zf_qg_kernel")
+                                                        for _, v, fn in profiled],
                                                        timer.flush)):
         row[f"profiler {v}"] = t_ms
     for row in rows:

@@ -4,6 +4,7 @@
     python3 scripts/pipeline_ab.py --baseline TREE [--pairs N] [--scale S]
                                    [--warm-runs N] [--chunk-kib N] [--chunk-decode]
                                    [--query Q]
+    python3 scripts/pipeline_ab.py --async-dispatch [--pairs N] [...]
 
 Each run is a fresh process that imports one tree's ``repro_torch`` (this
 checkout, or ``TREE``: another checkout, e.g. the parent commit unpacked beside
@@ -20,6 +21,10 @@ the planner gets ``policy="fifo"``, ``batch_columns=False`` (and
 ``chunk_bytes=None`` unless ``--chunk-kib`` is given), its FIFO path.  With
 ``--query Q`` only the columns TPC-H query Q reads are compressed and run
 (``data.tpch.QUERY_COLUMNS``; the decode that materialize-then-query pays).
+
+With ``--async-dispatch`` (and no ``--baseline``) the two sides are this tree
+with the inline issuer and this tree with the dispatch engine's transfer thread
+(``ColumnPipeline(async_dispatch=True)``), alternating as above.
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ def worker(args) -> None:
         # a tree with the planner: its FIFO path without batching, as before it
         chunking = {"chunk_bytes": None, **chunking, "policy": "fifo",
                     "batch_columns": False}
+    if args.async_side:
+        chunking["async_dispatch"] = True
     pipe = ColumnPipeline({k: p for k, p in TABLE2_PLANS.items() if k in cols}, device="cuda",
                           **chunking)
     pipe.compress(cols)
@@ -81,21 +88,31 @@ def main() -> int:
     ap.add_argument("--chunk-kib", type=int, default=0)
     ap.add_argument("--chunk-decode", action="store_true")
     ap.add_argument("--query", type=int, default=0, help="only TPC-H query Q's columns")
+    ap.add_argument("--async-dispatch", action="store_true",
+                    help="compare this tree's inline issuer with its transfer thread")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--async-side", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         worker(args)
         return 0
-    if args.baseline is None:
+    if args.async_dispatch:
+        if args.baseline is not None:
+            ap.error("--async-dispatch compares two modes of this tree: no --baseline")
+        trees = {"inline": ROOT, "async": ROOT}
+    elif args.baseline is None:
         ap.error("--baseline is required")
-    trees = {"baseline": args.baseline.resolve(), "change": ROOT}
+    else:
+        trees = {"baseline": args.baseline.resolve(), "change": ROOT}
+    a, b = trees
     flags = [f"--scale={args.scale}", f"--warm-runs={args.warm_runs}",
              f"--chunk-kib={args.chunk_kib}", f"--query={args.query}"] + (["--chunk-decode"] * args.chunk_decode)
-    got: dict[str, list[dict]] = {"baseline": [], "change": []}
+    got: dict[str, list[dict]] = {a: [], b: []}
     for i in range(args.pairs):
-        for side in (("baseline", "change") if i % 2 == 0 else ("change", "baseline")):
+        for side in ((a, b) if i % 2 == 0 else (b, a)):
             env = dict(os.environ, PYTHONPATH=str(trees[side] / "src"))
-            run = subprocess.run([sys.executable, __file__, "--worker", *flags],
+            run = subprocess.run([sys.executable, __file__, "--worker", *flags]
+                                 + ["--async-side"] * (side == "async"),
                                  env=env, cwd=trees[side], capture_output=True, text=True)
             if run.returncode:
                 sys.stderr.write(run.stderr)

@@ -58,11 +58,30 @@ On a CUDA device:
 
 The host enqueues everything without waiting on the device and synchronizes once
 at the end.  On a CPU device the same units run in order, timed with the host
-clock.  The dispatch engine comes later.
+clock.
+
+Transfers and decode are two roles, as in the reference's dispatch engine: an
+issuer commits each decode unit's copies (one transfer item per unit) as the
+window allows, and the decode driver, a generator, waits for a unit's item and
+launches its decode.  ``_InlineIssuer`` issues the copies on the calling thread,
+in the order above; with ``async_dispatch`` a ``DispatchEngine`` moves them onto
+one transfer thread (``zipflow-xfer``) under a shared host-staging budget.  The
+window becomes a host watermark there: the copies of unit u + window are
+allowed only once the decode of unit u is recorded, so the copy stream's wait
+on that event is never placed before the event exists.
+
+``run`` also takes the reference's serving hooks: ``preempt`` is called before
+every decode unit but the first (a nested ``run`` on the same executor may
+cut in there, as ``core/serve_planner.py`` does for point requests), and
+``on_ready(name)`` once per column after its last decode is complete on the
+device (on a card: its event observed complete).  A column's
+``kernel_launches`` counts the launches of its own units, so a nested run
+between them is not counted in it.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Sequence
 
@@ -284,23 +303,24 @@ def whole_copies(enc: plan_mod.Encoded, layout, chunk_bytes: int | None
 
 def stage_column(enc: plan_mod.Encoded, pin: bool = False,
                  sched: ChunkSchedule | None = None,
-                 chunk_bytes: int | None = None) -> StagedColumn:
+                 chunk_bytes: int | None = None, clock: dict | None = None) -> StagedColumn:
     """Pack a column for transfer: whole (one copy, or one copy per
     ``split_chunks`` piece of each leaf with the meta operands in one), or per
-    chunk of ``sched`` (the whole buffers in one copy, then one per chunk)."""
+    chunk of ``sched`` (the whole buffers in one copy, then one per chunk).
+    ``clock`` (see ``_pack``) accumulates the allocation and the packing."""
     ops = plan_mod.host_operands(enc)
     leaves = plan_mod.flat_buffers(enc)
     if sched is not None:
-        return stage_chunks(ops, sched, pin)
+        return stage_chunks(ops, sched, pin, clock)
     names = [k for k in ops if k not in leaves] + list(leaves)   # meta first
     arrays = [(k, device_layout(ops[k])) for k in names]
     layout, end = _place(arrays, 0)
     copies = list(whole_copies(enc, layout, chunk_bytes))
-    return _pack(arrays, layout, end, copies, (len(copies),), (), pin)
+    return _pack(arrays, layout, end, copies, (len(copies),), (), pin, clock)
 
 
 def stage_chunks(ops: dict[str, np.ndarray], sched: ChunkSchedule,
-                 pin: bool = False) -> StagedColumn:
+                 pin: bool = False, clock: dict | None = None) -> StagedColumn:
     """Pack operands for per-chunk decode: the whole buffers in one copy, then
     each chunk's slices in one copy each (a column's, or a fused query's
     shared row-axis schedule)."""
@@ -322,14 +342,23 @@ def stage_chunks(ops: dict[str, np.ndarray], sched: ChunkSchedule,
             copies.append((end, stop))
         needs.append(len(copies))
         end = stop
-    return _pack(arrays, layout, end, copies, tuple(needs), tuple(pieces), pin)
+    return _pack(arrays, layout, end, copies, tuple(needs), tuple(pieces), pin, clock)
 
 
-def _pack(arrays, layout, end: int, copies, needs, pieces, pin: bool) -> StagedColumn:
+def _pack(arrays, layout, end: int, copies, needs, pieces, pin: bool,
+          clock: dict | None = None) -> StagedColumn:
+    """The host buffer (page-locked with ``pin``) with every array copied in;
+    ``clock`` accumulates the host seconds of the allocation (``"alloc"``)
+    and of the copies into it (``"pack"``)."""
+    t0 = time.perf_counter()
     host = torch.empty(max(end, 1), dtype=torch.uint8, pin_memory=pin)
+    t1 = time.perf_counter()
     for (_, o, nb, _, _), (_, a) in zip(list(layout) + [e for p in pieces for e in p],
                                         arrays):
         host[o:o + nb].copy_(torch.from_numpy(a.reshape(-1).view(np.uint8)))
+    if clock is not None:
+        clock["alloc"] += t1 - t0
+        clock["pack"] += time.perf_counter() - t1
     return StagedColumn(host=host, layout=tuple(layout), copies=tuple(copies),
                         needs=needs, pieces=pieces)
 
@@ -347,6 +376,397 @@ class _Unit:
     k: int = 0
 
 
+# ----------------------------------------------------------- dispatch engine
+#
+# The two roles of the module docstring: an issuer commits transfer items (one
+# per decode unit) up to the watermark the dispatcher advances, and the decode
+# driver (``_Leg.decode``) yields ``("need", n)`` before it touches items < n.
+# Workers never compile: an item only copies and records events, and every
+# ProgramCache lookup, kernel build and load and query build stays on the
+# dispatcher thread (the three decode libraries are built and loaded on the
+# device at the executor's construction, a query's kernel at ``prepare_query``).
+
+
+class _InlineIssuer:
+    """Synchronous issuer: ``advance(target)`` commits items < target on the
+    calling thread.  ``issue_s`` is the host time its commits took."""
+
+    def __init__(self, issue, total: int):
+        self._issue = issue
+        self.total = total
+        self.committed = 0
+        self.issue_s = 0.0
+
+    def advance(self, target: int) -> None:
+        target = min(target, self.total)
+        if self.committed >= target:
+            return
+        t0 = time.perf_counter()
+        while self.committed < target:
+            self._issue(self.committed)
+            self.committed += 1
+        self.issue_s += time.perf_counter() - t0
+
+
+class _WorkerIssuer:
+    """One transfer thread for one host->device link.
+
+    The dispatcher advances an item watermark (``advance``); the worker
+    commits the allowed items strictly in order, acquiring one shared
+    host-staging slot for each item ``held`` marks (a chunk of a
+    per-chunk-decode column; whole columns hold none).  The dispatcher
+    releases those slots as it consumes the items (``consumed``, once the
+    unit's decode is launched).  A worker's exception surfaces as
+    ``RuntimeError("transfer worker failed")`` when the dispatcher next waits
+    for a commit (``check_error``).  ``issue_s`` is the host time the worker's
+    commits took."""
+
+    def __init__(self, issue, total: int, held: Sequence[bool] | None = None,
+                 budget: threading.BoundedSemaphore | None = None,
+                 cv: threading.Condition | None = None):
+        self._issue = issue
+        self.total = total
+        self.committed = 0
+        self._allowed = 0
+        self._held = held if budget is not None else None
+        self._budget = budget
+        self._rel_ptr = 0
+        self._stop = False
+        self.issue_s = 0.0
+        self.error: BaseException | None = None
+        self._cv = cv if cv is not None else threading.Condition()
+        self._thread = threading.Thread(target=self._work, name="zipflow-xfer", daemon=True)
+        self._thread.start()
+
+    # ----- worker side
+    def _work(self) -> None:
+        try:
+            i = 0
+            while i < self.total:
+                with self._cv:
+                    while self._allowed <= i and not self._stop:
+                        self._cv.wait()
+                    if self._stop:
+                        return
+                    hi = min(self._allowed, self.total)
+                while i < hi:
+                    if self._held is not None and self._held[i]:
+                        # one slot per transferred-but-undecoded chunk
+                        while not self._budget.acquire(timeout=0.1):
+                            if self._stop:
+                                return
+                    t0 = time.perf_counter()
+                    self._issue(i)
+                    self.issue_s += time.perf_counter() - t0
+                    with self._cv:
+                        self.committed = i + 1
+                        self._cv.notify_all()
+                    i += 1
+        except BaseException as e:          # surfaced when the dispatcher next waits
+            with self._cv:
+                self.error = e
+                self._cv.notify_all()
+
+    # ----- dispatcher side
+    def advance(self, target: int) -> None:
+        target = min(target, self.total)
+        with self._cv:
+            if target > self._allowed:
+                self._allowed = target
+                self._cv.notify_all()
+
+    def check_error(self) -> None:
+        if self.error is not None:
+            raise RuntimeError("transfer worker failed") from self.error
+
+    def consumed(self, upto: int) -> None:
+        """The dispatcher consumed items < upto: release their staging slots."""
+        if self._held is None:
+            return
+        upto = min(upto, self.total)
+        while self._rel_ptr < upto:
+            if self._held[self._rel_ptr]:
+                self._budget.release()
+            self._rel_ptr += 1
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30.0)
+
+
+class DispatchEngine:
+    """A transfer thread and the decode dispatcher (the calling thread).
+
+    ``issuer`` starts a ``_WorkerIssuer`` bound to the engine's condition and
+    its host-staging budget (``LinkTopology.host_window`` slots; None:
+    unbounded).  ``drive`` runs the decode driver on the calling thread,
+    resuming it once its pending ``("need", n)`` is committed; a need for
+    item n also says that the items before n - 1 are decoded, so their slots
+    are released first.  Liveness: needs come in item order and a slot is
+    released as its chunk is consumed, so the slot the worker waits for is
+    always held by a chunk the dispatcher consumes without further budget.
+    ``wait_s`` is the host time the dispatcher spent blocked on commits.
+    One leg, one link: the reference's round-robin over several legs serves
+    its mesh, which the port does not have yet."""
+
+    def __init__(self, host_window: int | None = None):
+        self._cv = threading.Condition()
+        self.wait_s = 0.0
+        self._budget = (None if host_window is None
+                        else threading.BoundedSemaphore(max(1, host_window)))
+        self._issuers: list[_WorkerIssuer] = []
+
+    def issuer(self, issue, total: int, held: Sequence[bool] | None = None) -> _WorkerIssuer:
+        iss = _WorkerIssuer(issue, total, held=held, budget=self._budget, cv=self._cv)
+        self._issuers.append(iss)
+        return iss
+
+    def drive(self, gen, issuer: _WorkerIssuer):
+        """Run one decode-driver generator to its end; returns its value."""
+        while True:
+            try:
+                _, n = gen.send(None)
+            except StopIteration as stop:
+                return stop.value
+            issuer.consumed(n - 1)
+            n = min(n, issuer.total)
+            if issuer.committed < n:
+                t0 = time.perf_counter()
+                with self._cv:
+                    while issuer.committed < n and issuer.error is None:
+                        self._cv.wait(timeout=0.05)
+                self.wait_s += time.perf_counter() - t0
+            issuer.check_error()
+
+    def close(self) -> None:
+        for iss in self._issuers:
+            iss.close()
+
+
+def _drive_seq(gen):
+    """Drive one decode-driver generator to its end on the calling thread, with
+    an ``_InlineIssuer``: its ``advance`` has committed every item the
+    generator needs before it asks."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _event() -> torch.cuda.Event:
+    return torch.cuda.Event(enable_timing=True)
+
+
+class _Leg:
+    """One run's decode units on one device.
+
+    ``issue(u)`` is unit u's transfer item: it copies the unit's operands
+    into its columns' device buffers and stores what landed in ``slots[u]``,
+    written once by whichever thread issues and read by the dispatcher only
+    after the item is committed.  ``decode`` is the dispatcher's generator.
+    The copy side keeps its own per-column buffers (``bufs``) and the
+    dispatcher its own (``flats``); no dict is mutated by both."""
+
+    def __init__(self, ex: "StreamingExecutor", units: list[_Unit], window: int, cols: dict):
+        self.ex, self.units, self.window, self.cols = ex, units, window, cols
+        self.slots: list = [None] * len(units)
+        self.bufs: dict[str, torch.Tensor] = {}
+        self.last = {m: u for u, unit in enumerate(units) for m in unit.members}
+        self.done: list[str] = []       # columns decoded, not yet reported ready
+        for c in cols.values():
+            c.update(launches=0, batch=())
+
+    def budget_flags(self) -> list[bool]:
+        """Per item: whether it holds a host-staging slot (a chunk of a
+        per-chunk-decode column)."""
+        return [self.cols[unit.members[0]]["sched"] is not None for unit in self.units]
+
+    def _copy_ranges(self, name: str, k: int):
+        staged = self.cols[name]["staged"]
+        first = staged.needs[k - 1] if k else 0
+        return staged, staged.copies[first:staged.needs[k]]
+
+    def decode(self, issuer, preempt=None, on_ready=None):
+        self.begin()
+        issuer.advance(self.window)
+        flats: dict[str, torch.Tensor] = {}
+        for u, unit in enumerate(self.units):
+            if preempt is not None and u:
+                preempt()               # a unit boundary: urgent work may cut in
+            yield ("need", u + 1)
+            # no reference to the unit's buffers outlives ``flats``: the last
+            # unit of a column frees its buffer right after its decode
+            self.land(unit, self.slots[u], flats)
+            self.slots[u] = None
+            before = _launches()        # this unit's launches only, not a nested run's
+            self.ex._decode(unit, flats, self.cols)
+            launched = _launches() - before
+            self.decoded(u, unit)
+            for name in unit.members:
+                col = self.cols[name]
+                col["launches"] += launched
+                if u == self.last[name]:
+                    col["batch"] = unit.members if len(unit.members) > 1 else ()
+                    del flats[name]     # the allocator owns the buffer from here
+                    self.done.append(name)
+            issuer.advance(u + self.window + 1)
+            if on_ready is not None:
+                self.report(on_ready, block=False)
+        return self.finish(on_ready)
+
+
+class _CudaLeg(_Leg):
+    """Copies on the executor's copy stream, decode on the caller's current
+    stream, every span timed by CUDA events; one synchronize at the end."""
+
+    def __init__(self, ex, units, window, cols):
+        super().__init__(ex, units, window, cols)
+        self.compute = torch.cuda.current_stream(ex.device)
+        self.copy = ex.copy_stream
+        self.decoded_ev: list[torch.cuda.Event] = []   # per unit: after its decode
+
+    def begin(self) -> None:
+        self.start, self.end = _event(), _event()
+        self.start.record(self.compute)
+        self.copy.wait_event(self.start)       # no copy starts before the run does
+
+    def issue(self, u: int) -> None:
+        copy, unit = self.copy, self.units[u]
+        if u >= self.window:
+            # at most `window` units ahead of decode; the issuer allows item u
+            # only after the decode of unit u - window is recorded
+            copy.wait_event(self.decoded_ev[u - self.window])
+        landed = {}
+        with torch.cuda.stream(copy):
+            for name in unit.members:
+                staged, ranges = self._copy_ranges(name, unit.k)
+                c0 = None
+                if unit.k == 0:
+                    c0 = _event()
+                    c0.record(copy)
+                    self.bufs[name] = torch.empty(staged.host.numel(), dtype=torch.uint8,
+                                                  device=self.ex.device)
+                flat = self.bufs[name]
+                for a, b in ranges:
+                    flat[a:b].copy_(staged.host[a:b], non_blocking=True)
+                c1 = _event()
+                c1.record(copy)
+                landed[name] = (flat if unit.k == 0 else None, c0, c1)
+                if u == self.last[name]:
+                    del self.bufs[name]
+            ev = _event()
+            ev.record(copy)
+        self.slots[u] = (landed, ev)
+
+    def land(self, unit: _Unit, landed, flats: dict) -> None:
+        per, ev = landed
+        self.compute.wait_event(ev)
+        for name, (flat, c0, c1) in per.items():
+            col = self.cols[name]
+            if flat is not None:
+                flat.record_stream(self.compute)
+                flats[name] = flat
+                col["c0"] = c0
+                col["d0"] = _event()
+                col["d0"].record(self.compute)
+            col["c1"] = c1
+
+    def decoded(self, u: int, unit: _Unit) -> None:
+        d1 = _event()
+        d1.record(self.compute)
+        self.decoded_ev.append(d1)
+        for name in unit.members:
+            if u == self.last[name]:
+                self.cols[name]["d1"] = d1
+
+    def report(self, on_ready, block: bool) -> None:
+        """``on_ready`` for the decoded columns whose last decode is complete,
+        in decode order (the stream completes them in that order); with
+        ``block``, waiting for each."""
+        while self.done:
+            d1 = self.cols[self.done[0]]["d1"]
+            if block:
+                d1.synchronize()
+            elif not d1.query():
+                return
+            on_ready(self.done.pop(0))
+
+    def finish(self, on_ready) -> dict[str, ColumnExec]:
+        self.end.record(self.compute)
+        if on_ready is not None:
+            self.report(on_ready, block=True)
+        self.end.synchronize()
+        ex = self.ex
+        ex.last_makespan_s = self.start.elapsed_time(self.end) / 1e3
+        # The reference re-times a cold first call so that calibration sees
+        # decode, not jit.  Nothing here compiles at a first call, and the
+        # module loading that CUDA would otherwise do at a kernel's first
+        # launch is done at construction (``KernelLib.load`` with the
+        # device), so a cold run's decode times go to ``observe`` as they are.
+        return {name: ex._record(name, c, c["c0"].elapsed_time(c["c1"]) / 1e3,
+                                 c["d0"].elapsed_time(c["d1"]) / 1e3
+                                 / max(1, len(c["batch"])), c["launches"], c["batch"])
+                for name, c in self.cols.items()}
+
+
+class _HostLeg(_Leg):
+    """The same units on the CPU: copies and decode timed by the host clock,
+    a batch's times split evenly among its columns."""
+
+    def __init__(self, ex, units, window, cols):
+        super().__init__(ex, units, window, cols)
+        for c in cols.values():
+            c.update(transfer=0.0, decode=0.0)
+
+    def begin(self) -> None:
+        self.t_run = time.perf_counter()
+
+    def issue(self, u: int) -> None:
+        unit = self.units[u]
+        t0 = time.perf_counter()
+        landed = {}
+        for name in unit.members:
+            staged, ranges = self._copy_ranges(name, unit.k)
+            if unit.k == 0:
+                self.bufs[name] = torch.empty_like(staged.host, device=self.ex.device)
+            flat = self.bufs[name]
+            for a, b in ranges:
+                flat[a:b].copy_(staged.host[a:b])
+            landed[name] = flat if unit.k == 0 else None
+            if u == self.last[name]:
+                del self.bufs[name]
+        self.slots[u] = (landed, (time.perf_counter() - t0) / len(unit.members))
+
+    def land(self, unit: _Unit, landed, flats: dict) -> None:
+        per, transfer = landed
+        for name, flat in per.items():
+            if flat is not None:
+                flats[name] = flat
+        for name in unit.members:
+            self.cols[name]["transfer"] += transfer
+        self.t1 = time.perf_counter()
+
+    def decoded(self, u: int, unit: _Unit) -> None:
+        dt = (time.perf_counter() - self.t1) / len(unit.members)
+        for name in unit.members:
+            self.cols[name]["decode"] += dt
+
+    def report(self, on_ready, block: bool) -> None:
+        while self.done:
+            on_ready(self.done.pop(0))
+
+    def finish(self, on_ready) -> dict[str, ColumnExec]:
+        if on_ready is not None:
+            self.report(on_ready, block=True)
+        ex = self.ex
+        ex.last_makespan_s = time.perf_counter() - self.t_run
+        return {name: ex._record(name, c, c["transfer"], c["decode"], c["launches"],
+                                 c["batch"]) for name, c in self.cols.items()}
+
+
 class StreamingExecutor:
     """Plan-driven streaming decode over cached programs.
 
@@ -355,7 +775,9 @@ class StreamingExecutor:
     ``batch_columns`` and ``prefetch_chunks`` (the window) are planner
     defaults, as in the reference: they parameterize the ``ExecutionPlan``
     built when ``run`` is called without one; a plan passed in is
-    authoritative."""
+    authoritative.  ``async_dispatch`` makes ``run`` issue its copies from a
+    ``DispatchEngine`` transfer thread by default (off, as in the
+    reference)."""
 
     _DEFAULTS = object()     # "use the constructor's chunk configuration"
 
@@ -363,7 +785,7 @@ class StreamingExecutor:
                  chunk_bytes: int | None | str = 1 << 20, chunk_decode: bool = False,
                  policy: str = "chunk-johnson", pipeline: bool = True,
                  batch_columns: bool = True, prefetch_chunks: int | None = None,
-                 cost_model: CostModel | None = None):
+                 cost_model: CostModel | None = None, async_dispatch: bool = False):
         self.backend = backend
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -373,6 +795,7 @@ class StreamingExecutor:
         self.policy = policy
         self.pipeline = pipeline
         self.batch_columns = batch_columns
+        self.async_dispatch = async_dispatch
         self.prefetch_chunks = None if prefetch_chunks is None else max(1, prefetch_chunks)
         self.cost_model = cost_model or CostModel()
         # measured (transfer_s, decode_s) per column from the latest run: an
@@ -388,7 +811,18 @@ class StreamingExecutor:
         self._staged: dict[str, StagedColumn] = {}
         self._schedules: dict[tuple[str, int], ChunkSchedule | None] = {}
         self._copy_stream: torch.cuda.Stream | None = None
+        # cumulative host seconds of ``compile`` by part: the graph and its
+        # program, the cost-model profile, the chunk schedule, the staging's
+        # layout; and of every staging's allocation and packing (at a compile
+        # or a run that needs a new one)
+        self.register_split_s = dict.fromkeys(
+            ("program", "profile", "schedule", "layout", "alloc", "pack"), 0.0)
         self.last_makespan_s: float | None = None
+        # host seconds of the last run's copy issue (on whichever thread
+        # issued) and of its dispatcher's waits for the transfer thread (0.0
+        # inline)
+        self.last_issue_s: float | None = None
+        self.last_wait_s: float | None = None
         # per fused query (signature, chunk size, rows): its operands, row-axis
         # schedule and staging; and its (fused, pre-fusion) traffic
         self._query_runs: dict[tuple, tuple] = {}
@@ -414,6 +848,8 @@ class StreamingExecutor:
     def compile(self, name: str, enc: plan_mod.Encoded) -> Program:
         """Register a blob: its (cache-shared) Program, its profile in the cost
         model, and its host staging for the constructor's configuration."""
+        split = self.register_split_s
+        t0 = time.perf_counter()
         graph = build_graph(enc)
         prog = self.cache.get(graph, backend=self.backend)
         self._encoded[name] = enc
@@ -425,10 +861,19 @@ class StreamingExecutor:
         for store in (self._schedules, self._stagings):
             for key in [k for k in store if k[0] == name]:
                 store.pop(key)
+        t1 = time.perf_counter()
         self.cost_model.forget(name)
         self.cost_model.register(profile_from(name, enc, graph))
+        t2 = time.perf_counter()
         sched = self.chunk_schedule(name)
+        t3 = time.perf_counter()
+        packed = split["alloc"] + split["pack"]
         self._staged[name] = self._staging(name, self._fixed_chunk_bytes, sched)
+        t4 = time.perf_counter()
+        split["program"] += t1 - t0
+        split["profile"] += t2 - t1
+        split["schedule"] += t3 - t2
+        split["layout"] += t4 - t3 - (split["alloc"] + split["pack"] - packed)
         return prog
 
     def column_profile(self, name: str):
@@ -460,13 +905,14 @@ class StreamingExecutor:
         if sched is not None:
             key = (name, chunk_bytes, True)
             if key not in self._stagings:
-                self._stagings[key] = stage_column(self._encoded[name], pin, sched)
+                self._stagings[key] = stage_column(self._encoded[name], pin, sched,
+                                                   clock=self.register_split_s)
             return self._stagings[key]
         key = (name, chunk_bytes, False)
         if key not in self._stagings:
             base = self._stagings.get((name, None, False))
             if base is None:
-                base = stage_column(self._encoded[name], pin)
+                base = stage_column(self._encoded[name], pin, clock=self.register_split_s)
                 self._stagings[(name, None, False)] = base
             copies = whole_copies(self._encoded[name], base.layout, chunk_bytes)
             self._stagings[key] = dataclasses.replace(base, copies=copies,
@@ -620,7 +1066,8 @@ class StreamingExecutor:
 
     # --------------------------------------------------------------------- run
     def run(self, order: Sequence[str] | None = None, plan: ExecutionPlan | None = None,
-            window: int | None = None, names: Sequence[str] | None = None
+            window: int | None = None, names: Sequence[str] | None = None,
+            preempt=None, on_ready=None, async_dispatch: bool | None = None
             ) -> dict[str, ColumnExec]:
         """Transfer + decode the registered columns (all, those of ``names``
         -- the reference's ``run(encs)`` --, or those of ``order``, in that
@@ -628,7 +1075,16 @@ class StreamingExecutor:
         the constructor's knobs.  ``window`` overrides the plan's (decode units
         in flight).  A ``fused`` decision decodes like any other (the flag is
         advisory; ``run_query`` fuses).  Measured actuals feed the cost model
-        either way.  Returns per-column records once everything has finished."""
+        either way.  Returns per-column records once everything has finished.
+
+        ``preempt`` (``() -> None``) is called before every decode unit but the
+        first: the unit boundaries, and chunk (or span) k >= 1 of a per-chunk
+        column, where the reference calls it; a nested ``run`` on this
+        executor may run there.  ``on_ready(name)`` is called once per column,
+        batched members included, once its last decode is complete on the
+        device.  ``async_dispatch`` (None: the constructor's knob) issues the
+        copies from a ``DispatchEngine`` transfer thread; the results are
+        bitwise those of the inline path."""
         for given in (order, names):
             unknown = [n for n in given or () if n not in self._encoded]
             if unknown:
@@ -648,10 +1104,20 @@ class StreamingExecutor:
         window = plan.window if window is None else window
         cols = {name: self._column(name, plan.decisions[name]) for name in order}
         units = self._units(order, plan.decisions, cols)
-        if self.device.type == "cuda":
-            res = self._run_cuda(order, units, window, cols)
+        leg = (_CudaLeg if self.device.type == "cuda" else _HostLeg)(self, units, window, cols)
+        if not (self.async_dispatch if async_dispatch is None else async_dispatch):
+            issuer = _InlineIssuer(leg.issue, len(units))
+            res = _drive_seq(leg.decode(issuer, preempt, on_ready))
+            wait_s = 0.0
         else:
-            res = self._run_host(order, units, cols)
+            engine = DispatchEngine(host_window=self.cost_model.topology.host_window)
+            try:
+                issuer = engine.issuer(leg.issue, len(units), held=leg.budget_flags())
+                res = engine.drive(leg.decode(issuer, preempt, on_ready), issuer)
+            finally:
+                engine.close()
+            wait_s = engine.wait_s
+        self.last_issue_s, self.last_wait_s = issuer.issue_s, wait_s
         for name, rec in res.items():
             self.cost_model.observe(name, rec.transfer_s, rec.decode_s)
         return res
@@ -732,108 +1198,29 @@ class StreamingExecutor:
             decode_launches=col.get("units", 1 if sched is None else sched.n_chunks),
             chunk_decoded=sched is not None, kernel_launches=launches)
 
-    def _run_host(self, order: list[str], units: list[_Unit],
-                  cols: dict) -> dict[str, ColumnExec]:
-        for name in order:
-            cols[name].update(transfer=0.0, decode=0.0, launches=0, batch=())
-        flats: dict[str, torch.Tensor] = {}
-        t_run = time.perf_counter()
-        for unit in units:
-            t0 = time.perf_counter()
-            for name in unit.members:
-                staged = cols[name]["staged"]
-                if unit.k == 0:
-                    flats[name] = torch.empty_like(staged.host, device=self.device)
-                first = staged.needs[unit.k - 1] if unit.k else 0
-                for a, b in staged.copies[first:staged.needs[unit.k]]:
-                    flats[name][a:b].copy_(staged.host[a:b])
-            t1 = time.perf_counter()
-            before = _launches()
-            self._decode(unit, flats, cols)
-            t2 = time.perf_counter()
-            for name in unit.members:
-                col = cols[name]
-                col["launches"] += _launches() - before
-                col["transfer"] += (t1 - t0) / len(unit.members)
-                col["decode"] += (t2 - t1) / len(unit.members)
-                col["batch"] = unit.members if len(unit.members) > 1 else ()
-        self.last_makespan_s = time.perf_counter() - t_run
-        return {name: self._record(name, cols[name], cols[name]["transfer"],
-                                   cols[name]["decode"], cols[name]["launches"],
-                                   cols[name]["batch"]) for name in order}
+    # ------------------------------------------------------------- serving
+    def unregister(self, name: str) -> None:
+        """Drop one registered blob's per-name state: its blob, program and
+        graph entries, schedules, host stagings (their pinned memory goes back
+        to the caching host allocator) and its cost-model profile and
+        timings.  Compiled programs stay in the ProgramCache and the cost
+        model's per-signature history survives, so a long-lived server keeps
+        its calibration while per-request names come and go."""
+        for store in (self._encoded, self._programs, self._graphs, self._staged):
+            store.pop(name, None)
+        for store in (self._schedules, self._stagings):
+            for key in [k for k in store if k[0] == name]:
+                store.pop(key)
+        self.cost_model.forget(name)
 
-    def _run_cuda(self, order: list[str], units: list[_Unit], window: int,
-                  cols: dict) -> dict[str, ColumnExec]:
-        dev = self.device
-        compute = torch.cuda.current_stream(dev)
-        copy = self.copy_stream
-
-        def event() -> torch.cuda.Event:
-            return torch.cuda.Event(enable_timing=True)
-
-        start, end = event(), event()
-        start.record(compute)
-        copy.wait_event(start)          # no copy starts before the run does
-        flats: dict[str, torch.Tensor] = {}
-        landed: list[torch.cuda.Event] = []    # per unit: after its last copy
-        decoded: list[torch.cuda.Event] = []   # per unit: after its decode
-
-        def issue(u: int) -> None:
-            if u >= window:             # at most `window` units ahead of decode
-                copy.wait_event(decoded[u - window])
-            unit = units[u]
-            with torch.cuda.stream(copy):
-                for name in unit.members:
-                    staged, col = cols[name]["staged"], cols[name]
-                    if unit.k == 0:
-                        col["c0"] = event()
-                        col["c0"].record(copy)
-                        flats[name] = torch.empty(staged.host.numel(), dtype=torch.uint8,
-                                                  device=dev)
-                    first = staged.needs[unit.k - 1] if unit.k else 0
-                    for a, b in staged.copies[first:staged.needs[unit.k]]:
-                        flats[name][a:b].copy_(staged.host[a:b], non_blocking=True)
-                    col["c1"] = event()
-                    col["c1"].record(copy)
-                ev = event()
-                ev.record(copy)
-            landed.append(ev)
-
-        for u in range(min(window, len(units))):
-            issue(u)
-        for u, unit in enumerate(units):
-            compute.wait_event(landed[u])
-            for name in unit.members:
-                if unit.k == 0:
-                    flats[name].record_stream(compute)
-                    cols[name]["d0"] = event()
-                    cols[name]["d0"].record(compute)
-                    cols[name]["launches"] = _launches()
-            self._decode(unit, flats, cols)
-            d1 = event()
-            d1.record(compute)
-            decoded.append(d1)
-            for name in unit.members:
-                col = cols[name]
-                if unit.k == len(col["staged"].needs) - 1:
-                    col["d1"] = d1
-                    col["launches"] = _launches() - col["launches"]
-                    col["batch"] = unit.members if len(unit.members) > 1 else ()
-                    del flats[name]         # the allocator owns the buffer from here
-            if u + window < len(units):
-                issue(u + window)
-        end.record(compute)
-        end.synchronize()
-        self.last_makespan_s = start.elapsed_time(end) / 1e3
-        # The reference re-times a cold first call so that calibration sees
-        # decode, not jit.  Nothing here compiles at a first call, and the
-        # module loading that CUDA would otherwise do at a kernel's first
-        # launch is done at construction (``KernelLib.load`` with the
-        # device), so a cold run's decode times go to ``observe`` as they are.
-        return {name: self._record(name, c, c["c0"].elapsed_time(c["c1"]) / 1e3,
-                                   c["d0"].elapsed_time(c["d1"]) / 1e3
-                                   / max(1, len(c["batch"])), c["launches"], c["batch"])
-                for name, c in cols.items()}
+    def run_one(self, enc: plan_mod.Encoded, name: str = "_single") -> torch.Tensor:
+        """Decode one blob through the cache (a serving-path helper), then
+        unregister it."""
+        self.compile(name, enc)
+        try:
+            return self.run(names=[name])[name].array
+        finally:
+            self.unregister(name)
 
     # ------------------------------------------------------------- fused query
     @staticmethod

@@ -5,7 +5,8 @@
 device (``run``), transfer of one decode unit overlapping the decode of another;
 and decode-fused queries over the registered columns (``lower_query``,
 ``query_plan``, ``run_query``), where only partial aggregates reach the device's
-memory.
+memory; and serving (``serve_planner``): many requests' columns decoded in
+shared waves (``core/serve_planner.py``).
 
 It runs on the card unless the caller asks for the CPU: with no ``device`` it
 takes ``torch.device("cuda")`` and raises if CUDA is absent.  On a CUDA device
@@ -24,6 +25,7 @@ from repro_torch.core import scheduler
 from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
 from repro_torch.core.plan import Plan
 from repro_torch.core.planner import ExecutionPlan
+from repro_torch.core.serve_planner import ServePlanner
 
 # the executor's per-column record IS the pipeline's result type
 ColumnResult = ColumnExec
@@ -45,12 +47,14 @@ class ColumnPipeline:
     that splits in its own launch while later chunks are in flight;
     ``pipeline=False`` keeps the order of registration.  ``cost_model`` (e.g.
     ``CostModel.load``) seeds planning from an earlier process's calibration;
-    each run's measurements feed it."""
+    each run's measurements feed it.  ``async_dispatch=True`` issues each run's
+    copies from a transfer thread (``core.executor.DispatchEngine``)."""
 
     def __init__(self, plans: dict[str, Plan], device: torch.device | str | None = None,
                  backend: str | None = None, chunk_bytes: int | None | str = 1 << 20,
                  chunk_decode: bool = False, policy: str = "chunk-johnson",
-                 pipeline: bool = True, batch_columns: bool = True, cost_model=None):
+                 pipeline: bool = True, batch_columns: bool = True, cost_model=None,
+                 async_dispatch: bool = False):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ColumnPipeline runs on CUDA by default and no CUDA "
@@ -64,7 +68,9 @@ class ColumnPipeline:
         self.executor = StreamingExecutor(
             backend=self.backend, device=device, chunk_bytes=chunk_bytes,
             chunk_decode=chunk_decode, policy=policy, pipeline=pipeline,
-            batch_columns=batch_columns, cost_model=cost_model)
+            batch_columns=batch_columns, cost_model=cost_model,
+            async_dispatch=async_dispatch)
+        self.async_dispatch = self.executor.async_dispatch
         self._encoded: dict[str, plan_mod.Encoded] = {}
         # lowered fused queries and their planned (window, chunk_bytes), keyed
         # by QueryPlan digest (``load`` invalidates: new blobs lower anew)
@@ -116,6 +122,19 @@ class ColumnPipeline:
         configured policy unless given); an explicit ``order`` pins the issue
         order, and ``window`` overrides the plan's decode units in flight."""
         return self.executor.run(order=order, plan=plan, window=window)
+
+    def serve_planner(self, policy: str = "shared", max_wave: int | None = None):
+        """A multi-query serving planner sharing this pipeline's executor (its
+        ProgramCache and calibrated CostModel): concurrent requests' columns
+        compose into one shared transfer queue, with cross-request batching and
+        SLO-aware issue order (``core/serve_planner.py``).  Requests submit
+        their own ``Encoded`` blobs; ``encode_request`` builds them."""
+        return ServePlanner(self.executor, policy=policy, max_wave=max_wave)
+
+    def encode_request(self, columns: dict[str, np.ndarray]) -> dict[str, plan_mod.Encoded]:
+        """A request's columns encoded with this pipeline's plans (the blobs
+        ``ServePlanner.submit`` takes)."""
+        return {name: plan_mod.encode(self.plans[name], arr) for name, arr in columns.items()}
 
     def lower_query(self, qplan):
         """Graft a ``core.query.QueryPlan`` onto the registered columns' decode

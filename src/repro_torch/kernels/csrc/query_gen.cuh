@@ -10,9 +10,8 @@
 // predicate modes and constants compiled in -- and the extern "C" entry.  This
 // header holds the rest: the tile loop, the packed words' loads, the
 // accumulators, the block sums and the last block's fixed-order sum.  One
-// launch covers the items [out_start, out_start + n) of one chunk, as the
-// interpreted kernel (query_reduce.cu) did; its ZfQArgs carried the whole
-// program, ZfQgArgs carries only what changes per launch.
+// launch covers the items [out_start, out_start + n) of one chunk; ZfQgArgs
+// carries only what changes per launch (the program is compiled in).
 //
 // Each row's values are those of the plain version (kernels/ref.py
 // query_reduce_torch): every float operation of the generated code is an _rn

@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 MAX_OPS = 8
 _OP_CODES = {UNPACK: 0, LOAD: 1, GATHER: 2, I2F_DIV: 3, UNZIGZAG: 4, BYTES: 5,
-             SPAN: 6, UNPACK_RAW: 7, RANGE: 8}
+             SPAN: 6}
 # element code of a buffer: bytes per element, negative for a signed narrow type
 _ELEM_CODES = {torch.int32: 4, torch.uint32: 4, torch.float32: 4,
                torch.uint16: 2, torch.int16: -2, torch.uint8: 1, torch.bool: 1,
@@ -89,39 +89,10 @@ class ZfNpArgs(ctypes.Structure):
                 ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
 
 
-# kernel 4 (csrc/query_reduce.cu): one fused query's roles, predicates and
-# expression program, by value in the 4 KB parameter space
+# the most a fused query's register program holds (kernels/query_reduce.py
+# refuses a query beyond them; the generated kernel's buffers follow from them)
 QR_MAX_ROLES, QR_MAX_ROLE_OPS, QR_MAX_PREDS = 12, 4, 16
 QR_MAX_INSTRS, QR_MAX_REGS, QR_MAX_LANES, QR_MAX_ACC = 48, 32, 16, 64
-
-
-class ZfQRole(ctypes.Structure):
-    _fields_ = [("n_ops", ctypes.c_int32), ("kind", ctypes.c_int8), ("row", ctypes.c_int8),
-                ("src", ctypes.c_int8), ("type", ctypes.c_int8),
-                ("ops", ZfOp * QR_MAX_ROLE_OPS)]
-
-
-class ZfQPred(ctypes.Structure):
-    _fields_ = [("reg", ctypes.c_int8), ("cmp", ctypes.c_int8), ("mode", ctypes.c_int8),
-                ("pad", ctypes.c_int8 * 5), ("value", ctypes.c_int64)]
-
-
-class ZfQInstr(ctypes.Structure):
-    _fields_ = [("op", ctypes.c_int8), ("type", ctypes.c_int8), ("dst", ctypes.c_int8),
-                ("a", ctypes.c_int8), ("b", ctypes.c_int8), ("src", ctypes.c_int8),
-                ("pad", ctypes.c_int8 * 2), ("imm", ctypes.c_int64)]
-
-
-class ZfQArgs(ctypes.Structure):
-    _fields_ = [("roles", ZfQRole * QR_MAX_ROLES), ("preds", ZfQPred * QR_MAX_PREDS),
-                ("prog", ZfQInstr * QR_MAX_INSTRS), ("lane_reg", ctypes.c_int8 * QR_MAX_LANES),
-                ("n_roles", ctypes.c_int32), ("n_preds", ctypes.c_int32),
-                ("n_instrs", ctypes.c_int32), ("n_lanes", ctypes.c_int32),
-                ("n_segments", ctypes.c_int32), ("key_reg", ctypes.c_int32),
-                ("accumulate", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
-                ("n", ctypes.c_int64), ("out_start", ctypes.c_int64),
-                ("out", ctypes.c_void_p), ("partials", ctypes.c_void_p),
-                ("counter", ctypes.c_void_p)]
 
 
 # kernel 4 generated per query (csrc/query_gen.cuh): only what changes per
@@ -172,8 +143,10 @@ class KernelLib:
     ``launches`` goes up by one for each kernel launch made through ``launch``
     or ``launch_batched`` and nowhere else, so a run can show that its path
     went through the kernel; ``batched_launches`` counts the batched ones
-    among them.  ``batch_max`` is the most members one batched launch takes
-    (its structs must fit the 4 KB kernel parameter space), as the library
+    among them, and ``largest_batch`` is the most members one call of
+    ``launch_batched`` was given (before its split).  ``batch_max`` is the
+    most members one batched launch takes (its structs must fit the 4 KB
+    kernel parameter space), as the library
     reports it at load; a library of an older tree (``scripts/kernel_variants.py
     --baseline``) has neither a batched entry nor ``zf_preload``: it leaves
     ``batch_max`` None and loads its kernels at their first launches.
@@ -187,6 +160,7 @@ class KernelLib:
         self.batch_max: int | None = None
         self.launches = 0
         self.batched_launches = 0
+        self.largest_batch = 0
         self.build_s: float | None = None   # wall time of this process's nvcc
         self.preload_s: dict[int, float] = {}
         self._lib: ctypes.CDLL | None = None
@@ -267,6 +241,7 @@ class KernelLib:
             self._batched = fn
         lib = self.load(device)
         stream = torch.cuda.current_stream(device).cuda_stream
+        self.largest_batch = max(self.largest_batch, len(members))
         for i in range(0, len(members), self.batch_max):
             part = members[i:i + self.batch_max]
             structs = (self.args_type * len(part))(*part)
@@ -370,18 +345,18 @@ def check_op_types(op, env: dict[str, torch.Tensor]) -> None:
 
 
 def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
-               extent: int = 0, query_ops: bool = False) -> ZfChain:
+               extent: int = 0) -> ZfChain:
     """The C struct of an op chain, with each op's buffers resolved in ``env``.
 
     ``extent`` is the number of indices the chain's source is read at (the
     kernel reads a ``LOAD`` buffer unchecked there; the other ops clamp).
-    ``UNPACK_RAW`` and ``RANGE`` reach the query kernel only (``query_ops``);
-    ``TEST`` is compiled into its predicates, never packed."""
+    ``UNPACK_RAW``, ``RANGE`` and ``TEST`` reach only the query kernels, which
+    compile them in (``kernels/query_codegen.py``): they are never packed."""
     if len(chain) > MAX_OPS:
         raise ValueError(f"chain of {len(chain)} ops exceeds the kernels' {MAX_OPS}")
     out = ZfChain(n_ops=len(chain))
     for k, op in enumerate(chain):
-        if op.kind in QUERY_OPS and (not query_ops or op.kind not in _OP_CODES):
+        if op.kind in QUERY_OPS:
             raise ValueError(f"{op}: the decode kernels do not take this op")
         ptrs = [operand(env[b], f"{op} input {b!r}", device) for b in op.bufs]
         reads = extent * (op.imm if op.kind == BYTES else 1)
@@ -395,10 +370,4 @@ def pack_chain(chain: Chain, env: dict[str, torch.Tensor], device: torch.device,
                           elem=_ELEM_CODES[buf.dtype] if buf is not None else 4,
                           n=buf.numel() if buf is not None else 0,
                           a=ptrs[0], b=ptrs[1], c=ptrs[2])
-        if op.kind == RANGE:
-            # the bounds: n = lo, b = hi (64-bit integers), imm bits = present
-            lo, hi = op.arg
-            out.ops[k].n = 0 if lo is None else lo
-            out.ops[k].b = None if hi is None else hi & (2**64 - 1)
-            out.ops[k].imm = (lo is not None) | (hi is not None) << 1
     return out

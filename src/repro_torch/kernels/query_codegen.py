@@ -188,7 +188,8 @@ class _Writer:
         if op.kind == UNZIGZAG:
             return f"({v} >> 1) ^ (0u - ({v} & 1u))"
         if op.kind == RANGE:
-            # the field against the rebased bounds, in 64 bits (zf_range)
+            # the field against the rebased bounds, in 64 bits, so no int32
+            # v + base can wrap (algos/bitpack.py compare_stage)
             lo, hi = op.arg
             base = f"static_cast<int64_t>(zf_qg_scalar_i32({self.buf(k, o)}))"
             tests = []

@@ -22,11 +22,6 @@ program once per stage and buffer types and, when it first meets a CUDA
 device, builds its kernel with ``nvcc`` (into ``cuda.build_root()/<digest>/``,
 one build per distinct program) and loads it there, so ``lower_query`` on a
 card (``ColumnPipeline.lower_query``) compiles before any timed run.
-
-The interpreted kernel (``csrc/query_reduce.cu``, the program passed
-by value in ``ZfQArgs`` and interpreted per row) stays only as the "before"
-that ``scripts/kernel_variants.py``, ``chip_smoke.py`` (``interpreted_ms``)
-and one card test time or check (``interpreted``): no path launches it.
 """
 from __future__ import annotations
 
@@ -58,8 +53,6 @@ class _Launches:
 
 
 KERNEL = _Launches()
-# the interpreted kernel, kept as the "before" (``interpreted``); no path launches it
-INTERPRETED = cuda.KernelLib("query_reduce", "zf_query_reduce", cuda.ZfQArgs)
 
 
 class _GeneratedLib(cuda.KernelLib):
@@ -209,23 +202,6 @@ class _Program:
         self.lib.load(device)
         return self.lib
 
-    def interpreted_template(self) -> cuda.ZfQArgs:
-        """The interpreted kernel's argument struct as far as every launch of
-        this program shares it (``_launch_args`` fills in the rest)."""
-        args = cuda.ZfQArgs(n_roles=len(self.roles), n_preds=len(self.preds),
-                            n_instrs=len(self.instrs), n_lanes=len(self.lanes),
-                            n_segments=self.n_segments, key_reg=self.key)
-        for k, (chain, kind, row, src, dt) in enumerate(self.roles):
-            role = args.roles[k]
-            role.n_ops, role.kind, role.row, role.src, role.type = len(chain), kind, row, src, dt
-        for k, (reg, cmp, mode, value) in enumerate(self.preds):
-            args.preds[k] = cuda.ZfQPred(reg=reg, cmp=cmp, mode=mode, value=value)
-        for k, (op, dt, dst, a, b, src, imm) in enumerate(self.instrs):
-            args.prog[k] = cuda.ZfQInstr(op=op, type=dt, dst=dst, a=a, b=b, src=src, imm=imm)
-        for k, reg in enumerate(self.lanes):
-            args.lane_reg[k] = reg
-        return args
-
     def _pred(self, reg: int, dt: torch.dtype, p) -> None:
         bounds = ([(">=", p.value), ("<=", p.value2)] if p.op == "between"
                   else [(p.op, p.value)])
@@ -307,27 +283,6 @@ def n_blocks(n: int, max_blocks: int = MAX_BLOCKS) -> int:
     return max(1, min(-(-n // (THREADS * ROWS_PER_THREAD)), max_blocks))
 
 
-def _launch_args(stage: Reduce, env, device, n: int, out_start: int, out: torch.Tensor,
-                 accumulate: bool):
-    """The interpreted kernel's argument struct and the scratch (block partials +
-    the counter) it points into: the program's shared fields with this
-    launch's chains, pointers, length and offsets."""
-    prog = program(stage, env)
-    grid = n_blocks(n)
-    n_acc = (len(prog.lanes) + 1) * stage.n_segments
-    scratch = torch.empty(grid * n_acc + 1, dtype=torch.float32, device=device)
-    args = prog.interpreted_template()
-    args.accumulate, args.n_blocks, args.n, args.out_start = int(accumulate), grid, n, out_start
-    args.out, args.partials = out.data_ptr(), scratch.data_ptr()
-    args.counter = scratch.data_ptr() + 4 * grid * n_acc
-    for k, (chain, _, row, _, _) in enumerate(prog.roles):
-        packed = cuda.pack_chain(chain, env, device, out_start + n if row else n,
-                                 query_ops=True)
-        ctypes.memmove(ctypes.addressof(args.roles[k].ops), ctypes.addressof(packed.ops),
-                       ctypes.sizeof(args.roles[k].ops))
-    return args, scratch
-
-
 def _generated_args(prog: _Program, env, device, n: int, out_start: int,
                     out: torch.Tensor, accumulate: bool, max_blocks: int = MAX_BLOCKS):
     """A generated kernel's argument struct and the scratch (block partials + the
@@ -400,18 +355,4 @@ def query_reduce(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None =
                                      max_blocks=prog.lib.max_blocks[device.index])
     prog.lib.launch(args, THREADS, device)
     KERNEL.launches += 1
-    return out
-
-
-def interpreted(stage: Reduce, env: dict[str, torch.Tensor], *, n: int | None = None,
-                out_start: int = 0, out: torch.Tensor | None = None,
-                accumulate: bool = False) -> torch.Tensor:
-    """``query_reduce`` on the interpreted kernel (``csrc/query_reduce.cu``), the
-    "before" that ``scripts/kernel_variants.py`` times beside the generated one.
-    CUDA tensors only."""
-    n, device, out = _prepare(stage, env, n, out, accumulate)
-    if device is None:
-        raise ValueError(f"{stage.name}: the interpreted kernel runs on a CUDA device only")
-    args, _scratch = _launch_args(stage, env, device, n, out_start, out, accumulate)
-    INTERPRETED.launch(args, THREADS, device)
     return out

@@ -8,6 +8,7 @@ machine with a card (no JAX needed there):
 import dataclasses
 import functools
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -904,15 +905,15 @@ def _query_stages():
 
 @pytest.fixture(scope="module")
 def query_kernels():
-    """Build every generated kernel of this module, and the interpreted kernel,
-    in one ``cuda.build`` (one nvcc per source, all at once)."""
+    """Build every generated kernel of this module in one ``cuda.build`` (one
+    nvcc per source, all at once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.query_reduce import INTERPRETED, library, program
+    from repro_torch.kernels.query_reduce import library, program
 
     progs = [program(red, env) for red, env in _query_stages()]   # CPU inputs: nothing built
-    cuda.build([library(p.source) for p in progs] + [INTERPRETED])
+    cuda.build([library(p.source) for p in progs])
     return progs
 
 
@@ -1023,38 +1024,6 @@ def test_query_pipeline_on_the_card(chunk_bytes, gpu):
 
 
 @pytest.mark.usefixtures("query_kernels")
-@pytest.mark.parametrize("q", [1, 6])
-@pytest.mark.parametrize("chunks", [1, 3])
-def test_generated_and_interpreted_kernels_agree(q, chunks, gpu):
-    """The same whole and chunked Q1 and Q6 launches on the generated kernel and
-    on the interpreted one it replaced: count lanes equal, float lanes within
-    1e-5 (the sums are taken in another order).  Only ``interpreted`` launches
-    the interpreted kernel."""
-    from repro_torch.core.executor import StreamingExecutor
-    from repro_torch.kernels.query_reduce import (INTERPRETED, KERNEL, interpreted,
-                                                  query_reduce)
-
-    fq, cols = _tpch_query(q, 0.05)
-    red = fq.graph.stages[-1]
-    whole_env = _query_env(fq, gpu, {c: cols[c] for c in fq.resident})
-    cb = None if chunks == 1 else -(-sum(v.nbytes for v in fq.operands.values()) // chunks)
-    sched = StreamingExecutor("torch", gpu, chunk_bytes=None).query_schedule(fq, cb)
-    before = (KERNEL.launches, INTERPRETED.launches)
-    for k in range(sched.n_chunks):
-        env = dict(whole_env)
-        for leaf, sl in sched.slices.items():
-            lo, hi = sl[k]
-            env[leaf] = whole_env[leaf][lo:hi].contiguous()
-        kw = dict(n=sched.out_sizes[k], out_start=sched.out_starts[k])
-        gen = query_reduce(red, env, **kw)
-        old = interpreted(red, env, **kw)
-        _assert_query_lanes(gen, old, fq.n_segments)
-    torch.cuda.synchronize()
-    assert (KERNEL.launches - before[0], INTERPRETED.launches - before[1]) == \
-        (sched.n_chunks, sched.n_chunks)
-
-
-@pytest.mark.usefixtures("query_kernels")
 def test_a_second_program_of_the_same_structure_builds_nothing(gpu):
     """Two lowerings of one query are two programs of one kernel: the second
     builds nothing and loads the library that the first built, in this
@@ -1092,3 +1061,195 @@ def test_generated_lane_is_not_contracted_into_an_fma(gpu):
     plain = ref.query_reduce_torch(red, env, n=1)
     assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
     assert got[0].item() == float(unfused) != float(fused) and got[1].item() == 1.0
+
+
+# ------------------------------------------------------ dispatch and serving
+
+def _serve_blobs(names, scale: float = 0.01) -> dict:
+    cols = _tpch(scale)
+    return {n: encode(TABLE2_PLANS[n], cols[n]) for n in names}
+
+
+def _check_request(req, scale: float = 0.01):
+    cols = _tpch(scale)
+    assert req.done and req.error is None, (req.rid, req.error)
+    assert set(req.results) == set(req.encs)
+    for c, r in req.results.items():
+        assert torch.equal(bits(r.array.cpu()), bits(torch.from_numpy(cols[c]))), (req.rid, c)
+
+
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_worker_issuance_on_the_card_holds_the_window(window, gpu, monkeypatch):
+    """The transfer thread's copies against the inline issuer's, bitwise, at
+    1 KiB chunks with per-chunk decode: unit u's copies are issued only once
+    unit u - window's decode is recorded, so no more than ``window`` units'
+    copies are in flight, and no copy stream wait is placed on an event that
+    does not exist yet."""
+    from repro_torch.core import executor as E
+
+    cols = {k: v for k, v in _tpch(0.002).items() if k in TABLE2_PLANS}
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device=gpu, chunk_bytes=1024,
+                          chunk_decode=True, policy="fifo")
+    pipe.compress(cols)
+    plan = pipe.plan()
+    decoded, ahead, waits = [0], [], []
+    issue, decode = E._CudaLeg.issue, StreamingExecutor._decode
+
+    def watching_issue(leg, u):
+        ahead.append(u - decoded[0])
+        if u >= leg.window:
+            waits.append(len(leg.decoded_ev) > u - leg.window)
+        issue(leg, u)
+
+    def counting_decode(self, unit, flats, cols_):
+        decode(self, unit, flats, cols_)
+        decoded[0] += 1
+
+    monkeypatch.setattr(E._CudaLeg, "issue", watching_issue)
+    monkeypatch.setattr(StreamingExecutor, "_decode", counting_decode)
+    runs = {}
+    for mode in (False, True):
+        decoded[0], ahead[:] = 0, []
+        before = _launches()
+        runs[mode] = pipe.executor.run(plan=plan, window=window, async_dispatch=mode)
+        assert _launches() > before
+        assert max(ahead) <= window - 1 and all(waits)
+    for k, arr in cols.items():
+        assert torch.equal(bits(runs[True][k].array), bits(runs[False][k].array)), k
+        assert torch.equal(bits(runs[True][k].array.cpu()), bits(torch.from_numpy(arr))), k
+        assert runs[True][k].kernel_launches == runs[False][k].kernel_launches, k
+    assert not [t for t in threading.enumerate() if t.name == "zipflow-xfer"]
+
+
+def test_on_ready_fires_only_after_the_column_is_decoded(gpu, monkeypatch):
+    """``on_ready(name)`` is called once per column, batched members included,
+    and only once an event recorded right after the column's last decode is
+    complete on the device."""
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    names = QUERY_COLUMNS[1]
+    cols = _tpch(0.01)
+    pipe = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device=gpu)
+    pipe.compress({c: cols[c] for c in names})
+    marks = {}
+    decode = StreamingExecutor._decode
+
+    def marking_decode(self, unit, flats, cols_):
+        decode(self, unit, flats, cols_)
+        ev = torch.cuda.Event()
+        ev.record()
+        for m in unit.members:
+            marks[m] = ev
+
+    monkeypatch.setattr(StreamingExecutor, "_decode", marking_decode)
+    plan = pipe.plan()
+    for mode in (False, True):
+        seen = []
+
+        def on_ready(name):
+            assert marks[name].query(), f"{name} reported before its decode completed"
+            seen.append(name)
+
+        res = pipe.executor.run(plan=plan, on_ready=on_ready, async_dispatch=mode)
+        assert sorted(seen) == sorted(names) and len(seen) == len(set(seen))
+        assert res["L_DISCOUNT"].batched_with == ("L_TAX",)
+        for c in names:
+            assert torch.equal(bits(res[c].array.cpu()), bits(torch.from_numpy(cols[c]))), c
+
+
+@pytest.mark.parametrize("mode", [False, True], ids=["inline", "async"])
+def test_nested_run_mid_chunked_column(mode, gpu):
+    """A preemptive ``run_one`` between two chunks of a per-chunk-decode
+    column, on the same executor and streams: both bitwise, and the outer
+    columns' ``kernel_launches`` are those of a run without the cut-in."""
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    cols = _tpch(0.01)
+    names = QUERY_COLUMNS[6]
+    pipe = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device=gpu,
+                          chunk_bytes=1 << 13, chunk_decode=True, policy="fifo")
+    pipe.compress({c: cols[c] for c in names})
+    plan = pipe.plan()
+    alone = pipe.executor.run(plan=plan, async_dispatch=mode)
+    pt = encode(TABLE2_PLANS["O_ORDERKEY"], cols["O_ORDERKEY"])
+    calls, nested = [0], []
+
+    def preempt():
+        calls[0] += 1
+        if calls[0] in (1, 3):          # inside the first chunked column
+            nested.append(pipe.executor.run_one(pt, name=f"pt{calls[0]}/O_ORDERKEY"))
+
+    res = pipe.executor.run(plan=plan, preempt=preempt, async_dispatch=mode)
+    assert res[plan.order[0]].chunk_decoded and len(nested) == 2
+    for arr in nested:
+        assert torch.equal(arr.cpu(), torch.from_numpy(cols["O_ORDERKEY"]))
+    for c in names:
+        assert torch.equal(bits(res[c].array.cpu()), bits(torch.from_numpy(cols[c]))), c
+        assert res[c].kernel_launches == alone[c].kernel_launches > 0, c
+    assert "pt1/O_ORDERKEY" not in pipe.executor._encoded
+
+
+def test_wave_on_a_background_thread(gpu):
+    """The drain loop's thread runs the waves: its launches go to the stream
+    its events are recorded on, and every column of every request is bitwise
+    its source."""
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device=gpu, chunk_bytes="auto",
+                          chunk_decode=True, policy="adaptive")
+    sp = pipe.serve_planner("shared").start()
+    before = _launches()
+    try:
+        reqs = [sp.submit(f"r{i}", _serve_blobs(QUERY_COLUMNS[q]))
+                for i, q in enumerate((1, 6, 13, 6))]
+        for r in reqs:
+            assert r.wait(timeout=300.0), r.rid
+    finally:
+        sp.stop()
+    assert _launches() > before and sp.reports
+    for r in reqs:
+        _check_request(r)
+        assert r.latency_s > 0
+    assert all(rep.makespan_s > 0 for rep in sp.reports)
+    assert not [t for t in threading.enumerate()
+                if t.name in ("zipflow-xfer", "zipflow-serve-drain")]
+
+
+def test_serving_wave_batches_kernel_1_across_requests(gpu):
+    """Q1 and Q6 twice in one shared wave: the columns of one structure of
+    the four requests decode in batched kernel-1 launches of 4 to 6 members,
+    each member bitwise its source; the same members launched singly agree."""
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    pipe = ColumnPipeline(dict(TABLE2_PLANS), device=gpu, chunk_bytes=None,
+                          policy="adaptive")
+    sp = pipe.serve_planner("shared")
+    FP.largest_batch = 0
+    reqs = [sp.submit(f"r{i}", _serve_blobs(QUERY_COLUMNS[q]))
+            for i, q in enumerate((1, 6, 1, 6))]
+    sp.drain()
+    for r in reqs:
+        _check_request(r)
+    assert 4 <= FP.largest_batch <= 6
+    assert sp.reports[-1].cross_batched_saved > 0
+    # K = 4-6 members of L_DISCOUNT's structure against single launches
+    blobs = [_serve_blobs(["L_DISCOUNT", "L_TAX"])[c] for c in ("L_DISCOUNT", "L_TAX")]
+    prog = compile_blob(blobs[0], backend="kernel")
+    for k in (4, 5, 6):
+        members = [device_buffers(blobs[i % 2], gpu) for i in range(k)]
+        out = prog.batched(members)
+        for i, m in enumerate(members):
+            assert torch.equal(bits(out[i]), bits(prog(m))), (k, i)
+
+
+def test_serve_planner_builds_a_card_executor_by_default(gpu):
+    """``ServePlanner()`` alone serves on the card with the kernel backend."""
+    from repro_torch.core.serve_planner import ServePlanner
+
+    sp = ServePlanner()
+    assert sp.executor.device.type == "cuda" and sp.executor.backend == "kernel"
+    before = _launches()
+    req = sp.submit("r", _serve_blobs(["L_TAX", "L_RETURNFLAG", "O_ORDERKEY"]))
+    sp.drain()
+    assert _launches() > before
+    _check_request(req)

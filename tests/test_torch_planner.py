@@ -525,6 +525,7 @@ def test_launch_batched_splits_at_the_library_limit(monkeypatch):
     members = [cuda.ZfFpArgs(n=i + 1) for i in range(25)]
     lib.launch_batched(members, 256, torch.device("cuda", 0))
     assert calls == [11, 11, 3] and lib.launches == lib.batched_launches == 3
+    assert lib.largest_batch == 25           # the batch as given, before its split
     status[0] = 1
     with pytest.raises(RuntimeError, match="batched launch"):
         lib.launch_batched(members[:2], 256, torch.device("cuda", 0))

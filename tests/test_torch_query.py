@@ -279,57 +279,16 @@ def test_query_program_refuses_what_the_struct_cannot_hold(cols):
     assert isinstance(big, Reduce)
 
 
-def test_abi_query_structs():
-    import ctypes
-    assert ctypes.sizeof(cuda.ZfQArgs) <= 4096
-    assert (ctypes.sizeof(cuda.ZfQRole), ctypes.sizeof(cuda.ZfQPred),
-            ctypes.sizeof(cuda.ZfQInstr)) == (168, 16, 16)
-
-
-def test_launch_struct_packs_roles_ranges_and_the_program(cols):
-    """The argument struct the query kernel reads, packed on the host: role
-    kinds and types, the resident role read at the global row, the range
-    masks' bounds (``n`` = lo, ``b`` = hi, ``imm`` = which are present), the
-    expression program from the template, and the launch's own fields."""
-    from repro_torch.kernels.query_reduce import _launch_args, n_blocks
-
-    _, fq, _ = lowered(cols, "q1")
-    red = fq.graph.stages[-1]
-    env = {k: torch.from_numpy(P_layout(v)) for k, v in fq.operands.items()}
-    env[fq.resident_input("L_RETURNFLAG")] = torch.zeros(fq.n_rows, dtype=torch.uint8)
-    out = torch.zeros(red.n_out, dtype=torch.float32)
-    args, scratch = _launch_args(red, env, torch.device("cpu"), 1000, 2048, out, True)
-    prog = program(red, env)
-    assert (args.n_roles, args.n_preds, args.n_instrs, args.n_lanes, args.n_segments) == \
-        (7, 0, len(prog.instrs), 4, 8)
-    assert (args.n, args.out_start, args.accumulate, args.n_blocks) == (1000, 2048, 1,
-                                                                         n_blocks(1000))
-    assert args.counter == scratch.data_ptr() + 4 * args.n_blocks * 40
-    kinds = {r.col: (args.roles[k].kind, args.roles[k].row, args.roles[k].src,
-                     args.roles[k].type, args.roles[k].n_ops)
-             for k, r in enumerate(red.roles)}
-    assert kinds["L_SHIPDATE"] == (1, 0, 1, 1, 2)            # mask: UNPACK_RAW -> RANGE
-    assert kinds["L_RETURNFLAG"] == (0, 1, 1, 1, 1)          # resident uint8, global row
-    assert kinds["L_EXTENDEDPRICE"] == (0, 0, 0, 0, 2)       # float32 value
-    ship = next(k for k, r in enumerate(red.roles) if r.col == "L_SHIPDATE")
-    rng_op = args.roles[ship].ops[1]
-    _, hi = red.roles[ship].chain[1].arg
-    assert (rng_op.kind, rng_op.imm, rng_op.b) == (8, 2, hi)
-    assert [args.prog[k].op for k in range(args.n_instrs)] == [i[0] for i in prog.instrs]
-    assert list(args.lane_reg)[:4] == prog.lanes and args.key_reg == prog.key
-
-
 def test_pack_chain_refuses_query_ops_outside_the_query_kernel():
-    from repro_torch.core.patterns import in_range, unpack_raw
+    from repro_torch.core.patterns import in_range, load, predicate, unpack_raw
 
     dev = torch.device("cpu")
     env = {"p": torch.zeros(4, dtype=torch.int32), "bw": torch.ones(1, dtype=torch.int32),
            "base": torch.zeros(1, dtype=torch.int32)}
-    chain = (unpack_raw("p", "bw"), in_range("base", -3, 2**40))
-    with pytest.raises(ValueError, match="do not take"):
-        cuda.pack_chain(chain, env, dev)
-    packed = cuda.pack_chain(chain, env, dev, query_ops=True)
-    assert (packed.ops[1].n, packed.ops[1].b, packed.ops[1].imm) == (-3, 2**40, 3)
+    for chain in ((unpack_raw("p", "bw"),), (load("p"), in_range("base", -3, 2**40)),
+                  (load("p"), predicate((), np.int32))):
+        with pytest.raises(ValueError, match="do not take"):
+            cuda.pack_chain(chain, env, dev)
+    # the query kernels compile a range in; its bounds are checked all the same
     with pytest.raises(ValueError, match="64-bit"):
-        cuda.pack_chain((unpack_raw("p", "bw"), in_range("base", None, 2**63)), env, dev,
-                        query_ops=True)
+        cuda.check_op_types(in_range("base", None, 2**63), env)
