@@ -10,7 +10,9 @@ non-zero before the final line:
   2. build the three hand-written decode kernels from ``src/repro_torch/kernels/csrc``
      (``nvcc``, ``sm_90a``, one process per source, all at once) and load
      every kernel of them on the card (``preload`` line: the time CUDA's lazy
-     module loading would otherwise add to first launches), then generate
+     module loading would otherwise add to first launches); fail if a build
+     takes more registers a thread than ``core/geometry.py`` ``KERNEL_REGS``
+     (which bounds the geometry spaces' blocks); then generate
      TPC-H at ``--scale`` (default SF 1) and encode all 24 Table-2 columns
      (set-up);
   3. kernel vs plain PyTorch version on the card, bitwise: every Fully-Parallel,
@@ -38,7 +40,10 @@ non-zero before the final line:
      of O_ORDERKEY under ``deltastride`` (kernel 2), and L_RETURNFLAG's rANS
      spans (kernel 3; two of them against the plain version, which takes
      about a second a call, all of them through the column's equality with
-     its whole decode), each timed beside the whole-column launch.  Then the
+     its whole decode), each timed beside the whole-column launch; each
+     column's checked chunk and each span column's first span also run at a
+     geometry off the native table (``OFF_NATIVE``), bitwise to the native
+     launch (counted on the ``compare`` line).  Then the
      batched entries, at K = 2, 8 and one above each kernel's per-launch limit
      (the split): kernel 1 on L_DISCOUNT + L_TAX, kernel 2 on two RLE columns
      of one structure whose runs differ, kernel 3 on L_RETURNFLAG and a copy
@@ -126,10 +131,31 @@ non-zero before the final line:
      rate), the operations bound (``query_codegen.ops_per_row`` times the
      rows at 33.5 T operations/s, INT32 and FP32 alike: the kernel emits no
      FMA) and ``bound_ms``, the larger,
-     chunks, launches and selectivity;
-  8. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
-     (kernel 4's object beside the three decode kernels'), the card's name and
-     power limit from ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
+     chunks, launches and selectivity.  Then the ad-hoc queries wider than
+     Q1 (``data/queries.py`` ``WIDE_PLANS``: 17 lanes, 4 lanes x 16 segments,
+     7 x 32 and 1 x 256 -- 256 and 512 accumulators, more than a block's
+     threads, the last kept in global memory) and a column-free aggregate
+     (``CONST_LANE_PLAN``, 2.5 x the count), their kernels built in one round,
+     each through ``lower_query``/``run_query`` with the counts zeroed just
+     before: counts against numpy exactly, results against the
+     materialize-then-query engine (``plan_engine``) within rtol 1e-4, every
+     kernel-4 launch against its plain version (``query wide`` lines);
+  8. geometry: for each of kernels 1-3, its largest main-path stage (the
+     ``kernels`` line's ``at``) over its whole <L,S,C> space
+     (``core/geometry.py``): ``autotune.brute_force`` and ``pruned_search``,
+     each geometry measured once (CUDA events, L2 flushed, median of 10) after
+     its output is held bitwise against the plain version; the native
+     table's and the baseline's geometry beside them, and the Spearman rank
+     correlation of ``analytic_cost_ns`` with the measured times
+     (``geometry`` lines; each geometry's time in ``--out``);
+  9. baseline: ``compile_decoder(enc, backend="baseline")`` (unfused, every
+     stage at ``BASELINE_GEOMS``) for all 24 columns, bitwise against the
+     fused program and the source, timed whole beside the fused decode, with
+     the launches of one decode of each (``baseline`` lines);
+ 10. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
+     (kernel 4's object beside the three decode kernels', each of those with
+     its ``geometry`` object), the card's name and power limit from
+     ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -189,6 +215,14 @@ REF_UNITS_SF1 = {1 << 20: 109, 4 << 20: 41}
 NP_PLAIN_SPANS = 2                # rANS spans held against the plain version
 # the FIFO whole-column configuration the phases before the planner's run in
 FIFO_WHOLE = {"policy": "fifo", "chunk_bytes": None, "batch_columns": False}
+# one geometry per pattern off the native table, for the chunk and span entries
+OFF_NATIVE = {"fully_parallel": (2, 512, 2), "group_parallel": (8, 32, 16),
+              "non_parallel": (2, 128, 2)}
+PATTERN = {"fully_parallel": "fp", "group_parallel": "gp", "non_parallel": "np"}
+# the wide ad-hoc queries' group keys (column, segments), for the numpy count
+WIDE_KEYS = {"lanes17": None, "lanes4_seg16": ("L_SUPPKEY", 16),
+             "lanes7_seg32": ("L_PARTKEY", 32), "lanes1_seg256": ("L_PARTKEY", 256),
+             "const_lane": None}
 
 
 def host_part(name: str) -> str | None:
@@ -542,6 +576,214 @@ def run_queries(args, cols: dict, encoded: dict, timer, hbm: float, libs) -> dic
     return {"runs": runs, "kernel": kernel}
 
 
+def run_wide_queries(cols: dict, encoded: dict, timer, libs) -> list:
+    """Phase 7, part 2: the ad-hoc queries wider than Q1 (``data/queries.py``
+    ``WIDE_PLANS``: 17 lanes; 4 lanes x 16 segments; 7 x 32 and 1 x 256, more
+    accumulators than a block has threads, the last in global memory) and a
+    column-free aggregate (``CONST_LANE_PLAN``), each through
+    ``ColumnPipeline.lower_query``/``run_query`` on kernel 4, with the counts
+    zeroed just before the runs and read just after.  Their kernels build in
+    one round first.  The count lane must equal numpy's exactly, the result
+    the materialize-then-query engine (``plan_engine`` over the port's ``run``
+    of the columns) within rtol 1e-4, and every kernel-4 launch of the runs
+    its plain version (count bitwise, floats within 1e-5 relative); the
+    column-free lane must be 2.5 x the count."""
+    from repro_torch.core.query import lower_query
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.loader import ColumnPipeline
+    from repro_torch.data.queries import CONST_LANE_PLAN, WIDE_PLANS, plan_engine
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.kernels.query_reduce import KERNEL as QR, library, program, query_reduce
+
+    plans = {**WIDE_PLANS, "const_lane": CONST_LANE_PLAN}
+    pipes, progs = {}, []
+    for name, qp in plans.items():
+        names = qp.columns()
+        p_ = ColumnPipeline({c: TABLE2_PLANS[c] for c in names}, device="cuda",
+                            chunk_bytes=None)
+        p_.load({c: encoded[c] for c in names})
+        # the program on host-typed inputs (nothing built), to build all at once
+        fq = lower_query(qp, {c: encoded[c] for c in names})
+        progs.append(program(fq.graph.stages[-1], {
+            b: torch.empty(0, dtype=dt) for b, dt in p_.executor.query_types(fq).items()}))
+        pipes[name] = p_
+    t0 = time.perf_counter()
+    cuda.build([library(pr.source) for pr in progs])
+    build_s = time.perf_counter() - t0
+    lowered = {name: pipes[name].lower_query(qp) for name, qp in plans.items()}
+    for lib in libs + (QR,):
+        lib.launches = 0
+    outs = {name: pipes[name].run_query(qp) for name, qp in plans.items()}
+    launches = {lib.name: lib.launches for lib in libs + (QR,)}
+    if QR.launches != sum(o.n_chunks for o in outs.values()):
+        raise AssertionError(f"wide queries: {QR.launches} kernel-4 launches for "
+                             f"{sum(o.n_chunks for o in outs.values())} chunks")
+    sel = cols["L_QUANTITY"] < 24
+    recs = []
+    for (name, qp), pr in zip(plans.items(), progs):
+        out, (fq, encs) = outs[name], lowered[name]
+        S = qp.n_segments
+        key = WIDE_KEYS[name]
+        truth = (np.array([sel.sum()]) if key is None else
+                 np.bincount(np.mod(cols[key[0]].astype(np.int64), key[1])[sel], minlength=S))
+        counts = np.asarray(out.acc.cpu())[-S:]
+        if not np.array_equal(counts.astype(np.int64), truth.astype(np.int64)):
+            raise AssertionError(f"{name}: count lane {counts.tolist()} != numpy")
+        mat = ColumnPipeline({c: TABLE2_PLANS[c] for c in qp.columns()}, device="cuda",
+                             chunk_bytes=None)
+        mat.load({c: encoded[c] for c in qp.columns()})
+        res = mat.run()
+        want = plan_engine(qp, {c: res[c].array for c in qp.columns()}).cpu().numpy()
+        got = np.asarray(out.result)
+        if not np.allclose(got, want, rtol=QUERY_RTOL, atol=0):
+            raise AssertionError(f"{name}: fused {got.tolist()} vs materialize-then-query "
+                                 f"{want.tolist()}")
+        if name == "const_lane" and float(out.acc[0]) != 2.5 * float(out.acc[-1]):
+            raise AssertionError(f"const_lane: {float(out.acc[0])} != 2.5 x "
+                                 f"{float(out.acc[-1])}")
+        p_ = pipes[name]
+        red = fq.graph.stages[-1]
+        sched, staged = p_.executor._query_staging(fq, p_._query_cfg[qp.digest()][1])
+        flat = staged.host.cuda()
+        res = {fq.resident_input(c): torch.from_numpy(cols[c]).cuda() for c in fq.resident}
+        rel = 0.0
+        for k in range(sched.n_chunks):
+            env = {**staged.views(flat, k), **res}
+            kw = dict(n=sched.out_sizes[k], out_start=sched.out_starts[k])
+            k_out, plain = query_reduce(red, env, **kw), ref.query_reduce_torch(red, env, **kw)
+            if not torch.equal(k_out[-S:], plain[-S:]) or \
+                    not torch.allclose(k_out, plain, rtol=QUERY_KERNEL_RTOL, atol=0):
+                raise AssertionError(f"{name} chunk {k}: kernel {k_out.tolist()} vs plain "
+                                     f"{plain.tolist()}")
+            d = (k_out.double() - plain.double()).abs()
+            rel = max(rel, (d / plain.double().abs().clamp(min=1e-30)).max().item())
+        env = {**staged.views(flat, 0), **res}
+        n = sched.out_sizes[0]
+        rec = {"query": name, "lanes": len(qp.aggregates), "segments": S,
+               "accumulators": pr.n_acc, "acc_place": pr.acc_place,
+               "chunks": out.n_chunks, "selected": int(sel.sum()),
+               "fused_ms": out.makespan_s * 1e3, "max_rel_err": rel,
+               "kernel_ms": timer.ms(lambda: query_reduce(red, env, n=n)),
+               "plain_ms": timer.ms(lambda: ref.query_reduce_torch(red, env, n=n), 3)}
+        recs.append(rec)
+        print(f"query wide {name:14s} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in rec.items() if k != "query"))
+    print(f"query wide: kernels built in {build_s:.2f} s; main-path launches {launches}")
+    return recs
+
+
+def spearman(a, b) -> float:
+    """Spearman's rank correlation of two sequences (ties ranked in order)."""
+    ra = np.argsort(np.argsort(np.asarray(a, dtype=np.float64)))
+    rb = np.argsort(np.argsort(np.asarray(b, dtype=np.float64)))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def run_geometry(big: dict, timer, spec) -> dict:
+    """Phase 8: the launch-geometry spaces of kernels 1-3 on the card.  For
+    each kernel's largest stage of the SF-1 run (the ``kernels`` line's
+    ``at``), ``autotune.brute_force`` and ``autotune.pruned_search`` over its
+    pattern's space (``core/geometry.py``), measuring each geometry once (CUDA
+    events, L2 flushed, median of 10 launches; the pruned search reads the
+    same measurements) after holding its output bitwise against the plain
+    version; plus the native table's and the baseline's geometry, and the
+    rank correlation of ``analytic_cost_ns`` with the measured times."""
+    from repro_torch.core.autotune import brute_force, pruned_search
+    from repro_torch.core.compiler import BASELINE_GEOMS
+    from repro_torch.core.geometry import SPACES, analytic_cost_ns, native_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fully_parallel import fully_parallel
+    from repro_torch.kernels.group_parallel import group_parallel
+    from repro_torch.kernels.non_parallel import non_parallel
+
+    fns = {"fully_parallel": (fully_parallel, ref.fully_parallel_torch),
+           "group_parallel": (group_parallel, ref.group_parallel_torch),
+           "non_parallel": (non_parallel, ref.non_parallel_torch)}
+    out = {}
+    for kname, (rec, st, env) in big.items():
+        pattern = PATTERN[kname]
+        kfn, pfn = fns[kname]
+        plain = pfn(st, env)
+        width = plain.element_size()
+        measured: dict = {}
+
+        def measure(g):
+            if g not in measured:
+                same(kfn(st, env, g), plain, f"{kname} {rec['column']}:{st.name} at {g}")
+                measured[g] = timer.ms(lambda: kfn(st, env, g))
+            return measured[g]
+
+        t0 = time.perf_counter()
+        brute = brute_force(pattern, spec, measure, width)
+        pruned = pruned_search(pattern, spec, measure, width)
+        native = native_config(pattern, out_width=width)
+        base = BASELINE_GEOMS[pattern]
+        native_ms, base_ms = measure(native), measure(base)
+        space = list(SPACES[pattern](spec, width))
+        if len(brute.history) != len(space):
+            raise AssertionError(f"{kname}: brute force probed {len(brute.history)} of "
+                                 f"{len(space)}")
+        model_kw = dict(bytes_in=rec["bytes"] - rec["out_bytes"], bytes_out=rec["out_bytes"])
+        if pattern == "np":
+            model_kw["chunk_size"] = st.chunk_size
+        model = [analytic_cost_ns(pattern, g, st.n_out, width, spec, **model_kw)
+                 for g in space]
+        geo = {"stage": f"{rec['column']}:{st.name}", "n": st.n_out, "out_width": width,
+               "space": len(space), "bitwise": len(measured),
+               "brute_best": str(brute.best), "brute_ms": brute.cost,
+               "pruned_best": str(pruned.best), "pruned_probes": pruned.probes,
+               "pruned_ms": pruned.cost, "native": str(native), "native_ms": native_ms,
+               "baseline": str(base), "baseline_ms": base_ms,
+               "spearman_model": spearman(model, [measured[g] for g in space]),
+               "model_best": str(space[int(np.argmin(model))]),
+               "model_best_ms": measured[space[int(np.argmin(model))]],
+               "worst": str(max(measured, key=measured.get)),
+               "worst_ms": max(measured.values()), "seconds": time.perf_counter() - t0,
+               "by_geometry": {str(g): v for g, v in sorted(measured.items(),
+                                                            key=lambda kv: kv[1])}}
+        out[kname] = geo
+        print(f"geometry {kname:14s} {geo['stage']:28s} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in geo.items() if k not in ("stage", "by_geometry")))
+    return out
+
+
+def run_baseline(columns, cols: dict, encoded: dict, timer, libs) -> dict:
+    """Phase 9: the unfused ``baseline`` backend (every stage a launch at
+    ``BASELINE_GEOMS``) for each column on the card, bitwise against the fused
+    program's decode and the source, each timed whole beside the fused one
+    (CUDA events, L2 flushed, median of 10), with the kernel launches of one
+    decode of each."""
+    from repro_torch.core.compiler import compile_decoder, device_buffers
+
+    recs = {}
+    for col in columns:
+        enc = encoded[col]
+        bufs = device_buffers(enc)
+        base, fused = compile_decoder(enc, backend="baseline"), compile_decoder(enc)
+        counts = []
+        for dec in (base, fused):
+            before = [lib.launches for lib in libs]
+            dec(bufs)
+            counts.append(sum(lib.launches - b for lib, b in zip(libs, before)))
+        got = base(bufs)
+        same(got, fused(bufs), f"baseline {col} vs fused")
+        same(got.cpu(), torch.from_numpy(cols[col]), f"baseline {col} vs source")
+        recs[col] = {"stages": base.n_kernels, "fused_stages": fused.n_kernels,
+                     "launches": counts[0], "fused_launches": counts[1],
+                     "ms": timer.ms(lambda: base(bufs)),
+                     "fused_ms": timer.ms(lambda: fused(bufs))}
+        print(f"baseline {col:16s} " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in recs[col].items()))
+    tot = {k: sum(r[k] for r in recs.values()) for k in ("ms", "fused_ms", "launches",
+                                                           "fused_launches")}
+    print("baseline totals " + " ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                        else f"{k} {v}" for k, v in tot.items()))
+    return {"columns": recs, "totals": tot}
+
+
 def run_serving(cols: dict, encoded: dict, libs, plain_copy_ms: float) -> dict:
     """Phase 6: the dispatch engine and the serving planner on the card (see
     the module docstring); returns the ``dispatch`` and ``serve`` records and
@@ -751,7 +993,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.compiler import build_graph, device_buffers, span_stage
     from repro_torch.core.executor import StreamingExecutor
-    from repro_torch.core.geometry import Geometry, chip_from_device, native_config
+    from repro_torch.core.geometry import (KERNEL_REGS, Geometry, chip_from_device,
+                                           native_config)
     from repro_torch.core.ir import group_chunk_layout
     from repro_torch.core.fusion import fuse
     from repro_torch.algos.bitpack import pack_np
@@ -794,9 +1037,17 @@ def main() -> int:
     print("preload: " + " ".join(f"{lib.name}_ms {lib.preload_s[0] * 1e3:.4f}"
                                  for lib in libs))
     for lib in libs:
+        regs = 0
         for line in lib.path().with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.name}: {line.strip()}")
+            m = re.search(r"Used (\d+) registers", line)
+            regs = max(regs, int(m.group(1))) if m else regs
+        # the geometry spaces bound S by these (core/geometry.py KERNEL_REGS)
+        if not 0 < regs <= KERNEL_REGS[PATTERN[lib.name]]:
+            raise AssertionError(f"{lib.name} takes {regs} registers a thread, the "
+                                 f"geometry spaces assume at most "
+                                 f"{KERNEL_REGS[PATTERN[lib.name]]}")
 
     t0 = time.perf_counter()
     cols = generate(args.scale, seed=args.seed)
@@ -814,6 +1065,7 @@ def main() -> int:
     compared = {k: 0 for k in KERNELS}
     stages = []
     profiled = []   # (record, fn, kernel) of each timed stage, profiled at once
+    stage_args = {}  # id(record) -> (stage, inputs) of each timed stage
 
     def check(st, env, col, timed):
         """Kernel vs plain on one FP/GP/NP stage; env holds plain-version inputs."""
@@ -835,11 +1087,13 @@ def main() -> int:
         compared[kname] += 1
         if timed:
             rec = {"kernel": kname, "column": col, "stage": st.name, "n": st.n_out,
+                   "out_bytes": plain.numel() * plain.element_size(),
                    "bytes": stage_bytes(stage_inputs(st), env, plain),
                    "ms": timer.ms(lambda: kfn(st, env)),
                    "plain_ms": timer.ms(lambda: pfn(st, env), plain_reps),
                    "library_ms": None}
             profiled.append((rec, lambda: kfn(st, env), f"zf_{kname}"))
+            stage_args[id(rec)] = (st, env)
             if kname == "non_parallel":
                 for s_ in NP_BLOCKS:
                     rec[f"ms_s{s_}"] = timer.ms(lambda: kfn(st, env, Geometry(1, s_, 1)))
@@ -886,6 +1140,14 @@ def main() -> int:
                                                       timer.flush)):
         rec["profiler_ms"] = ms
     profiled = None
+    # each kernel's largest main-path stage (the kernels line's), kept with its
+    # inputs for phase 8's geometry sweep
+    bigs = {}
+    for k in KERNELS:
+        r = max((r for r in stages if r["kernel"] == k),
+                key=lambda r: (r["library_ms"] is not None, r["bytes"]))
+        bigs[k] = (r, *stage_args[id(r)])
+    stage_args = None
     rng = np.random.default_rng(args.seed)
     for bw in FP_BWS:
         for n in FP_NS:
@@ -1092,6 +1354,19 @@ def main() -> int:
             span_pipes[cb].load({c: span_pipes[CHUNK_SIZES[0]].encoded(c)
                                  for c in SPAN_PLANS})
     entries = []          # one record per timed chunk or span entry
+    off_entries = []      # chunk and span entries held at a geometry off the native table
+
+    def off_native(kname, col, what, native_out, call):
+        """A chunk or span entry again at OFF_NATIVE[kname], into a buffer of
+        its own: bitwise to the native launch's range (itself held above)."""
+        geom = Geometry(*OFF_NATIVE[kname])
+        alt = torch.empty_like(native_out)
+        before = libs[list(KERNELS).index(kname)].launches
+        call(geom, alt)
+        if libs[list(KERNELS).index(kname)].launches != before + 1:
+            raise AssertionError(f"{col} {what} at {geom}: no launch of {kname}")
+        same(alt, native_out, f"{col} {what} at {geom}")
+        off_entries.append(f"{kname} {col} {what} at {geom}")
 
     def entry(kname, col, what, n, call, whole_call, whole_n, plain_call=None,
               plain_reps=None):
@@ -1119,6 +1394,8 @@ def main() -> int:
                 out[s:s + n], ref.fully_parallel_torch(st, env, n), f"{col} chunk {k}"))
             compared["fully_parallel"] += 1
             same(out[s:s + n].cpu(), want[s:s + n], f"{col} chunk {k} vs source")
+            off_native("fully_parallel", col, f"chunk {k}", out[s:s + n],
+                       lambda g, o: fully_parallel(st, env, g, n=n, out=o))
             entry("fully_parallel", col, f"chunk {k}/{K}", n,
                   lambda: fully_parallel(st, env, n=n, out=out[s:s + n]),
                   lambda: fully_parallel(st, whole_env), st.n_out,
@@ -1155,6 +1432,13 @@ def main() -> int:
         s, n, g0, gz = (sched.out_starts[0], sched.out_sizes[0], sched.g_starts[0],
                         sched.g_sizes[0])
         if layout.kind == "gp":
+            off_native(kname, col, "span 0", out[s:s + n],
+                       lambda g, o: group_parallel(st, envs[0], g, out=o, out_start=s,
+                                                   g_start=g0, n_valid=n, g_size=gz))
+        else:
+            off_native(kname, col, "span 0", out[s:s + n],
+                       lambda g, o: non_parallel(st, envs[0], g, n_chunks=gz, n=n, out=o))
+        if layout.kind == "gp":
             entry(kname, col, f"span 0/{K}", n,
                   lambda: group_parallel(st, envs[0], out=out[s:s + n], out_start=s,
                                          g_start=g0, n_valid=n, g_size=gz),
@@ -1173,6 +1457,8 @@ def main() -> int:
     for kname in KERNELS:
         if not any(r["kernel"] == kname for r in entries):
             raise AssertionError(f"no chunk or span entry of {kname} was checked")
+        if not any(e.startswith(kname) for e in off_entries):
+            raise AssertionError(f"no entry of {kname} was held off its native geometry")
 
     # the batched entries: K members of one structure, one launch per the
     # kernel's limit of members, against the plain batched version and K
@@ -1252,7 +1538,9 @@ def main() -> int:
                                    for a in (flags, shuffled)],
                   "L_RETURNFLAG and its rANS chunks reordered")
     print(f"compare: {compared} kernel launches bitwise equal to plain, of them "
-          f"kernel-1 cases {fp_cases} ({time.perf_counter() - t0:.1f} s)")
+          f"kernel-1 cases {fp_cases} ({time.perf_counter() - t0:.1f} s); chunk and span "
+          f"entries off the native geometry, bitwise to the native: {len(off_entries)} "
+          f"({'; '.join(off_entries[:1] + off_entries[-2:])})")
     for r in entries:
         plain = "" if r["plain_ms"] is None else f" plain_ms {r['plain_ms']:.4f}"
         print(f"entry {r['kernel']:14s} {r['column']:16s} {r['entry']:12s} n {r['n']:9d} "
@@ -1565,8 +1853,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 7
     queries = run_queries(args, cols, encoded, timer, hbm, libs)
+    wide = run_wide_queries(cols, encoded, timer, libs)
 
     # ---------------------------------------------------------------- phase 8
+    geometry = run_geometry(bigs, timer, spec)
+    bigs = None
+
+    # ---------------------------------------------------------------- phase 9
+    baseline = run_baseline(columns, cols, encoded, timer, libs)
+
+    # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
     comp_b = sum(r.compressed_bytes for r in res.values())
@@ -1634,7 +1930,11 @@ def main() -> int:
             "planner_batched_launches_per_run": {k: v["batched_launches_per_run"][kname]
                                                  for k, v in planned.items()},
             "serve_launches_per_warm_wave": served["warm_wave_launches"][kname],
-            "serve_largest_batch": served["largest_batch"][kname]})
+            "serve_largest_batch": served["largest_batch"][kname],
+            "geometry": {k: v for k, v in geometry[kname].items() if k != "by_geometry"},
+            "baseline_launches": sum(
+                r["launches"] for r in baseline["columns"].values()),
+            "baseline_ms_all_columns": baseline["totals"]["ms"]})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -1645,7 +1945,8 @@ def main() -> int:
                                         "planner": planned, "queries": queries["runs"],
                                         "dispatch": served["dispatch"],
                                         "serve": served["serve"],
-                                        "kernels": kernels},
+                                        "wide_queries": wide, "geometry": geometry,
+                                        "baseline": baseline, "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

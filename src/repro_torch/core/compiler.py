@@ -1,17 +1,23 @@
 """ZipFlow compiler: DecodeGraph -> executable decode program.
 
 The pipeline is ``plan.lower_graph`` -> ``fusion.fuse_graph`` -> ``compile_graph``;
-programs live in a ``ProgramCache`` keyed by the graph's structure-only signature
-and the backend, so structurally identical columns share one program even
+programs live in a ``ProgramCache`` keyed by the graph's structure-only signature,
+the backend and the launch geometry, so structurally identical columns share one program even
 when their data-dependent meta differs: programs are *called* with an operand dict
 (leaf buffers + lifted meta scalars, ``plan.host_operands`` staged on the device),
 never specialized on meta values.
 
 Backends:
-  * "kernel" -- the hand-written CUDA kernels of ``repro_torch.kernels`` (the
-                card's main path), at each pattern's native geometry;
-  * "torch"  -- the plain PyTorch versions (the CPU backend, and the comparison
-                the card runs against the kernels).
+  * "kernel"   -- the hand-written CUDA kernels of ``repro_torch.kernels`` (the
+                  card's main path), at each pattern's native geometry or at
+                  the ``geometry`` a caller gives (``{"fp"|"gp"|"np": Geometry}``);
+  * "torch"    -- the plain PyTorch versions (the CPU backend, and the
+                  comparison the card runs against the kernels);
+  * "baseline" -- the nvCOMP role of the paper's §5.2/§5.3: the same kernels,
+                  **unfused** (every stage writes its output to device memory)
+                  at one fixed library geometry, ``BASELINE_GEOMS``, not adapted
+                  to the card.  On CPU tensors the kernels' wrappers run their
+                  plain versions, as for "kernel".
 PyTorch runs eagerly, so a program is the fused stage list and its backend; the
 one-time cost of a structure is building the CUDA libraries, done once per
 process (``repro_torch.kernels.cuda``).
@@ -40,19 +46,50 @@ import torch
 
 from repro_torch.core import fusion as fusion_mod
 from repro_torch.core import plan as plan_mod
+from repro_torch.core.geometry import DEFAULT_CHIP, Geometry, chip as chip_spec
 from repro_torch.core.ir import (DecodeGraph, element_chunk_layout, group_chunk_layout,
                                  query_chunk_layout)
-from repro_torch.core.patterns import LOAD, GroupParallel
-from repro_torch.kernels.ops import BACKENDS, run_stage, run_stage_batched
+from repro_torch.core.patterns import LOAD, GroupParallel, Stage
+from repro_torch.kernels.ops import BACKENDS as STAGE_BACKENDS
+from repro_torch.kernels.ops import run_stage, run_stage_batched
 from repro_torch.kernels.ref import torch_dtype
+
+BACKENDS = STAGE_BACKENDS + ("baseline",)
+
+# The baseline's one library geometry for every pattern and output width: one
+# output (Non-Parallel: one chunk) per thread per block of 128 threads, the
+# shape a general-purpose library launches without knowing the card or the
+# stage (the reference's <1, 8, 128> reads the same idea the TPU way: one
+# sublane group of one lane row).  It gives up what the native table buys:
+# 16-byte stores (C * width = 16), several sub-tiles a block, larger blocks.
+BASELINE_GEOMS = {"fp": Geometry(1, 128, 1), "gp": Geometry(1, 128, 1),
+                  "np": Geometry(1, 128, 1)}
+
+
+def stage_backend(backend: str, geometry: dict[str, Geometry] | None = None
+                  ) -> tuple[str, dict[str, Geometry] | None]:
+    """What ``run_stage`` takes for a program's backend: "baseline" is the
+    kernel backend at ``BASELINE_GEOMS``."""
+    if backend == "baseline":
+        return "kernel", BASELINE_GEOMS
+    return backend, geometry
+
+
+def fuses(backend: str, fuse: bool = True) -> bool:
+    """Whether a program of ``backend`` is compiled from the fused graph: the
+    baseline never is (``src/repro/core/compiler.py`` ``compile_blob``)."""
+    return fuse and backend != "baseline"
 
 
 @dataclasses.dataclass
 class Program:
-    """One decode program, shared by every blob with the same signature."""
+    """One decode program, shared by every blob with the same signature;
+    ``geometry`` maps a pattern to its launch geometry (None: the native
+    table; the baseline's is ``BASELINE_GEOMS``)."""
 
     graph: DecodeGraph
     backend: str
+    geometry: dict[str, Geometry] | None = None
     calls: int = 0              # single-column decodes
     batched_calls: int = 0      # batched decodes
 
@@ -60,13 +97,23 @@ class Program:
     def signature(self) -> str:
         return self.graph.signature
 
+    @property
+    def stages(self) -> list[Stage]:
+        return self.graph.stages
+
+    @property
+    def n_kernels(self) -> int:
+        """Stages of the program, the reference's count of its launches."""
+        return len(self.graph.stages)
+
     def __call__(self, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
         """Decode one column from its staged operands (no host sync inside)."""
         self.calls += 1
+        backend, geoms = stage_backend(self.backend, self.geometry)
         env = dict(bufs)
         out = None
         for st in self.graph.stages:
-            out = run_stage(st, env, self.backend)
+            out = run_stage(st, env, backend, geoms=geoms)
             env[st.out] = out
         return out
 
@@ -87,10 +134,11 @@ class Program:
         pad = -(-graph.n_out // per_row) * per_row
         rows = torch.empty((len(members), pad), dtype=out_dt, device=device)
         last = len(graph.stages) - 1
+        backend, geoms = stage_backend(self.backend, self.geometry)
         for k, st in enumerate(graph.stages):
             outs = [rows[i, :graph.n_out] for i in range(len(members))] if k == last else None
-            for env, res in zip(members, run_stage_batched(st, members, self.backend,
-                                                           outs=outs)):
+            for env, res in zip(members, run_stage_batched(st, members, backend, outs=outs,
+                                                           geoms=geoms)):
                 env[st.out] = res
         return rows[:, :graph.n_out]
 
@@ -100,10 +148,19 @@ def _check_backend(backend: str) -> None:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
 
 
-def compile_graph(graph: DecodeGraph, backend: str = "torch") -> Program:
-    """Compile a DecodeGraph to a Program (no caching -- see ProgramCache)."""
+def compile_graph(graph: DecodeGraph, backend: str = "torch", chip: str = DEFAULT_CHIP,
+                  geometry: dict[str, Geometry] | None = None) -> Program:
+    """Compile a DecodeGraph to a Program (no caching -- see ProgramCache).
+    ``geometry`` overrides the native geometry of the patterns it names; the
+    baseline takes ``BASELINE_GEOMS`` whatever is given.  ``chip`` names the
+    ``ChipSpec`` (the port knows one card; the native table is its)."""
     _check_backend(backend)
-    return Program(graph=graph, backend=backend)
+    chip_spec(chip)
+    if backend == "baseline":
+        # fixed library geometry, deliberately not adapted to the card (paper §5.2)
+        geometry = dict(BASELINE_GEOMS)
+    return Program(graph=graph, backend=backend,
+                   geometry=dict(geometry) if geometry else None)
 
 
 @dataclasses.dataclass
@@ -126,9 +183,10 @@ class ChunkProgram:
         env = dict(bufs)
         n = self.chunk_elems
         last = len(self.graph.stages) - 1
+        backend, geoms = stage_backend(self.backend)
         for k, st in enumerate(self.graph.stages):
             dst = out[out_start:out_start + n] if k == last else None
-            env[st.out] = run_stage(st, env, self.backend, n=n, out=dst)
+            env[st.out] = run_stage(st, env, backend, n=n, out=dst, geoms=geoms)
         return out
 
 
@@ -163,9 +221,10 @@ class QueryChunkProgram:
         env = dict(bufs)
         n = self.chunk_elems
         *pre, red = self.graph.stages
+        backend, geoms = stage_backend(self.backend)
         for st in pre:      # Fully-Parallel stages fusion left standing
-            env[st.out] = run_stage(st, env, self.backend, n=n)
-        return run_stage(red, env, self.backend, out=out, n=n, out_start=int(out_start),
+            env[st.out] = run_stage(st, env, backend, n=n, geoms=geoms)
+        return run_stage(red, env, backend, out=out, n=n, out_start=int(out_start),
                          accumulate=accumulate)
 
 
@@ -192,8 +251,9 @@ class PrologueProgram:
         self.calls += 1
         layout = group_chunk_layout(self.graph)
         env = dict(bufs)
+        backend, geoms = stage_backend(self.backend)
         for st in self.graph.stages[:layout.stage_index]:
-            env[st.out] = run_stage(st, env, self.backend)
+            env[st.out] = run_stage(st, env, backend, geoms=geoms)
         return {nm: env[nm] for nm in layout.resident}
 
 
@@ -278,19 +338,20 @@ class GroupChunkProgram:
         gst = self._stage
         final = out[out_start:out_start + n_valid]
         dst = None if self._post else final
+        backend, geoms = stage_backend(self.backend)
         if isinstance(gst, GroupParallel):
-            env[gst.out] = run_stage(gst, env, self.backend, out=dst,
+            env[gst.out] = run_stage(gst, env, backend, out=dst, geoms=geoms,
                                      out_start=out_start, g_start=g_start,
                                      n_valid=n_valid, g_size=self.g_size)
         else:
             # symbols (bytes) of this span, the last span cut at the stream's end
             cs = gst.chunk_size
             n_sym = min(self.g_size * cs, gst.n_out - g_start * cs)
-            env[gst.out] = run_stage(gst, env, self.backend, out=dst,
+            env[gst.out] = run_stage(gst, env, backend, out=dst, geoms=geoms,
                                      n_chunks=self.g_size, n=n_sym)
         for k, st in enumerate(self._post):
             dst = final if k == len(self._post) - 1 else None
-            env[st.out] = run_stage(st, env, self.backend, n=n_valid, out=dst)
+            env[st.out] = run_stage(st, env, backend, n=n_valid, out=dst, geoms=geoms)
         return out
 
 
@@ -303,11 +364,19 @@ def compile_group_chunk_graph(graph: DecodeGraph, g_size: int, pad_elems: int,
                              backend=backend)
 
 
+def _geometry_key(geometry: dict[str, Geometry] | None):
+    if geometry is None:
+        return None
+    return tuple(sorted(geometry.items()))
+
+
 class ProgramCache:
     """Signature-keyed cache of compiled programs: one program per *structure*.
 
-    The key is (graph signature, backend); everything value-dependent is already
-    folded into the signature by the IR layer.
+    The whole-column key is (graph signature, backend, geometry); the chunk,
+    span and query programs run at the native geometry (the baseline's at its
+    own) and are keyed as in the reference, without one.  Everything
+    value-dependent is already folded into the signature by the IR layer.
     ``max_programs`` bounds the cache LRU-style (None = unbounded).
     """
 
@@ -363,9 +432,11 @@ class ProgramCache:
                     self._compiling.pop(key, None)
         return prog
 
-    def get(self, graph: DecodeGraph, backend: str = "torch") -> Program:
-        key = (graph.signature, backend)
-        return self._get(key, lambda: compile_graph(graph, backend=backend))
+    def get(self, graph: DecodeGraph, backend: str = "torch", chip: str = DEFAULT_CHIP,
+            geometry: dict[str, Geometry] | None = None) -> Program:
+        key = (graph.signature, backend, _geometry_key(geometry))
+        return self._get(key, lambda: compile_graph(graph, backend=backend, chip=chip,
+                                                    geometry=geometry))
 
     def get_chunk(self, graph: DecodeGraph, chunk_elems: int,
                   backend: str = "torch") -> ChunkProgram:
@@ -399,18 +470,47 @@ class ProgramCache:
         return self._get(key, lambda: compile_group_prologue(graph, backend))
 
 
-def build_graph(enc: plan_mod.Encoded) -> DecodeGraph:
-    """Lower + fuse: the front half of the compile pipeline."""
-    return fusion_mod.fuse_graph(plan_mod.lower_graph(enc))
+def build_graph(enc: plan_mod.Encoded, fuse: bool = True) -> DecodeGraph:
+    """Lower + (optionally) fuse: the front half of the compile pipeline."""
+    graph = plan_mod.lower_graph(enc)
+    return fusion_mod.fuse_graph(graph) if fuse else graph
 
 
-def compile_blob(enc: plan_mod.Encoded, backend: str = "torch",
+def compile_blob(enc: plan_mod.Encoded, backend: str = "torch", fuse: bool = True,
+                 chip: str = DEFAULT_CHIP, geometry: dict[str, Geometry] | None = None,
                  cache: ProgramCache | None = None) -> Program:
-    """Blob -> cached Program.  Without a ``cache`` the program is built fresh."""
-    graph = build_graph(enc)
+    """Blob -> cached Program.  Without a ``cache`` the program is built fresh.
+    The baseline is never fused."""
+    graph = build_graph(enc, fuse=fuses(backend, fuse))
     if cache is None:
-        return compile_graph(graph, backend=backend)
-    return cache.get(graph, backend=backend)
+        return compile_graph(graph, backend=backend, chip=chip, geometry=geometry)
+    return cache.get(graph, backend=backend, chip=chip, geometry=geometry)
+
+
+@dataclasses.dataclass
+class CompiledDecoder:
+    """The per-blob handle of the reference's compatibility shim: a view of a
+    Program (``fn`` is the program itself)."""
+
+    fn: Callable[[dict[str, torch.Tensor]], torch.Tensor]
+    stages: list[Stage]
+    backend: str
+    n_kernels: int
+    program: Program | None = None
+
+    def __call__(self, bufs: dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.program is not None:
+            return self.program(bufs)
+        return self.fn(bufs)
+
+
+def compile_decoder(enc: plan_mod.Encoded, backend: str = "kernel", fuse: bool = True,
+                    chip: str = DEFAULT_CHIP, geometry: dict[str, Geometry] | None = None
+                    ) -> CompiledDecoder:
+    """A blob's decoder, built fresh (no cache), on ``backend``."""
+    prog = compile_blob(enc, backend=backend, fuse=fuse, chip=chip, geometry=geometry)
+    return CompiledDecoder(fn=prog, stages=prog.stages, backend=backend,
+                           n_kernels=prog.n_kernels, program=prog)
 
 
 # ------------------------------------------------------------- device operands
@@ -438,3 +538,10 @@ def device_buffers(enc: plan_mod.Encoded,
     itself) plus the lifted meta operands the program consumes at call time."""
     return {k: torch.from_numpy(device_layout(v)).to(device)
             for k, v in plan_mod.host_operands(enc).items()}
+
+
+def decode_on_device(enc: plan_mod.Encoded, backend: str = "kernel",
+                     device: torch.device | str = "cuda", **kw: Any) -> torch.Tensor:
+    """One-shot helper: transfer + decode (on the card unless ``device`` says
+    otherwise; keywords go to ``compile_decoder``)."""
+    return compile_decoder(enc, backend=backend, **kw)(device_buffers(enc, device))

@@ -88,10 +88,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel, fusion
+from repro_torch.core import costmodel, fusion, scheduler
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import planner as planner_mod
-from repro_torch.core.compiler import Program, ProgramCache, build_graph, device_layout
+from repro_torch.core.compiler import (Program, ProgramCache, build_graph, device_layout,
+                                       fuses)
 from repro_torch.core.costmodel import CostModel, profile_from
 from repro_torch.core.ir import (DecodeGraph, element_chunk_layout, group_chunk_layout,
                                  query_chunk_layout)
@@ -777,7 +778,8 @@ class StreamingExecutor:
     built when ``run`` is called without one; a plan passed in is
     authoritative.  ``async_dispatch`` makes ``run`` issue its copies from a
     ``DispatchEngine`` transfer thread by default (off, as in the
-    reference)."""
+    reference).  ``fuse=False`` compiles the columns' unfused graphs (the
+    ``"baseline"`` backend never fuses)."""
 
     _DEFAULTS = object()     # "use the constructor's chunk configuration"
 
@@ -785,8 +787,10 @@ class StreamingExecutor:
                  chunk_bytes: int | None | str = 1 << 20, chunk_decode: bool = False,
                  policy: str = "chunk-johnson", pipeline: bool = True,
                  batch_columns: bool = True, prefetch_chunks: int | None = None,
-                 cost_model: CostModel | None = None, async_dispatch: bool = False):
+                 cost_model: CostModel | None = None, async_dispatch: bool = False,
+                 fuse: bool = True):
         self.backend = backend
+        self.fuse = fuse
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -828,7 +832,7 @@ class StreamingExecutor:
         self._query_runs: dict[tuple, tuple] = {}
         self._prepared: dict[int, object] = {}   # the Reduces whose kernel is loaded
         self._query_traffic: dict[str, tuple[int, int]] = {}
-        if backend == "kernel" and self.device.type == "cuda":
+        if backend in ("kernel", "baseline") and self.device.type == "cuda":
             # build the three decode libraries (one nvcc each, at once) and
             # load every kernel on the device now, before any timed run; a
             # query's kernel is built when the query is prepared
@@ -850,7 +854,7 @@ class StreamingExecutor:
         model, and its host staging for the constructor's configuration."""
         split = self.register_split_s
         t0 = time.perf_counter()
-        graph = build_graph(enc)
+        graph = build_graph(enc, fuse=fuses(self.backend, self.fuse))
         prog = self.cache.get(graph, backend=self.backend)
         self._encoded[name] = enc
         self._programs[name] = prog
@@ -926,6 +930,29 @@ class StreamingExecutor:
             return 1
         return sum(len(split_chunks(np.asarray(v), chunk_bytes))
                    for v in plan_mod.flat_buffers(self._encoded[name]).values())
+
+    # ------------------------------------------------------------------- model
+    def measured_jobs(self, names: Sequence[str] | None = None) -> list[scheduler.Job]:
+        """Scheduling jobs from the cost model in consistent units: measured
+        times when every column has one, calibrated chip estimates for all
+        otherwise (``CostModel.jobs``)."""
+        names = list(self._encoded) if names is None else list(names)
+        return self.cost_model.jobs(names)
+
+    def modeled_makespan(self, names: Sequence[str] | None = None, pipeline: bool = True,
+                         johnson: bool = True, chunked: bool = False) -> float:
+        """Two-machine flow-shop makespan from the current (measured or
+        estimated) per-column times, at the transfer chunks of the
+        constructor's size when ``chunked``; ``pipeline=False`` is the serial
+        time."""
+        jobs = self.measured_jobs(names)
+        if not pipeline:
+            return scheduler.serial_time(jobs)
+        if chunked:
+            jobs = scheduler.chunk_jobs(jobs, [
+                self.n_transfer_chunks(j.name, self._fixed_chunk_bytes) for j in jobs])
+        order = scheduler.johnson_order(jobs) if johnson else scheduler.fifo_order(jobs)
+        return scheduler.makespan(jobs, order)
 
     def chunk_schedule(self, name: str, chunk_bytes: int | None | object = _DEFAULTS
                        ) -> ChunkSchedule | None:
@@ -1245,7 +1272,7 @@ class StreamingExecutor:
         backend on a CUDA device; nothing elsewhere), so that no timed
         ``run_query`` compiles: its program is made from ``query_types``."""
         red = fq.graph.stages[-1]
-        if self.backend != "kernel" or self.device.type != "cuda" \
+        if self.backend not in ("kernel", "baseline") or self.device.type != "cuda" \
                 or self._prepared.get(id(red)) is red:
             return
         query_reduce.program(red, {b: torch.empty(0, dtype=dt, device=self.device)

@@ -17,11 +17,14 @@ the backend is ``"torch"``.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import scheduler
+from repro_torch.core.compiler import device_buffers
 from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
 from repro_torch.core.plan import Plan
 from repro_torch.core.planner import ExecutionPlan
@@ -48,13 +51,19 @@ class ColumnPipeline:
     ``pipeline=False`` keeps the order of registration.  ``cost_model`` (e.g.
     ``CostModel.load``) seeds planning from an earlier process's calibration;
     each run's measurements feed it.  ``async_dispatch=True`` issues each run's
-    copies from a transfer thread (``core.executor.DispatchEngine``)."""
+    copies from a transfer thread (``core.executor.DispatchEngine``).
+    ``fuse=False`` decodes the unfused graphs.  An ``executor`` passed in wins
+    over every executor setting here (device, backend, chunking, policy,
+    fusion), as in the reference; the pipeline mirrors its configuration."""
 
     def __init__(self, plans: dict[str, Plan], device: torch.device | str | None = None,
                  backend: str | None = None, chunk_bytes: int | None | str = 1 << 20,
                  chunk_decode: bool = False, policy: str = "chunk-johnson",
                  pipeline: bool = True, batch_columns: bool = True, cost_model=None,
-                 async_dispatch: bool = False):
+                 async_dispatch: bool = False, fuse: bool = True,
+                 executor: StreamingExecutor | None = None):
+        if executor is not None:
+            device = executor.device
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ColumnPipeline runs on CUDA by default and no CUDA "
@@ -64,12 +73,14 @@ class ColumnPipeline:
             device = torch.device("cuda", torch.cuda.current_device())
         self.plans = plans
         self.device = device
-        self.backend = backend or ("kernel" if device.type == "cuda" else "torch")
-        self.executor = StreamingExecutor(
-            backend=self.backend, device=device, chunk_bytes=chunk_bytes,
-            chunk_decode=chunk_decode, policy=policy, pipeline=pipeline,
-            batch_columns=batch_columns, cost_model=cost_model,
-            async_dispatch=async_dispatch)
+        self.executor = executor or StreamingExecutor(
+            backend=backend or ("kernel" if device.type == "cuda" else "torch"),
+            device=device, chunk_bytes=chunk_bytes, chunk_decode=chunk_decode,
+            policy=policy, pipeline=pipeline, batch_columns=batch_columns,
+            cost_model=cost_model, async_dispatch=async_dispatch, fuse=fuse)
+        # the effective configuration (a passed executor wins)
+        self.backend = self.executor.backend
+        self.fuse = self.executor.fuse
         self.async_dispatch = self.executor.async_dispatch
         self._encoded: dict[str, plan_mod.Encoded] = {}
         # lowered fused queries and their planned (window, chunk_bytes), keyed
@@ -122,6 +133,37 @@ class ColumnPipeline:
         configured policy unless given); an explicit ``order`` pins the issue
         order, and ``window`` overrides the plan's decode units in flight."""
         return self.executor.run(order=order, plan=plan, window=window)
+
+    def _measure(self, name: str) -> tuple[float, float]:
+        """The column's (transfer_s, decode_s) for scheduling: the executor's
+        from its latest run, else measured once here -- one copy of its
+        operands to the device and one decode by its program (host clock
+        around a synchronized device) -- and fed to the cost model."""
+        timings = self.executor.timings
+        if name not in timings:
+            cuda = self.device.type == "cuda"
+            enc = self._encoded[name]
+            prog = self.executor.program(name)
+            t0 = time.perf_counter()
+            bufs = device_buffers(enc, self.device)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            prog(bufs)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            self.executor.cost_model.observe(name, t1 - t0, time.perf_counter() - t1)
+        return timings[name]
+
+    def modeled_makespan(self, pipeline: bool = True, johnson: bool = True,
+                         chunked: bool = False) -> float:
+        """Two-machine flow-shop makespan from the columns' times (chunk-level
+        jobs when ``chunked``); measures each column at most once, ever."""
+        names = list(self._encoded)
+        for n in names:
+            self._measure(n)
+        return self.executor.modeled_makespan(names=names, pipeline=pipeline,
+                                              johnson=johnson, chunked=chunked)
 
     def serve_planner(self, policy: str = "shared", max_wave: int | None = None):
         """A multi-query serving planner sharing this pipeline's executor (its

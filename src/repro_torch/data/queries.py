@@ -1,5 +1,7 @@
 """TPC-H Q1 and Q6: the materialize-then-query engines in torch, and the same
-queries as declarative ``QueryPlan``s (``core.query``).
+queries as declarative ``QueryPlan``s (``core.query``); ``plan_engine`` is the
+materialize-then-query engine of any ``QueryPlan``, and ``WIDE_PLANS`` and
+``CONST_LANE_PLAN`` are ad-hoc queries wider than Q1 and Q6.
 
 ``q1_engine`` / ``q6_engine`` run over decoded columns (the paper's baseline:
 decode every column to device memory, then scan it).  ``Q1_PLAN`` / ``Q6_PLAN``
@@ -85,3 +87,70 @@ Q6_PLAN = QueryPlan(
                                 Col("L_DISCOUNT"))),))
 
 QUERY_PLANS = {1: Q1_PLAN, 6: Q6_PLAN}
+
+
+def plan_engine(qplan: QueryPlan, c: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Materialize-then-query for any ``QueryPlan`` over decoded columns, in the
+    shape ``FusedQuery.finalize`` gives the fused result: the predicates'
+    mask as a float32 weight, each aggregate's value times it, the count lane,
+    and per-segment sums when the plan has a group key."""
+    n = next(iter(c.values())).numel()
+    device = next(iter(c.values())).device
+    sel = torch.ones(n, dtype=torch.bool, device=device)
+    for p in qplan.predicates:
+        sel &= p.mask(c[p.col])
+    w = sel.to(torch.float32)
+    lanes = []
+    for _, e in qplan.aggregates:
+        v = e.eval(c)
+        v = v.to(torch.float32) if isinstance(v, torch.Tensor) else \
+            torch.full((n,), v, dtype=torch.float32, device=device)
+        lanes.append(v * w)
+    lanes.append(w)
+    if qplan.group_key is None:
+        vec = torch.stack([v.sum() for v in lanes[:-1]])
+        return vec[0] if len(lanes) == 2 else vec
+    key = qplan.group_key.eval(c)
+    mat = torch.stack([_segment_sum(v, key, qplan.n_segments) for v in lanes])
+    return mat if qplan.keep_count_lane else mat[:-1]
+
+
+_SMALL = Pred("L_QUANTITY", "<", 24)
+
+# Ad-hoc queries wider than Q1 and Q6, each with the count lane: 17 lanes of
+# one segment, 4 lanes over 16 segments, and 7 lanes over 32 segments (256
+# accumulators, more than a block of the query kernel has threads); the
+# generated kernel keeps these in registers and in shared memory.  The last,
+# one lane over 256 segments (512 accumulators), outgrows shared memory, so
+# the kernel keeps its accumulators in global memory.
+WIDE_PLANS = {
+    "lanes17": QueryPlan(
+        name="lanes17", predicates=(_SMALL,),
+        aggregates=tuple((f"price_x{k}", Bin("*", Col("L_EXTENDEDPRICE"), Const(float(k))))
+                         for k in range(1, 18))),
+    "lanes4_seg16": QueryPlan(
+        name="lanes4_seg16", predicates=(_SMALL,),
+        aggregates=(("qty", Col("L_QUANTITY", "float32")), ("price", Col("L_EXTENDEDPRICE")),
+                    ("disc", Col("L_DISCOUNT")), ("tax", Col("L_TAX"))),
+        group_key=Bin("%", Col("L_SUPPKEY"), Const(16)), n_segments=16,
+        keep_count_lane=True),
+    "lanes7_seg32": QueryPlan(
+        name="lanes7_seg32", predicates=(_SMALL,),
+        aggregates=(("qty", Col("L_QUANTITY", "float32")), ("price", Col("L_EXTENDEDPRICE")),
+                    ("disc", Col("L_DISCOUNT")), ("tax", Col("L_TAX")),
+                    ("disc_price", _DISC_PRICE),
+                    ("charge", Bin("*", _DISC_PRICE, Bin("+", Const(1), Col("L_TAX")))),
+                    ("supp", Col("L_SUPPKEY", "float32"))),
+        group_key=Bin("%", Col("L_PARTKEY"), Const(32)), n_segments=32,
+        keep_count_lane=True),
+    "lanes1_seg256": QueryPlan(
+        name="lanes1_seg256", predicates=(_SMALL,),
+        aggregates=(("price", Col("L_EXTENDEDPRICE")),),
+        group_key=Bin("%", Col("L_PARTKEY"), Const(256)), n_segments=256,
+        keep_count_lane=True),
+}
+
+# An aggregate that reads no column: the port sums the constant over the
+# selected rows (constant x count); the reference's reduce raises on it.
+CONST_LANE_PLAN = QueryPlan(name="const_lane", predicates=(_SMALL,),
+                            aggregates=(("k", Const(2.5)),))

@@ -39,12 +39,17 @@
 //    faster on Q6 and slower on Q1.  A bit width outside [0, 32] (no encoder
 //    makes one), or a buffer of 2^31 words, takes the 64-bit per-row path of
 //    zf_unpack_at; the check is hoisted out of the rows (zf_qg_tiles<kFast>).
-//  - Accumulators: with one segment the lanes and the count stay in
-//    registers; with several (Q1: 5 x 8) each thread keeps a column of
-//    (lanes + 1) x segments floats in shared memory (thread t's column is bank
-//    t mod 32, so no conflicts); registers with each add predicated on the key
-//    were slower.  A block sums each accumulator with a shuffle tree per
-//    warp, then the warps in order.
+//  - Accumulators: with one segment (and at most 32 of them) the lanes and
+//    the count stay in registers; with several (Q1: 5 x 8) each thread keeps
+//    a column of (lanes + 1) x segments floats in shared memory (thread t's
+//    column is bank t mod 32, so no conflicts); registers with each add
+//    predicated on the key were slower.  A query whose columns outgrow
+//    ZF_QG_MAX_SMEM (more than 438 accumulators) keeps them in global memory
+//    instead, one column per thread in the launch's scratch (ZfQgArgs::cols),
+//    with one block per SM; slow, but every query the reference runs runs
+//    here.  A block sums each accumulator with a shuffle tree per warp, then
+//    the warps in order; thread j mod T finishes accumulator j, so a query
+//    may have more accumulators than a block has threads.
 //  - The grid is the blocks the SMs hold at once (zf_max_blocks, from the
 //    kernel's registers and shared memory), so no block waits for a second
 //    wave while the others idle.
@@ -57,9 +62,13 @@
 
 #include "zf_chain.cuh"
 
-#define ZF_QG_MAX_BUFS 72   // 12 roles x (a source's 3 buffers + 3 transforms' 1)
+#define ZF_QG_MAX_BUFS 72   // buffer slots of the launch struct (kernels/cuda.py QG_MAX_BUFS)
 #define ZF_QG_THREADS 128   // a block (kernels/query_reduce.py THREADS)
 #define ZF_QG_ROWS 4        // consecutive rows a thread takes per tile
+// dynamic shared memory a block may opt into: the H100's 227 KB less 1 KB for
+// the kernel's static shared memory (kernels/query_reduce.py MAX_SMEM)
+#define ZF_QG_MAX_SMEM 231424
+#define ZF_QG_REG_ACCS 32   // the most accumulators kept in registers (one segment)
 
 // One buffer a role's op reads: its device pointer and element count.
 struct ZfQgBuf {
@@ -74,13 +83,16 @@ struct ZfQgArgs {
   int64_t out_start;               // global index of its first item
   float* out;                      // (lanes + 1) x segments, lane-major
   float* partials;                 // n_blocks x accumulators
-  uint32_t* counter;               // at the scratch's end
+  uint32_t* counter;               // after the partials
   int32_t accumulate;              // 1: add the totals to out, 0: write them
   int32_t n_blocks;                // the grid
+  float* cols;                     // accumulator columns in global memory (n_blocks x
+                                   // accumulators x threads) when shared memory cannot
+                                   // hold them, else null
 };
 
 static_assert(sizeof(ZfQgBuf) == 16, "ZfQgBuf layout is shared with kernels/cuda.py");
-static_assert(sizeof(ZfQgArgs) == 1200, "ZfQgArgs layout is shared with kernels/cuda.py");
+static_assert(sizeof(ZfQgArgs) == 1208, "ZfQgArgs layout is shared with kernels/cuda.py");
 
 // Floor modulo (the sign of the divisor), as jnp and torch.remainder give it.
 __device__ __forceinline__ int32_t zf_qg_imod(int32_t x, int32_t y) {
@@ -166,12 +178,13 @@ __device__ __forceinline__ uint32_t zf_qg_raw(const ZfQgBuf& p, const ZfQgField&
 }
 
 // A thread's accumulators, (L + 1) x S of them, accumulator j = l * S + q for
-// lane l (the count last) of segment q: in registers with one segment, else
-// a column in shared memory, accumulator j at col[j * T].
+// lane l (the count last) of segment q: in registers with one segment (at
+// most 32 of them), else a column in shared or global memory (the block's
+// columns at `cols`), accumulator j at col[j * T].
 template <int L, int S, int T>
 struct ZfQgAcc {
   static constexpr int kAcc = (L + 1) * S;
-  static constexpr bool kRegs = S == 1;
+  static constexpr bool kRegs = S == 1 && kAcc <= ZF_QG_REG_ACCS;
   float r[kRegs ? kAcc : 1];
   float* col;
 
@@ -206,36 +219,50 @@ struct ZfQgAcc {
   }
 };
 
-// Thread j < kAcc gets the block's sum of value(j) over its threads: a shuffle
-// tree in each warp, then the warps in order (a fixed order, so the same
-// values give the same bits).  wsum holds kAcc x T / 32 floats.
-template <int T, int kAcc, class V>
-__device__ __forceinline__ float zf_qg_block_sum(float* wsum, V&& value) {
+// The block's sum of value(j) over its threads, for each accumulator j, handed
+// to done(j, sum) by thread j mod T: a shuffle tree in each warp, then the
+// warps in order (a fixed order, so the same values give the same bits).
+// wsum holds kAcc x T / 32 floats.
+template <int T, int kAcc, class V, class D>
+__device__ __forceinline__ void zf_qg_block_sum(float* wsum, V&& value, D&& done) {
   constexpr int W = T / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
+  const auto warp_sum = [&](int j) {
     float x = value(j);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_down_sync(0xFFFFFFFFu, x, o));
     if (lane == 0) wsum[j * W + warp] = x;
+  };
+  if constexpr (kAcc <= 64) {   // unrolled: register accumulators stay registers
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) warp_sum(j);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < kAcc; ++j) warp_sum(j);
   }
   __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < kAcc) {
+  for (int j = threadIdx.x; j < kAcc; j += T) {
+    float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < W; ++w) s = __fadd_rn(s, wsum[threadIdx.x * W + w]);
+    for (int w = 0; w < W; ++w) s = __fadd_rn(s, wsum[j * W + w]);
+    done(j, s);
   }
-  return s;
 }
 
+// Where P's accumulators live and the dynamic shared memory a block takes:
+// the columns (unless they are registers, or too large, then global memory),
+// then the warp sums.
 template <class P>
-constexpr size_t zf_qg_smem_bytes() {
-  constexpr int kAcc = (P::kLanes + 1) * P::kSegments;
-  constexpr int T = ZF_QG_THREADS;
-  return sizeof(float) * static_cast<size_t>((P::kSegments == 1 ? 0 : kAcc * T) +
-                                             kAcc * (T / 32));
-}
+struct ZfQgLayout {
+  static constexpr int T = ZF_QG_THREADS;
+  using Acc = ZfQgAcc<P::kLanes, P::kSegments, T>;
+  static constexpr int kAcc = Acc::kAcc;
+  static constexpr size_t kCols = Acc::kRegs ? 0 : sizeof(float) * kAcc * T;
+  static constexpr size_t kWsum = sizeof(float) * kAcc * (T / 32);
+  static constexpr bool kGlobal = kCols + kWsum > ZF_QG_MAX_SMEM;
+  static constexpr size_t kSmem = (kGlobal ? 0 : kCols) + kWsum;
+  static_assert(kWsum <= ZF_QG_MAX_SMEM, "the warp sums must fit shared memory");
+};
 
 // The block's tiles of the launch, each row into `acc`; kFast: every field
 // takes the 32-bit path (the launch-uniform check hoisted out of the rows).
@@ -260,20 +287,22 @@ __device__ __forceinline__ void zf_qg_tiles(const ZfQgArgs& a, typename P::Field
 // fields, and row().
 template <class P>
 __global__ void zf_qg_kernel(const __grid_constant__ ZfQgArgs a) {
-  constexpr int T = ZF_QG_THREADS;
-  using Acc = ZfQgAcc<P::kLanes, P::kSegments, T>;
-  constexpr int kAcc = Acc::kAcc;
-  static_assert(T % 32 == 0 && kAcc <= T, "a block sums each accumulator in one thread");
-  float* cols = zf_qg_smem;
-  float* wsum = cols + (Acc::kRegs ? 0 : kAcc * T);
+  using Lay = ZfQgLayout<P>;
+  constexpr int T = Lay::T;
+  constexpr int kAcc = Lay::kAcc;
+  static_assert(T % 32 == 0, "a block is whole warps");
+  float* cols = Lay::kGlobal ? a.cols + static_cast<int64_t>(blockIdx.x) * kAcc * T
+                             : zf_qg_smem;
+  float* wsum = zf_qg_smem + (Lay::kGlobal ? 0 : Lay::kCols / sizeof(float));
   typename P::Fields f;
   typename P::Scalars s;
   P::init(a, f, s);
-  Acc acc(cols);
+  typename Lay::Acc acc(cols);
   if (P::fast(f)) zf_qg_tiles<P, true>(a, f, s, acc);
   else zf_qg_tiles<P, false>(a, f, s, acc);
-  const float part = zf_qg_block_sum<T, kAcc>(wsum, [&](int j) { return acc.get(j); });
-  if (threadIdx.x < kAcc) a.partials[static_cast<int64_t>(blockIdx.x) * kAcc + threadIdx.x] = part;
+  zf_qg_block_sum<T, kAcc>(wsum, [&](int j) { return acc.get(j); }, [&](int j, float part) {
+    a.partials[static_cast<int64_t>(blockIdx.x) * kAcc + j] = part;
+  });
   __threadfence();
   __shared__ bool last;
   __syncthreads();
@@ -284,14 +313,12 @@ __global__ void zf_qg_kernel(const __grid_constant__ ZfQgArgs a) {
   __threadfence();
   // the last block: thread t sums blocks t, t + T, ... of each accumulator in
   // order, then the block sum -- the same order whichever block is last
-  const float tot = zf_qg_block_sum<T, kAcc>(wsum, [&](int j) {
+  zf_qg_block_sum<T, kAcc>(wsum, [&](int j) {
     float x = 0.f;
     for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += T)
       x = __fadd_rn(x, __ldcg(&a.partials[static_cast<int64_t>(b) * kAcc + j]));
     return x;
-  });
-  if (threadIdx.x < kAcc)
-    a.out[threadIdx.x] = a.accumulate ? __fadd_rn(a.out[threadIdx.x], tot) : tot;
+  }, [&](int j, float tot) { a.out[j] = a.accumulate ? __fadd_rn(a.out[j], tot) : tot; });
   if (threadIdx.x == 0) *a.counter = 0u;
 }
 
@@ -299,14 +326,14 @@ template <class P>
 static cudaError_t zf_qg_launch(const ZfQgArgs& a, int32_t threads, int32_t device,
                                 void* stream) {
   if (threads != ZF_QG_THREADS || a.n <= 0 || a.n_blocks < 1 || a.out == nullptr ||
-      a.partials == nullptr || a.counter == nullptr)
+      a.partials == nullptr || a.counter == nullptr || (ZfQgLayout<P>::kGlobal && a.cols == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(a.counter, 0, sizeof(uint32_t), s);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = zf_qg_smem_bytes<P>();
+  constexpr size_t smem = ZfQgLayout<P>::kSmem;
   if constexpr (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(zf_qg_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -317,13 +344,15 @@ static cudaError_t zf_qg_launch(const ZfQgArgs& a, int32_t threads, int32_t devi
 }
 
 // The most blocks of P that run at once on the device: its SMs times the
-// blocks an SM holds at P's registers and shared memory (the wrapper's grid),
-// or a negative CUDA error.
+// blocks an SM holds at P's registers and shared memory (the wrapper's grid;
+// one block per SM when the columns are in global memory, whose scratch
+// grows with the grid), or a negative CUDA error.
 template <class P>
 static int zf_qg_max_blocks(int32_t device) {
   int sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  constexpr size_t smem = zf_qg_smem_bytes<P>();
+  if (ZfQgLayout<P>::kGlobal) return err == cudaSuccess ? sms : -static_cast<int>(err);
+  constexpr size_t smem = ZfQgLayout<P>::kSmem;
   if (err == cudaSuccess && smem > 48 * 1024)
     err = cudaFuncSetAttribute(zf_qg_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

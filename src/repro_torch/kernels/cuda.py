@@ -89,15 +89,11 @@ class ZfNpArgs(ctypes.Structure):
                 ("L", ctypes.c_int32), ("C", ctypes.c_int32)]
 
 
-# the most a fused query's register program holds (kernels/query_reduce.py
-# refuses a query beyond them; the generated kernel's buffers follow from them)
-QR_MAX_ROLES, QR_MAX_ROLE_OPS, QR_MAX_PREDS = 12, 4, 16
-QR_MAX_INSTRS, QR_MAX_REGS, QR_MAX_LANES, QR_MAX_ACC = 48, 32, 16, 64
-
-
 # kernel 4 generated per query (csrc/query_gen.cuh): only what changes per
-# launch, every role op's buffers in role order; the program is compiled in
-QG_MAX_BUFS = QR_MAX_ROLES * (3 + QR_MAX_ROLE_OPS - 1)   # a source's 3, a transform's 1
+# launch, every role op's buffers in role order; the program is compiled in.
+# The struct's buffer slots (ZF_QG_MAX_BUFS) are the one limit on a query's
+# roles and ops: a source op takes up to 3 slots, a transform 1.
+QG_MAX_BUFS = 72
 
 
 class ZfQgBuf(ctypes.Structure):
@@ -108,7 +104,8 @@ class ZfQgArgs(ctypes.Structure):
     _fields_ = [("bufs", ZfQgBuf * QG_MAX_BUFS), ("n", ctypes.c_int64),
                 ("out_start", ctypes.c_int64), ("out", ctypes.c_void_p),
                 ("partials", ctypes.c_void_p), ("counter", ctypes.c_void_p),
-                ("accumulate", ctypes.c_int32), ("n_blocks", ctypes.c_int32)]
+                ("accumulate", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
+                ("cols", ctypes.c_void_p)]
 
 
 def build_root() -> Path:

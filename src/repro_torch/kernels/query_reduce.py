@@ -16,8 +16,11 @@ one register per role (the role's value, in its type), then one per
 constant, cast and arithmetic node, with common subtrees shared.  Each node's
 type is the one torch gives the plain version (the expression evaluated on
 empty tensors of the roles' types), so the kernel converts and wraps where
-torch does.  A query that needs more roles, ops, predicates, instructions,
-registers or lanes than the kernel takes raises.  ``program`` builds the
+torch does.  The generated kernel has two limits of its own: the launch
+struct's buffer slots (``cuda.QG_MAX_BUFS``; a query past them raises) and
+shared memory, which holds each thread's column of accumulators when there
+are several segments; a query whose columns do not fit keeps them in global
+memory (``_Program.acc_place``), so it still runs on the kernel.  ``program`` builds the
 program once per stage and buffer types and, when it first meets a CUDA
 device, builds its kernel with ``nvcc`` (into ``cuda.build_root()/<digest>/``,
 one build per distinct program) and loads it there, so ``lower_query`` on a
@@ -40,6 +43,8 @@ from repro_torch.kernels.fully_parallel import check_out, stage_device
 THREADS = 128             # csrc/query_gen.cuh ZF_QG_THREADS
 ROWS_PER_THREAD = 4       # consecutive items a thread takes per tile (ZF_QG_ROWS)
 MAX_BLOCKS = 132 * 8      # 8 blocks on each of the H100's 132 SMs
+MAX_SMEM = 231_424        # dynamic shared memory a block may opt into (ZF_QG_MAX_SMEM)
+REG_ACCS = 32             # the most accumulators kept in registers (ZF_QG_REG_ACCS)
 
 
 class _Launches:
@@ -167,20 +172,10 @@ class _Program:
         self.lanes = [self._as(self._node(e), torch.float32) for e in stage.lanes]
         self.key = (-1 if stage.key is None
                     else self._as(self._node(stage.key), torch.int32))
-        if self.n_regs > cuda.QR_MAX_REGS or len(self.instrs) > cuda.QR_MAX_INSTRS \
-                or len(self.preds) > cuda.QR_MAX_PREDS or len(self.roles) > cuda.QR_MAX_ROLES \
-                or len(self.lanes) > cuda.QR_MAX_LANES \
-                or (len(self.lanes) + 1) * stage.n_segments > cuda.QR_MAX_ACC:
-            raise ValueError(
-                f"{stage.name}: {len(self.roles)} roles, {len(self.preds)} predicates, "
-                f"{len(self.instrs)} instructions, {self.n_regs} registers, "
-                f"{len(self.lanes)} lanes x {stage.n_segments} segments exceed the query "
-                f"kernel's {cuda.QR_MAX_ROLES}, {cuda.QR_MAX_PREDS}, {cuda.QR_MAX_INSTRS}, "
-                f"{cuda.QR_MAX_REGS}, {cuda.QR_MAX_LANES} and {cuda.QR_MAX_ACC} accumulators")
-        for chain, *_ in self.roles:
-            if len(chain) > cuda.QR_MAX_ROLE_OPS:
-                raise ValueError(f"{stage.name}: a role chain of {len(chain)} ops exceeds "
-                                 f"the query kernel's {cuda.QR_MAX_ROLE_OPS}")
+        self.n_acc = (len(self.lanes) + 1) * stage.n_segments
+        if 4 * self.n_acc * (THREADS // 32) > MAX_SMEM:
+            raise ValueError(f"{stage.name}: {self.n_acc} accumulators: a block's warp sums "
+                             f"exceed the query kernel's {MAX_SMEM} bytes of shared memory")
         # per buffer slot of the launch struct: its name, and for a LOAD or
         # BYTES source the elements an item reads and whether at the global row
         self.slots = []
@@ -189,6 +184,19 @@ class _Program:
             op = chain[o]
             per = (op.imm if op.kind == BYTES else 1) if o == 0 and op.kind in (LOAD, BYTES) else 0
             self.slots.append((b, per, row))
+
+    @property
+    def acc_place(self) -> str:
+        """Where a thread keeps its accumulators (``ZfQgLayout`` in
+        ``csrc/query_gen.cuh``): ``"registers"`` (one segment, at most
+        ``REG_ACCS``), else a column of ``n_acc`` floats in ``"shared"`` memory,
+        or in ``"global"`` memory when a block's columns and warp sums exceed
+        ``MAX_SMEM``."""
+        if self.n_segments == 1 and self.n_acc <= REG_ACCS:
+            return "registers"
+        if 4 * self.n_acc * (THREADS + THREADS // 32) > MAX_SMEM:
+            return "global"
+        return "shared"
 
     @functools.cached_property
     def source(self) -> str:
@@ -285,16 +293,19 @@ def n_blocks(n: int, max_blocks: int = MAX_BLOCKS) -> int:
 
 def _generated_args(prog: _Program, env, device, n: int, out_start: int,
                     out: torch.Tensor, accumulate: bool, max_blocks: int = MAX_BLOCKS):
-    """A generated kernel's argument struct and the scratch (block partials + the
-    counter) it points into: each buffer slot's pointer and element count, and
-    the launch's own fields.  The program is compiled in, so nothing of it is
+    """A generated kernel's argument struct and the scratch it points into (block
+    partials, the counter, and each thread's accumulator column when they live
+    in global memory): each buffer slot's pointer and element count, and the
+    launch's own fields.  The program is compiled in, so nothing of it is
     packed here."""
     grid = n_blocks(n, max_blocks)
-    n_acc = (len(prog.lanes) + 1) * prog.n_segments
-    scratch = torch.empty(grid * n_acc + 1, dtype=torch.float32, device=device)
+    n_acc = prog.n_acc
+    cols = grid * n_acc * THREADS if prog.acc_place == "global" else 0
+    scratch = torch.empty(grid * n_acc + 1 + cols, dtype=torch.float32, device=device)
     args = cuda.ZfQgArgs(n=n, out_start=out_start, accumulate=int(accumulate), n_blocks=grid,
                          out=out.data_ptr(), partials=scratch.data_ptr(),
-                         counter=scratch.data_ptr() + 4 * grid * n_acc)
+                         counter=scratch.data_ptr() + 4 * grid * n_acc,
+                         cols=scratch.data_ptr() + 4 * (grid * n_acc + 1) if cols else None)
     for s, (name, per, row) in enumerate(prog.slots):
         t = env[name]
         if t.device != device:

@@ -1253,3 +1253,85 @@ def test_serve_planner_builds_a_card_executor_by_default(gpu):
     sp.drain()
     assert _launches() > before
     _check_request(req)
+
+
+# ----------------------------------------------- wide queries, geometry, baseline
+
+@pytest.mark.parametrize("name", ["lanes17", "lanes4_seg16", "lanes7_seg32", "lanes1_seg256",
+                                  "const_lane"])
+def test_wide_queries_on_the_card(name, gpu):
+    """Queries past the removed interpreter's limits, and a column-free
+    aggregate, through ``ColumnPipeline.run_query`` on kernel 4 (registers,
+    shared and global accumulators; 256 and 512 of them, more than a block's
+    threads): the count lane exactly and the lanes within rtol 1e-4 of the
+    same pipeline on the CPU, one launch per chunk, and the launch against
+    its plain version on the card."""
+    from repro_torch.data.queries import CONST_LANE_PLAN, WIDE_PLANS
+    from repro_torch.kernels.query_reduce import KERNEL as QR, program, query_reduce
+
+    qp = CONST_LANE_PLAN if name == "const_lane" else WIDE_PLANS[name]
+    names = qp.columns()
+    cols = _tpch(0.01)
+    pipe = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device=gpu)
+    pipe.compress({n: cols[n] for n in names})
+    host = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device="cpu")
+    host.load({n: pipe.encoded(n) for n in names})
+    want = host.run_query(qp)
+    before = QR.launches
+    got = pipe.run_query(qp)
+    assert QR.launches - before == got.n_chunks >= 1
+    S = qp.n_segments
+    assert torch.equal(got.acc.cpu()[-S:], want.acc[-S:])
+    torch.testing.assert_close(got.acc.cpu(), want.acc, rtol=1e-4, atol=0)
+    if name == "const_lane":
+        assert float(got.acc[0]) == 2.5 * float(got.acc[-1])
+    fq, _ = pipe.lower_query(qp)
+    red = fq.graph.stages[-1]
+    env = _query_env(fq, gpu)
+    assert program(red, env).acc_place == {"lanes17": "registers", "const_lane": "registers",
+                                           "lanes1_seg256": "global"}.get(name, "shared")
+    _assert_query_lanes(query_reduce(red, env), ref.query_reduce_torch(red, env), S)
+
+
+@pytest.mark.parametrize("pattern,geom", [("fp", Geometry(2, 512, 2)),
+                                          ("gp", Geometry(8, 32, 16)),
+                                          ("np", Geometry(2, 128, 2))], ids=str)
+def test_programs_at_a_tuned_geometry(pattern, geom, gpu):
+    """Whole columns and a batched pair decoded at a geometry off the native
+    table (``compile_decoder(geometry=...)``): bitwise to the plain backend."""
+    cols = _tpch(0.01)
+    names = {"fp": ("L_DISCOUNT", "L_TAX"), "gp": ("O_ORDERKEY", "L_ORDERKEY"),
+             "np": ("L_RETURNFLAG", "O_COMMENT")}[pattern]
+    launches = {"fp": FP, "gp": GP, "np": NP}[pattern]
+    for n in names:
+        enc = encode(TABLE2_PLANS[n], cols[n])
+        bufs = device_buffers(enc, gpu)
+        before = launches.launches
+        got = compile_blob(enc, backend="kernel", geometry={pattern: geom})(bufs)
+        assert launches.launches > before
+        plain = compile_blob(enc, backend="torch")(bufs)
+        assert torch.equal(bits(got), bits(plain))
+        assert torch.equal(bits(got.cpu()), bits(torch.from_numpy(cols[n])))
+    if pattern == "fp":
+        encs = [encode(TABLE2_PLANS[n], cols[n]) for n in names]
+        prog = compile_blob(encs[0], backend="kernel", geometry={pattern: geom})
+        rows = prog.batched([device_buffers(e, gpu) for e in encs])
+        for r, n in zip(rows, names):
+            assert torch.equal(bits(r.cpu()), bits(torch.from_numpy(cols[n])))
+
+
+def test_baseline_columns_on_the_card(gpu):
+    """The unfused baseline at <1,128,1> on the card: every stage a launch,
+    bitwise to the fused decode and the source."""
+    from repro_torch.core.compiler import compile_decoder
+
+    cols = _tpch(0.01)
+    for n in ("O_COMMENT", "L_ORDERKEY", "L_RETURNFLAG", "L_EXTENDEDPRICE"):
+        enc = encode(TABLE2_PLANS[n], cols[n])
+        bufs = device_buffers(enc, gpu)
+        dec = compile_decoder(enc, backend="baseline")
+        before = _launches()
+        got = dec(bufs)
+        assert _launches() > before
+        assert torch.equal(bits(got), bits(compile_decoder(enc)(bufs)))
+        assert torch.equal(bits(got.cpu()), bits(torch.from_numpy(cols[n])))

@@ -16,7 +16,11 @@ lowering, fusion and layouts (execution is ``test_torch_query_run.py``).
     ``bitpack.compare_stage`` gives the reference's masks, and the true ones
     where an int32 ``v + base`` would wrap;
   * the query kernel's program (compiled on the host): common subexpressions
-    share registers, and a query too large for the argument struct raises.
+    share registers, and a query with more buffers than the argument struct
+    holds raises; queries wider than Q1 (17 lanes; 4 x 16, 8 x 32 and 2 x 256
+    accumulators) build a program and equal the reference's results, and a
+    column-free aggregate gives the constant times the count (the reference
+    raises on it).
 
 TPC-H data at scale 0.002, seed 0, as ``tests/test_query_fusion.py``.
 """
@@ -262,21 +266,86 @@ def test_query_program_shares_subexpressions(cols):
     ops = [i[0] for i in prog.instrs]
     assert ops.count(4) == 3          # ep * (1 - d), (..) * (1 + t), key * 2
     assert len(prog.lanes) == 4 and prog.key >= len(red.roles)
-    assert prog.n_regs <= cuda.QR_MAX_REGS and len(prog.instrs) <= cuda.QR_MAX_INSTRS
+    assert prog.n_regs == len(red.roles) + len(prog.instrs)   # one per role and instruction
+    assert prog.acc_place == "shared" and prog.n_acc == 5 * 8
     assert program(red, env) is prog                     # built once per stage
 
 
-def test_query_program_refuses_what_the_struct_cannot_hold(cols):
+def test_query_program_refuses_more_buffers_than_the_struct_holds(cols):
+    """The launch struct's buffer slots are the generated kernel's one limit
+    on roles and ops: Q6's roles seven times over need more than it holds."""
+    import dataclasses
+
     _, fq, _ = lowered(cols, "q6")
     red = fq.graph.stages[-1]
     env = {k: torch.from_numpy(P_layout(v)) for k, v in fq.operands.items()}
-    many = tuple(Q.Bin("*", Q.Col("L_EXTENDEDPRICE"), Q.Const(float(k)))
-                 for k in range(cuda.QR_MAX_LANES + 1))
-    import dataclasses
-    big = dataclasses.replace(red, lanes=many, n_out=len(many) + 1)
-    with pytest.raises(ValueError, match="exceed the query kernel"):
-        program(big, env)
+    big = dataclasses.replace(red, roles=red.roles * 7)
     assert isinstance(big, Reduce)
+    with pytest.raises(ValueError, match=f"exceed the generated kernel's {cuda.QG_MAX_BUFS}"):
+        program(big, env)
+
+
+def wide_pipelines(cols, qp):
+    """The reference's pipeline (its own program cache) and the port's on the
+    CPU, with the plan's columns compressed by the reference and loaded into
+    the port."""
+    from repro.core.compiler import ProgramCache as RefCache
+    from repro.core.executor import StreamingExecutor as RefExecutor
+    from repro.data.loader import ColumnPipeline as RefPipeline
+
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.loader import ColumnPipeline
+
+    names = qp.columns()
+    rp = RefPipeline({n: REF_PLANS[n] for n in names},
+                     executor=RefExecutor(cache=RefCache()))
+    rp.compress({n: cols[n] for n in names})
+    p = ColumnPipeline({n: TABLE2_PLANS[n] for n in names}, device="cpu")
+    p.load({n: P.encoded_from_reference(rp._encoded[n]) for n in names})
+    return rp, p
+
+
+@pytest.mark.parametrize("name,place,n_acc", [("lanes17", "registers", 18),
+                                              ("lanes4_seg16", "shared", 80),
+                                              ("lanes7_seg32", "shared", 256),
+                                              ("lanes1_seg256", "global", 512)])
+def test_wide_queries_build_a_program_and_match_the_reference(cols, name, place, n_acc):
+    """Queries past the removed interpreter's limits (17 lanes; 4 lanes x 16
+    segments; 256 and 512 accumulators, more than a block has threads) build
+    a program and its generated source, keep their accumulators where the
+    kernel's layout says, and run on the CPU to the reference's result:
+    counts exactly, lanes within rtol 1e-4 (sums in another order)."""
+    from repro_torch.data.queries import WIDE_PLANS
+
+    qp = WIDE_PLANS[name]
+    rp, p = wide_pipelines(cols, qp)
+    fq, _ = p.lower_query(qp)
+    red = fq.graph.stages[-1]
+    env = {k: torch.from_numpy(P_layout(v)) for k, v in fq.operands.items()}
+    prog = program(red, env)
+    assert (prog.acc_place, prog.n_acc, len(prog.lanes)) == (place, n_acc, len(qp.aggregates))
+    src = prog.source
+    assert f"kLanes = {len(qp.aggregates)};" in src and \
+        f"kSegments = {qp.n_segments};" in src
+    got, want = p.run_query(qp), rp.run_query(to_ref(qp))
+    np.testing.assert_array_equal(np.asarray(got.acc)[-qp.n_segments:],
+                                  np.asarray(want.acc)[-qp.n_segments:])
+    np.testing.assert_allclose(np.asarray(got.result), np.asarray(want.result), rtol=1e-4)
+
+
+def test_column_free_aggregate_is_the_constant_times_the_count(cols):
+    """An aggregate of a constant alone: the port sums it over the selected
+    rows (2.5 x the count); the reference's reduce raises on the float
+    (``repro/core/query.py`` ``reduce_fn`` calls ``.astype`` on it)."""
+    from repro_torch.data.queries import CONST_LANE_PLAN
+
+    rp, p = wide_pipelines(cols, CONST_LANE_PLAN)
+    got = p.run_query(CONST_LANE_PLAN)
+    count = int((cols["L_QUANTITY"] < 24).sum())
+    assert float(got.acc[-1]) == count
+    assert float(got.result) == 2.5 * count
+    with pytest.raises(AttributeError, match="astype"):
+        rp.run_query(to_ref(CONST_LANE_PLAN))
 
 
 def test_pack_chain_refuses_query_ops_outside_the_query_kernel():

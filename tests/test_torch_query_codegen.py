@@ -305,6 +305,8 @@ def test_block_and_rows_are_the_headers():
     assert int(macros["ZF_QG_THREADS"]) == QR.THREADS
     assert int(macros["ZF_QG_ROWS"]) == QR.ROWS_PER_THREAD
     assert int(macros["ZF_QG_MAX_BUFS"]) == cuda.QG_MAX_BUFS
+    assert int(macros["ZF_QG_MAX_SMEM"]) == QR.MAX_SMEM
+    assert int(macros["ZF_QG_REG_ACCS"]) == QR.REG_ACCS
     red, env = _synthetic()
     src = G.generate(QR._Program(red, env))
     assert not re.search(r"kRows|kThreads|kStaged|ZF_QG_ROWS|ZF_QG_THREADS", src)
@@ -438,3 +440,36 @@ def test_run_query_prepares_the_kernel_before_its_first_launch(q, cols, monkeypa
         assert all(stage is red for _, stage in events)
     # on the CPU preparing builds nothing
     assert not ex._prepared and "_kernel_programs" not in red.__dict__
+
+
+@pytest.mark.parametrize("name,place", [("lanes17", "registers"), ("lanes7_seg32", "shared"),
+                                        ("lanes1_seg256", "global")])
+def test_accumulator_columns_in_global_memory_get_their_scratch(name, place, cols):
+    """Where a program keeps its accumulators follows the header's layout
+    (registers up to 32 with one segment, shared memory while a block's
+    columns and warp sums fit ``MAX_SMEM``, global memory past it); only the
+    global place gets a column per thread after the partials and the counter,
+    for every block of the grid."""
+    from repro_torch.data.queries import WIDE_PLANS
+
+    qp = WIDE_PLANS[name]
+    encs = {c: encode(TABLE2_PLANS[c], cols[c]) for c in qp.columns()}
+    fq = lower_query(qp, encs)
+    red = fq.graph.stages[-1]
+    prog = QR.program(red, _host_env(fq.operands, {}))
+    assert prog.acc_place == place
+    n_acc = prog.n_acc
+    shared = 4 * n_acc * (QR.THREADS + QR.THREADS // 32)
+    assert (shared > QR.MAX_SMEM) == (place == "global")
+    out = torch.zeros(red.n_out, dtype=torch.float32)
+    n = red.n_in
+    args, scratch = QR._generated_args(prog, _host_env(fq.operands, {}), torch.device("cpu"),
+                                       n, 0, out, False, max_blocks=132)
+    grid = QR.n_blocks(n, 132)
+    cols_n = grid * n_acc * QR.THREADS if place == "global" else 0
+    assert scratch.numel() == grid * n_acc + 1 + cols_n
+    assert args.counter == scratch.data_ptr() + 4 * grid * n_acc
+    if place == "global":
+        assert args.cols == scratch.data_ptr() + 4 * (grid * n_acc + 1)
+    else:
+        assert args.cols is None
