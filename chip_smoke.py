@@ -154,8 +154,36 @@ non-zero before the final line:
      the launches of one decode of each (``baseline`` lines);
  10. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
      (kernel 4's object beside the three decode kernels', each of those with
-     its ``geometry`` object), the card's name and power limit from
-     ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``.
+     its ``geometry`` object and the launches of phase 11's engine run and
+     prompt wave), the card's name and power limit from ``nvidia-smi``, and
+     last ``{"ok": true, "device": {...}}``;
+ 11. lm serve (runs after phase 9, so that phase 10 reports it): the
+     language-model serving path at the full width of qwen1.5-0.5b (24
+     layers, d_model 1024, 16 heads of 64, QKV bias, d_ff 2816, vocab
+     151936), random weights drawn in f32 on the card from ``--seed`` by the
+     port's own init.  Parity: one decode step after a 16-token prefill, f32
+     on the card with TF32 off, against the same weights in f32 on the CPU,
+     within ``rtol`` 1e-3 and ``atol`` 1e-3 of the largest |logit| (the CPU
+     copy is freed after); the bf16 cast's distance from f32 (the step's max
+     abs difference, top-1 agreement over a 17-token forward and the step) is
+     printed, not gated.  The engine run: ``ServeEngine(batch_slots=2,
+     max_len=256, eos=-1)`` in bf16 serves three bitpack prompts of 16, 16
+     and 24 tokens and one rANS prompt of 40 (``submit_compressed``: one
+     planner wave on kernels 1 and 3) and one plain 8-token ``submit``, 16
+     tokens each, with the counts zeroed just before and read just after:
+     every decoded prompt must equal its source, every request emit 16
+     tokens without error, the prompt cache read 3 programs and 1 hit, every
+     logit be finite, and kernels 1 and 3 have launched.  KV paging: a (2,
+     256, 16, 64) bf16 block through ``page_out`` and ``page_in`` (kernel 1),
+     bitwise against the plain ``page_in``.  ``lm`` lines: the parity and
+     bf16 numbers; prefill ms per prompt token, the median decode-step ms
+     (CUDA events) and host ms per step, the weights' bytes bound of a step,
+     generated tokens/s; the prompt wave's ``register_s``, ``makespan_s``
+     and launches per kernel; the top-level aten ops of a decode step (a
+     CPU-only ``torch.profiler`` session over 5 steps: count, the commonest,
+     their host ms under the profiler); the wire bytes against the bf16 bytes and
+     ``page_in`` (and the unpack alone) on kernel 1 against its plain
+     version.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -223,6 +251,16 @@ PATTERN = {"fully_parallel": "fp", "group_parallel": "gp", "non_parallel": "np"}
 WIDE_KEYS = {"lanes17": None, "lanes4_seg16": ("L_SUPPKEY", 16),
              "lanes7_seg32": ("L_PARTKEY", 32), "lanes1_seg256": ("L_PARTKEY", 256),
              "const_lane": None}
+# LM serving phase (11): qwen1.5-0.5b at full width through the port's engine
+LM_ARCH = "qwen1.5-0.5b"
+LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 2, 256, 16
+# (rid, codec, prompt tokens) of the compressed prompts; rid 4 is a plain submit
+LM_PROMPTS = ((0, "bitpack", 16), (1, "bitpack", 16), (2, "bitpack", 24), (3, "ans", 40))
+LM_PLAIN = 8
+LM_PREFILL = 16              # the parity check's prompt, then one decode step
+LM_TOL = 1e-3                # f32 card vs CPU: rtol, and atol as a share of max |logit|
+LM_PAGE_SHAPE = (2, 256, 16, 64)
+LM_PROFILED_STEPS = 5        # decode steps under the host-ops profiler session
 
 
 def host_part(name: str) -> str | None:
@@ -975,6 +1013,243 @@ def run_serving(cols: dict, encoded: dict, libs, plain_copy_ms: float) -> dict:
     return {"dispatch": dispatch, "serve": serve,
             "warm_wave_launches": warm["kernel_launches"],
             "largest_batch": {k: max(r["largest_batch"][k] for r in serve) for k in KERNELS}}
+
+
+def run_lm_serving(cfg, seed: int, timer, libs, hbm_gbps: float,
+                   device: str = "cuda") -> dict:
+    """Phase 11: the language-model serving path (see the module docstring);
+    returns its record, with per kernel the launches of the engine run."""
+    import copy
+    import dataclasses
+
+    from repro_torch.core.compiler import compile_blob, device_buffers
+    from repro_torch.core.plan import encode, make_plan
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.kvcache import page_in, page_out
+
+    fp = libs[0]
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    rec: dict = {"arch": cfg.name, "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+                 "max_new": LM_MAX_NEW}
+
+    # weights: f32 draws on the card from the seed; the serving copy is their
+    # bf16 cast (what the reference computes from f32 weights in a bf16 config)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    m32 = get_model(cfg32).init(torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["params"] = sum(p.numel() for p in m32.parameters())
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_SLOTS, LM_PREFILL + 1))).to(dev)
+
+    def prefill_then_step(m, t):
+        with torch.inference_mode():
+            cache = init_cache(m.cfg, LM_SLOTS, 2 * LM_PREFILL, device=t.device)
+            _, cache = m.prefill(t[:, :LM_PREFILL], cache)
+            return m.decode_step(t[:, LM_PREFILL:], cache)[0].float().cpu()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card32 = prefill_then_step(m32, toks)
+        t0 = time.perf_counter()
+        host = copy.deepcopy(m32).cpu()
+        host32 = prefill_then_step(host, toks.cpu())
+        rec["cpu_parity_s"] = time.perf_counter() - t0
+        del host
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    big = float(host32.abs().max())
+    rec["parity_max_abs_err"] = float((card32 - host32).abs().max())
+    rec["parity_max_abs_logit"] = big
+    print(f"lm parity f32 card_vs_cpu prefill {LM_PREFILL} + 1 step: max_abs_err "
+          f"{rec['parity_max_abs_err']:.6g} max_abs_logit {big:.6g} (rtol {LM_TOL}, atol "
+          f"{LM_TOL} x max_abs_logit) top1_equal "
+          f"{bool((card32.argmax(-1) == host32.argmax(-1)).all())}")
+    if not torch.allclose(card32, host32, rtol=LM_TOL, atol=LM_TOL * big):
+        raise AssertionError("lm: float32 logits on the card differ from the CPU's")
+
+    m16 = m32.with_dtype(torch.bfloat16)
+    card16 = prefill_then_step(m16, toks)
+    with torch.inference_mode():
+        top32 = torch.cat([m32.logits(m32(toks)).argmax(-1).cpu(), card32.argmax(-1)], 1)
+        top16 = torch.cat([m16.logits(m16(toks)).argmax(-1).cpu(), card16.argmax(-1)], 1)
+    del m32
+    torch.cuda.empty_cache()
+    rec["bf16_max_abs_diff"] = float((card16 - card32).abs().max())
+    rec["bf16_top1_agree"] = int((top16 == top32).sum())
+    rec["bf16_top1_of"] = top16.numel()
+    rec["weights_bytes"] = sum(p.numel() * p.element_size() for p in m16.parameters())
+    print(f"lm bf16_vs_f32 decode-step max_abs_diff {rec['bf16_max_abs_diff']:.6g} "
+          f"top1_agree {rec['bf16_top1_agree']}/{rec['bf16_top1_of']} (forward over "
+          f"{LM_PREFILL + 1} tokens + the step; recorded, not gated)")
+
+    # the engine run: bf16, compressed prompts through the planner's wave
+    eng = ServeEngine(cfg, m16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos=-1,
+                      device=dev)
+    src = {rid: rng.integers(0, cfg.vocab, n).astype(np.int32) for rid, _, n in LM_PROMPTS}
+    plain = rng.integers(0, cfg.vocab, LM_PLAIN).astype(np.int32)
+    encs = {rid: encode(make_plan(codec), src[rid]) for rid, codec, _ in LM_PROMPTS}
+    timing = {"prefill": [], "decode_ms": [], "host_ms": [], "in_prefill": False}
+    wave = dict.fromkeys((lib.name for lib in libs), 0)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    decode, prefill, drain = eng._decode, eng._prefill, eng._drain_prompts
+
+    def timed_decode(t):
+        nonlocal finite
+        if timing["in_prefill"]:
+            out = decode(t)
+        else:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            out = decode(t)
+            timing["host_ms"].append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            timing["decode_ms"].append(a.elapsed_time(b))
+        finite = finite & torch.isfinite(out).all()
+        return out
+
+    def timed_prefill(t):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        timing["in_prefill"] = True
+        a.record()
+        try:
+            out = prefill(t)
+        finally:
+            timing["in_prefill"] = False
+        b.record()
+        b.synchronize()
+        timing["prefill"].append((t.shape[0], a.elapsed_time(b)))
+        return out
+
+    def counted_drain():
+        before = {lib.name: lib.launches for lib in libs}
+        drain()
+        for lib in libs:
+            wave[lib.name] += lib.launches - before[lib.name]
+
+    eng._decode, eng._prefill, eng._drain_prompts = timed_decode, timed_prefill, counted_drain
+    for lib in libs:
+        lib.launches = 0
+    t0 = time.perf_counter()
+    for rid, _, _ in LM_PROMPTS:
+        eng.submit_compressed(rid, encs[rid], max_new=LM_MAX_NEW)
+    eng.submit(Request(len(LM_PROMPTS), plain, max_new=LM_MAX_NEW))
+    done = eng.run_to_completion(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    for name in (libs[0].name, libs[2].name):
+        if launches[name] == 0:
+            raise AssertionError(f"lm: the engine run launched no {name} kernel")
+    for req in eng._requests:
+        if req.error is not None:
+            raise AssertionError(f"lm: request {req.rid} failed: {req.error!r}")
+        if req.rid in src and not np.array_equal(req.prompt, src[req.rid]):
+            raise AssertionError(f"lm: request {req.rid}'s decoded prompt differs")
+    lens = {rid: len(out) for rid, out in done.items()}
+    if lens != dict.fromkeys(range(len(LM_PROMPTS) + 1), LM_MAX_NEW):
+        raise AssertionError(f"lm: tokens per request {lens}")
+    stats = eng.decode_cache_stats
+    if (stats["programs"], stats["hits"]) != (3, 1):
+        raise AssertionError(f"lm: prompt cache {stats}, expected 3 programs and 1 hit")
+    if not bool(finite) or not all(bool(torch.isfinite(r._last_logits).all())
+                                   for r in eng._requests):
+        raise AssertionError("lm: non-finite logits")
+    report = eng.planner.reports[-1]
+    tokens = sum(lens.values())
+    n_pre = sum(n for n, _ in timing["prefill"])
+    rec.update({
+        "requests": len(done), "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "prompt_cache": stats, "waves": len(eng.planner.reports),
+        "prefill_tokens": n_pre,
+        "prefill_ms_per_token": sum(ms for _, ms in timing["prefill"]) / n_pre,
+        "decode_steps": len(timing["decode_ms"]),
+        "decode_step_ms": float(np.median(timing["decode_ms"])),
+        "decode_step_ms_min": min(timing["decode_ms"]),
+        "decode_host_ms": float(np.median(timing["host_ms"])),
+        "decode_bound_ms": rec["weights_bytes"] / (hbm_gbps * 1e9) * 1e3,
+        "wave_register_s": report.register_s, "wave_makespan_s": report.makespan_s,
+        "wave_launches": wave, "launches": launches, "cache_len": eng.state["len"]})
+    print(f"lm engine {cfg.name} bf16 slots {LM_SLOTS} max_len {LM_MAX_LEN} requests "
+          f"{len(done)} tokens {tokens} wall_s {wall:.4f} tokens_per_s "
+          f"{rec['tokens_per_s']:.2f} prompt_cache {stats} waves {rec['waves']} "
+          f"cache_len {rec['cache_len']} launches {launches}")
+    print(f"lm prefill tokens {n_pre} ms_per_prompt_token {rec['prefill_ms_per_token']:.4f}")
+    print(f"lm decode steps {rec['decode_steps']} median_ms {rec['decode_step_ms']:.4f} "
+          f"min_ms {rec['decode_step_ms_min']:.4f} host_ms_per_step "
+          f"{rec['decode_host_ms']:.4f} weights_bound_ms {rec['decode_bound_ms']:.4f} "
+          f"({rec['weights_bytes'] / 1e9:.3f} GB of weights at {hbm_gbps} GB/s)")
+    print(f"lm prompt_wave register_s {report.register_s:.6f} makespan_s "
+          f"{report.makespan_s:.6f} decode_launches {report.decode_launches} "
+          f"launches {wave}")
+
+    # the host's work in a decode step: its top-level aten ops (each a dispatch,
+    # most a launch) under a CPU-only profiler session
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        for _ in range(2):
+            _, cache = m16.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(LM_PROFILED_STEPS):
+                _, cache = m16.decode_step(tok, cache)
+            torch.cuda.synchronize()
+    top = [e for e in prof.events() if e.name.startswith("aten::") and
+           (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    rec["host_ops_per_step"] = len(top) / LM_PROFILED_STEPS
+    rec["host_ops_ms_per_step"] = sum(e.cpu_time_total for e in top) / 1e3 / LM_PROFILED_STEPS
+    rec["host_ops_top"] = {k: v / LM_PROFILED_STEPS
+                           for k, v in Counter(e.name for e in top).most_common(8)}
+    print(f"lm host_ops per_step {rec['host_ops_per_step']:.1f} per_layer "
+          f"{rec['host_ops_per_step'] / cfg.n_layers:.2f} ms_per_step (profiled) "
+          f"{rec['host_ops_ms_per_step']:.4f} top {rec['host_ops_top']}")
+    del cache
+
+    # KV paging: a (2, 256, 16, 64) bf16 block out in the bitpack wire format
+    # and back in through kernel 1, bitwise against the plain page_in
+    block = torch.randn(LM_PAGE_SHAPE, generator=torch.Generator(dev).manual_seed(seed),
+                        device=dev).to(torch.bfloat16)
+    pb = page_out(block)
+    n0 = fp.launches
+    got = page_in(pb, device=dev)
+    rec["page_in_launches"] = fp.launches - n0
+    ref_in = page_in(pb, device=dev, backend="torch")
+    same(got.view(torch.int16), ref_in.view(torch.int16), "lm page_in")
+    if rec["page_in_launches"] < 1:
+        raise AssertionError("lm: page_in launched no kernel-1 kernel")
+    enc = pb.encoded()
+    bufs = device_buffers(enc, dev)
+    kprog, pprog = compile_blob(enc, backend="kernel"), compile_blob(enc, backend="torch")
+    unpack_bytes = pb.packed.nbytes + block.numel()
+    rec.update({
+        "page_wire_bytes": pb.packed.nbytes, "page_bf16_bytes": block.numel() * 2,
+        "page_in_ms": timer.ms(lambda: page_in(pb, device=dev)),
+        "page_in_plain_ms": timer.ms(lambda: page_in(pb, device=dev, backend="torch")),
+        "unpack_ms": timer.ms(lambda: kprog(bufs)),
+        "unpack_plain_ms": timer.ms(lambda: pprog(bufs)),
+        "unpack_bound_ms": unpack_bytes / (hbm_gbps * 1e9) * 1e3,
+        "page_max_abs_err": float((got.float() - block.float()).abs().max())})
+    print(f"lm kvpage shape {LM_PAGE_SHAPE} wire_bytes {rec['page_wire_bytes']} bf16_bytes "
+          f"{rec['page_bf16_bytes']} page_in_ms {rec['page_in_ms']:.4f} plain_ms "
+          f"{rec['page_in_plain_ms']:.4f} unpack_ms {rec['unpack_ms']:.4f} unpack_plain_ms "
+          f"{rec['unpack_plain_ms']:.4f} unpack_bound_ms {rec['unpack_bound_ms']:.4f} "
+          f"launches {rec['page_in_launches']} bitwise True max_abs_err "
+          f"{rec['page_max_abs_err']:.4g}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm phase_s {rec['phase_s']:.2f} init_s {rec['init_s']:.2f} cpu_parity_s "
+          f"{rec['cpu_parity_s']:.2f}")
+    return rec
 
 
 def main() -> int:
@@ -1862,6 +2137,10 @@ def main() -> int:
     # ---------------------------------------------------------------- phase 9
     baseline = run_baseline(columns, cols, encoded, timer, libs)
 
+    # --------------------------------------------------------------- phase 11
+    from repro_torch.configs import ARCHS
+    lm = run_lm_serving(ARCHS[LM_ARCH], args.seed, timer, libs, hbm)
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -1934,7 +2213,9 @@ def main() -> int:
             "geometry": {k: v for k, v in geometry[kname].items() if k != "by_geometry"},
             "baseline_launches": sum(
                 r["launches"] for r in baseline["columns"].values()),
-            "baseline_ms_all_columns": baseline["totals"]["ms"]})
+            "baseline_ms_all_columns": baseline["totals"]["ms"],
+            "lm_serve_launches": lm["launches"][kname],
+            "lm_prompt_wave_launches": lm["wave_launches"][kname]})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -1946,7 +2227,8 @@ def main() -> int:
                                         "dispatch": served["dispatch"],
                                         "serve": served["serve"],
                                         "wide_queries": wide, "geometry": geometry,
-                                        "baseline": baseline, "kernels": kernels},
+                                        "baseline": baseline, "lm": lm,
+                                        "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,0 +1,10 @@
+"""smollm-360m [dense]: llama-arch small [hf:HuggingFaceTB/SmolLM-135M; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m", family="dense", n_layers=32, d_model=960, n_heads=15,
+    n_kv_heads=5, d_ff=2560, vocab=49152)
+
+SMOKE = ModelConfig(
+    name="smollm-360m-smoke", family="dense", n_layers=2, d_model=60, n_heads=3,
+    n_kv_heads=1, d_ff=128, vocab=256)

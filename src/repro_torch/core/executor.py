@@ -779,7 +779,8 @@ class StreamingExecutor:
     authoritative.  ``async_dispatch`` makes ``run`` issue its copies from a
     ``DispatchEngine`` transfer thread by default (off, as in the
     reference).  ``fuse=False`` compiles the columns' unfused graphs (the
-    ``"baseline"`` backend never fuses)."""
+    ``"baseline"`` backend never fuses).  ``cache`` is the ``ProgramCache``
+    to share (a fresh one by default)."""
 
     _DEFAULTS = object()     # "use the constructor's chunk configuration"
 
@@ -788,7 +789,7 @@ class StreamingExecutor:
                  policy: str = "chunk-johnson", pipeline: bool = True,
                  batch_columns: bool = True, prefetch_chunks: int | None = None,
                  cost_model: CostModel | None = None, async_dispatch: bool = False,
-                 fuse: bool = True):
+                 fuse: bool = True, cache: ProgramCache | None = None):
         self.backend = backend
         self.fuse = fuse
         self.device = torch.device(device)
@@ -805,7 +806,7 @@ class StreamingExecutor:
         # measured (transfer_s, decode_s) per column from the latest run: an
         # alias of the cost model's store (one source of truth)
         self.timings: dict[str, tuple[float, float]] = self.cost_model.measured
-        self.cache = ProgramCache()
+        self.cache = cache if cache is not None else ProgramCache()
         self._encoded: dict[str, plan_mod.Encoded] = {}
         self._programs: dict[str, Program] = {}
         self._graphs: dict[str, DecodeGraph] = {}

@@ -1335,3 +1335,82 @@ def test_baseline_columns_on_the_card(gpu):
         assert _launches() > before
         assert torch.equal(bits(got), bits(compile_decoder(enc)(bufs)))
         assert torch.equal(bits(got.cpu()), bits(torch.from_numpy(cols[n])))
+
+
+def test_lm_serving_engine_on_the_card(gpu):
+    """The reduced qwen1.5-0.5b engine in f32 on the card: three bitpack and one
+    rANS prompt decode on kernels 1 and 3 to their sources in one wave (two
+    16-token prompts share a program), every request emits its tokens, the
+    logits are finite, and a decode step after a 16-token prefill agrees with
+    the same weights on the CPU (TF32 off) within 1e-3 of the largest logit."""
+    import copy
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(SMOKES["qwen1.5-0.5b"], dtype=torch.float32)
+    model = get_model(cfg).init(torch.Generator(gpu).manual_seed(0), gpu)
+    eng = ServeEngine(cfg, model, batch_slots=2, max_len=128, eos=-1, device=gpu)
+    rng = np.random.default_rng(0)
+    src = {rid: rng.integers(0, cfg.vocab, n).astype(np.int32)
+           for rid, n in ((0, 16), (1, 16), (2, 24), (3, 40))}
+    finite = []
+    decode = eng._decode
+
+    def checked_decode(t):
+        logits = decode(t)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits
+
+    eng._decode = checked_decode
+    before = (FP.launches, NP.launches)
+    for rid, toks in src.items():
+        eng.submit_compressed(rid, encode(make_plan("ans" if rid == 3 else "bitpack"), toks),
+                              max_new=4)
+    eng.submit(Request(4, rng.integers(0, cfg.vocab, 8).astype(np.int32), max_new=4))
+    done = eng.run_to_completion(200)
+    assert FP.launches > before[0] and NP.launches > before[1]
+    assert {k: len(v) for k, v in done.items()} == dict.fromkeys(range(5), 4)
+    for req in eng._requests:
+        assert req.error is None
+        if req.rid in src:
+            np.testing.assert_array_equal(req.prompt, src[req.rid])
+    assert eng.decode_cache_stats["programs"] == 3 and eng.decode_cache_stats["hits"] == 1
+    assert finite and all(finite)
+
+    cpu = copy.deepcopy(model).to("cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 17)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            outs = []
+            for m, dev in ((model, gpu), (cpu, torch.device("cpu"))):
+                t = toks.to(dev)
+                _, st = m.prefill(t[:, :16], init_cache(cfg, 2, 32, device=dev))
+                outs.append(m.decode_step(t[:, 16:], st)[0].cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    card, host = outs
+    scale = float(host.abs().max())
+    torch.testing.assert_close(card, host, rtol=1e-3, atol=1e-3 * scale)
+
+
+def test_kv_page_in_on_kernel_1(gpu):
+    from repro_torch.serve.kvcache import page_in, page_out
+
+    block = torch.randn((2, 256, 16, 64), generator=torch.Generator(gpu).manual_seed(1),
+                        device=gpu).to(torch.bfloat16)
+    pb = page_out(block)
+    before = FP.launches
+    got = page_in(pb, device=gpu)
+    assert FP.launches > before
+    launched = FP.launches
+    plain = page_in(pb, device=gpu, backend="torch")
+    assert FP.launches == launched
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+    assert pb.packed.nbytes < block.numel() * block.element_size() / 1.9

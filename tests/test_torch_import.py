@@ -36,7 +36,13 @@ leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("repro", "jax", "jaxlib"))
 assert not leaked, leaked
 for new in ("repro_torch.core.query", "repro_torch.data.queries",
-            "repro_torch.kernels.query_reduce", "repro_torch.core.serve_planner"):
+            "repro_torch.kernels.query_reduce", "repro_torch.core.serve_planner",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen1_5_0_5b", "repro_torch.models",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.models.weights",
+            "repro_torch.serve", "repro_torch.serve.kvcache", "repro_torch.serve.engine",
+            "repro_torch.launch", "repro_torch.launch.serve"):
     assert new in names, new
 print(len(names))
 """

@@ -586,7 +586,7 @@ def test_serve_planner_without_cuda_raises():
 
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(mesh=4), dict(placement="sharded")])
 def test_mesh_waves_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="§1 item 3"):
         ServePlanner(port_executor(), **kw)
 
 
