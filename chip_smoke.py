@@ -154,9 +154,10 @@ non-zero before the final line:
      the launches of one decode of each (``baseline`` lines);
  10. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
      (kernel 4's object beside the three decode kernels', each of those with
-     its ``geometry`` object and the launches of phase 11's engine run and
-     prompt wave), the card's name and power limit from ``nvidia-smi``, and
-     last ``{"ok": true, "device": {...}}``;
+     its ``geometry`` object, the launches of phase 11's engine run and
+     prompt wave and ``lm_family_launches``, phase 12's per family), the
+     card's name and power limit from ``nvidia-smi``, and last ``{"ok":
+     true, "device": {...}}``;
  11. lm serve (runs after phase 9, so that phase 10 reports it): the
      language-model serving path at the full width of qwen1.5-0.5b (24
      layers, d_model 1024, 16 heads of 64, QKV bias, d_ff 2816, vocab
@@ -183,13 +184,39 @@ non-zero before the final line:
      CPU-only ``torch.profiler`` session over 5 steps: count, the commonest,
      their host ms under the profiler); the wire bytes against the bf16 bytes and
      ``page_in`` (and the unpack alone) on kernel 1 against its plain
-     version.
+     version;
+ 12. lm families (after phase 11): for each of phi3.5-moe-42b-a6.6b (MoE,
+     d_model 4096, 16 experts top-2, d_ff 6400; 8 of its 32 layers, as the
+     whole model's ~84 GB in bf16 does not fit the card), qwen2-vl-2b
+     (M-RoPE), rwkv6-7b, zamba2-7b (81 Mamba2 layers and a shared attention
+     block every 6) and seamless-m4t-medium (12 + 12 layers), each at its
+     published width and otherwise whole (``LM_FAMILIES``), random weights
+     drawn on the card from ``--seed`` by the port's init.  Parity: one decode
+     step after a 16-token prefill (qwen2-vl's after a 16-row patch prefix
+     with 3-D positions whose h/w streams differ from t; seamless's through
+     ``Model.prefill`` with 64 random frames), f32 on the card with TF32 off
+     against the same weights on the CPU within ``LM_TOL``, at a cut depth
+     (2 layers; 7 for zamba2, one super-block and a tail layer; 2 + 2 for
+     seamless).  The engine run: ``ServeEngine(batch_slots=2, max_len=256,
+     eos=-1)`` in bf16 serves a bitpack prompt of 16 tokens and an rANS
+     prompt of 24 (``submit_compressed``, one planner wave) and a plain
+     8-token prompt, 8 tokens each, with the counts zeroed just before and
+     read just after: every decoded prompt equal to its source, every request
+     8 tokens without error, every logit finite, kernels 1 and 3 launched.
+     One ``lm family`` line each: layers run of the config's and parameters,
+     ``init_s``, the parity error against the largest |logit|, the median
+     decode-step ms (events) and host ms a step, the weights bound of a step
+     (the bytes of the weights it reads at the HBM rate; of an MoE layer's
+     experts, those this run's router picked, a mean a layer), prefill ms a
+     prompt token, tokens/s and the launches per kernel; then the phase's
+     seconds.  Each family's models are freed before the next is drawn.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -261,6 +288,19 @@ LM_PREFILL = 16              # the parity check's prompt, then one decode step
 LM_TOL = 1e-3                # f32 card vs CPU: rtol, and atol as a share of max |logit|
 LM_PAGE_SHAPE = (2, 256, 16, 64)
 LM_PROFILED_STEPS = 5        # decode steps under the host-ops profiler session
+# LM families phase (12): each family at its published width; the config
+# changes of the serving run (a depth cut where one card's memory forces it)
+# and of the f32 parity check (a depth cut that keeps the CPU copy small)
+LM_FAMILIES = {
+    "phi3.5-moe-42b-a6.6b": ({"n_layers": 8}, {"n_layers": 2}),   # 84 GB whole in bf16
+    "qwen2-vl-2b": ({}, {"n_layers": 2}),
+    "rwkv6-7b": ({}, {"n_layers": 2}),
+    "zamba2-7b": ({}, {"n_layers": 7}),          # one super-block of 6 and a tail layer
+    "seamless-m4t-medium": ({}, {"n_layers": 4, "enc_layers": 2, "dec_layers": 2}),
+}
+FAMILY_PROMPTS = ((0, "bitpack", 16), (1, "ans", 24))   # rid 2 is a plain submit
+FAMILY_PLAIN, FAMILY_MAX_NEW = 8, 8
+FAMILY_PATCHES, FAMILY_FRAMES = 16, 64   # qwen2-vl's patch prefix, seamless's source frames
 
 
 def host_part(name: str) -> str | None:
@@ -1015,12 +1055,85 @@ def run_serving(cols: dict, encoded: dict, libs, plain_copy_ms: float) -> dict:
             "largest_batch": {k: max(r["largest_batch"][k] for r in serve) for k in KERNELS}}
 
 
+def drive_engine(eng, libs, submit, src: dict, max_new: int, what: str) -> dict:
+    """Serve the requests ``submit()`` queues on ``eng`` to completion, with
+    every kernel's launch count zeroed just before and read just after: each
+    decode step timed by CUDA events and on the host, each prefill (a loop of
+    decode steps) by events, the launches of each prompt wave counted.  Fails
+    unless every compressed prompt decodes to ``src``, every request emits
+    ``max_new`` tokens without error, every logit is finite and kernels 1 and
+    3 have launched.  Returns the served tokens, wall seconds, launches and
+    the timings."""
+    timing = {"prefill": [], "decode_ms": [], "host_ms": [], "in_prefill": False}
+    wave = dict.fromkeys((lib.name for lib in libs), 0)
+    finite = []
+    decode, prefill, drain = eng._decode, eng._prefill, eng._drain_prompts
+
+    def timed_decode(t):
+        if timing["in_prefill"]:
+            out = decode(t)
+        else:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            out = decode(t)
+            timing["host_ms"].append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            timing["decode_ms"].append(a.elapsed_time(b))
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    def timed_prefill(t):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        timing["in_prefill"] = True
+        a.record()
+        try:
+            out = prefill(t)
+        finally:
+            timing["in_prefill"] = False
+        b.record()
+        b.synchronize()
+        timing["prefill"].append((t.shape[0], a.elapsed_time(b)))
+        return out
+
+    def counted_drain():
+        before = {lib.name: lib.launches for lib in libs}
+        drain()
+        for lib in libs:
+            wave[lib.name] += lib.launches - before[lib.name]
+
+    eng._decode, eng._prefill, eng._drain_prompts = timed_decode, timed_prefill, counted_drain
+    for lib in libs:
+        lib.launches = 0
+    t0 = time.perf_counter()
+    submit()
+    done = eng.run_to_completion(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    for name in (libs[0].name, libs[2].name):
+        if launches[name] == 0:
+            raise AssertionError(f"{what}: the engine run launched no {name} kernel")
+    for req in eng._requests:
+        if req.error is not None:
+            raise AssertionError(f"{what}: request {req.rid} failed: {req.error!r}")
+        if req.rid in src and not np.array_equal(req.prompt, src[req.rid]):
+            raise AssertionError(f"{what}: request {req.rid}'s decoded prompt differs")
+    lens = {rid: len(out) for rid, out in done.items()}
+    if lens != dict.fromkeys(range(len(eng._requests)), max_new):
+        raise AssertionError(f"{what}: tokens per request {lens}")
+    if not all(bool(f) for f in finite) or not all(
+            bool(torch.isfinite(r._last_logits).all()) for r in eng._requests):
+        raise AssertionError(f"{what}: non-finite logits")
+    return {"done": done, "wall": wall, "launches": launches, "wave": wave, "timing": timing}
+
+
 def run_lm_serving(cfg, seed: int, timer, libs, hbm_gbps: float,
                    device: str = "cuda") -> dict:
     """Phase 11: the language-model serving path (see the module docstring);
     returns its record, with per kernel the launches of the engine run."""
     import copy
-    import dataclasses
 
     from repro_torch.core.compiler import compile_blob, device_buffers
     from repro_torch.core.plan import encode, make_plan
@@ -1094,74 +1207,19 @@ def run_lm_serving(cfg, seed: int, timer, libs, hbm_gbps: float,
     src = {rid: rng.integers(0, cfg.vocab, n).astype(np.int32) for rid, _, n in LM_PROMPTS}
     plain = rng.integers(0, cfg.vocab, LM_PLAIN).astype(np.int32)
     encs = {rid: encode(make_plan(codec), src[rid]) for rid, codec, _ in LM_PROMPTS}
-    timing = {"prefill": [], "decode_ms": [], "host_ms": [], "in_prefill": False}
-    wave = dict.fromkeys((lib.name for lib in libs), 0)
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    decode, prefill, drain = eng._decode, eng._prefill, eng._drain_prompts
 
-    def timed_decode(t):
-        nonlocal finite
-        if timing["in_prefill"]:
-            out = decode(t)
-        else:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            h0 = time.perf_counter()
-            out = decode(t)
-            timing["host_ms"].append((time.perf_counter() - h0) * 1e3)
-            b.record()
-            b.synchronize()
-            timing["decode_ms"].append(a.elapsed_time(b))
-        finite = finite & torch.isfinite(out).all()
-        return out
+    def submit():
+        for rid, _, _ in LM_PROMPTS:
+            eng.submit_compressed(rid, encs[rid], max_new=LM_MAX_NEW)
+        eng.submit(Request(len(LM_PROMPTS), plain, max_new=LM_MAX_NEW))
 
-    def timed_prefill(t):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        timing["in_prefill"] = True
-        a.record()
-        try:
-            out = prefill(t)
-        finally:
-            timing["in_prefill"] = False
-        b.record()
-        b.synchronize()
-        timing["prefill"].append((t.shape[0], a.elapsed_time(b)))
-        return out
-
-    def counted_drain():
-        before = {lib.name: lib.launches for lib in libs}
-        drain()
-        for lib in libs:
-            wave[lib.name] += lib.launches - before[lib.name]
-
-    eng._decode, eng._prefill, eng._drain_prompts = timed_decode, timed_prefill, counted_drain
-    for lib in libs:
-        lib.launches = 0
-    t0 = time.perf_counter()
-    for rid, _, _ in LM_PROMPTS:
-        eng.submit_compressed(rid, encs[rid], max_new=LM_MAX_NEW)
-    eng.submit(Request(len(LM_PROMPTS), plain, max_new=LM_MAX_NEW))
-    done = eng.run_to_completion(max_steps=1000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {lib.name: lib.launches for lib in libs}
-    for name in (libs[0].name, libs[2].name):
-        if launches[name] == 0:
-            raise AssertionError(f"lm: the engine run launched no {name} kernel")
-    for req in eng._requests:
-        if req.error is not None:
-            raise AssertionError(f"lm: request {req.rid} failed: {req.error!r}")
-        if req.rid in src and not np.array_equal(req.prompt, src[req.rid]):
-            raise AssertionError(f"lm: request {req.rid}'s decoded prompt differs")
+    run = drive_engine(eng, libs, submit, src, LM_MAX_NEW, "lm")
+    done, wall, launches, wave, timing = (run[k] for k in ("done", "wall", "launches", "wave",
+                                                           "timing"))
     lens = {rid: len(out) for rid, out in done.items()}
-    if lens != dict.fromkeys(range(len(LM_PROMPTS) + 1), LM_MAX_NEW):
-        raise AssertionError(f"lm: tokens per request {lens}")
     stats = eng.decode_cache_stats
     if (stats["programs"], stats["hits"]) != (3, 1):
         raise AssertionError(f"lm: prompt cache {stats}, expected 3 programs and 1 hit")
-    if not bool(finite) or not all(bool(torch.isfinite(r._last_logits).all())
-                                   for r in eng._requests):
-        raise AssertionError("lm: non-finite logits")
     report = eng.planner.reports[-1]
     tokens = sum(lens.values())
     n_pre = sum(n for n, _ in timing["prefill"])
@@ -1250,6 +1308,164 @@ def run_lm_serving(cfg, seed: int, timer, libs, hbm_gbps: float,
     print(f"lm phase_s {rec['phase_s']:.2f} init_s {rec['init_s']:.2f} cpu_parity_s "
           f"{rec['cpu_parity_s']:.2f}")
     return rec
+
+
+def family_batch(cfg, rng, n: int) -> dict:
+    """A prefill batch of ``n`` tokens for ``cfg``'s family, as the reference's
+    ``prefill`` takes it: for qwen2-vl a prefix of ``FAMILY_PATCHES`` random
+    patch embeddings in a square grid at t = 0 (h and w its rows and
+    columns) before the text, at the grid's side and on; for seamless
+    ``FAMILY_FRAMES`` random source frames."""
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (LM_SLOTS, n)))}
+    if cfg.family == "vlm":
+        side = int(FAMILY_PATCHES ** 0.5)
+        grid = np.stack([np.zeros(FAMILY_PATCHES), np.arange(FAMILY_PATCHES) // side,
+                         np.arange(FAMILY_PATCHES) % side])
+        text = np.broadcast_to(np.arange(side, side + n), (3, n))
+        batch["pos3"] = torch.from_numpy(np.broadcast_to(
+            np.concatenate([grid, text], 1), (LM_SLOTS, 3, FAMILY_PATCHES + n)).astype(np.int32))
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(LM_SLOTS, FAMILY_PATCHES, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(LM_SLOTS, FAMILY_FRAMES, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def decode_weights_bytes(model, cfg, experts_touched: float | None) -> int:
+    """The bytes of the weights a decode step reads: all of them but the
+    encoder's (enc-dec) and an unused Zamba2 tail layer; of an MoE layer's
+    experts only ``experts_touched`` (this run's mean of distinct experts a
+    layer's router picked in a step)."""
+    total = 0
+    for name, p in model.named_parameters():
+        if name.startswith(("enc.", "enc_final.")):
+            continue
+        if (name.startswith("mamba_tail.") and cfg.family == "hybrid"
+                and cfg.n_layers % cfg.attn_every == 0):
+            continue
+        if ".experts_" in name:
+            total += p.numel() // cfg.n_experts * p.element_size() * experts_touched
+            continue
+        total += p.numel() * p.element_size()
+    return int(total)
+
+
+def run_lm_families(families: dict, seed: int, libs, hbm_gbps: float,
+                    device: str = "cuda") -> dict:
+    """Phase 12: the other LM families (see the module docstring), each
+    family's models freed before the next is drawn; returns per family its
+    record, with per kernel the launches of its engine run."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.plan import encode, make_plan
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (cfg, cut32) in families.items():
+        t_family = time.perf_counter()
+        rec: dict = {"arch": arch, "layers": cfg.n_layers}
+        rng = np.random.default_rng(seed)
+
+        # parity: one decode step after a 16-token prefill, f32 on the card
+        # (TF32 off) against the same weights on the CPU, at a cut depth
+        api = get_model(cut32)
+        m32 = api.init(torch.Generator(dev).manual_seed(seed), dev)
+        batch = family_batch(cut32, rng, LM_PREFILL)
+        step = torch.from_numpy(rng.integers(0, cut32.vocab, (LM_SLOTS, 1)))
+
+        def prefill_then_step(m, d):
+            with torch.inference_mode():
+                st = api.make_state(LM_SLOTS, 4 * LM_PREFILL, device=d)
+                _, st = api.prefill(m, {k: v.to(d) for k, v in batch.items()}, st)
+                logits = api.decode_step(m, step.to(d), st)[0]
+                return logits[..., :cut32.vocab].float().cpu()   # not the masked padding
+
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            card32 = prefill_then_step(m32, dev)
+            t0 = time.perf_counter()
+            host32 = prefill_then_step(m32.cpu(), torch.device("cpu"))
+            rec["cpu_parity_s"] = time.perf_counter() - t0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del m32
+        big = float(host32.abs().max())
+        rec.update({"parity_layers": cut32.n_layers, "parity_max_abs_err":
+                    float((card32 - host32).abs().max()), "parity_max_abs_logit": big})
+        if not torch.allclose(card32, host32, rtol=LM_TOL, atol=LM_TOL * big):
+            raise AssertionError(f"lm family {arch}: float32 logits on the card differ from "
+                                 f"the CPU's by {rec['parity_max_abs_err']:.6g}")
+
+        # the serving run: bf16 at the published width
+        t0 = time.perf_counter()
+        model = get_model(cfg).init(torch.Generator(dev).manual_seed(seed), dev)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = sum(p.numel() for p in model.parameters())
+        eng = ServeEngine(cfg, model, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos=-1,
+                          device=dev)
+        src = {rid: rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for rid, _, n in FAMILY_PROMPTS}
+        plain = rng.integers(0, cfg.vocab, FAMILY_PLAIN).astype(np.int32)
+
+        def submit():
+            for rid, codec, _ in FAMILY_PROMPTS:
+                eng.submit_compressed(rid, encode(make_plan(codec), src[rid]),
+                                      max_new=FAMILY_MAX_NEW)
+            eng.submit(Request(len(FAMILY_PROMPTS), plain, max_new=FAMILY_MAX_NEW))
+
+        routed = []                      # each MoE router call's expert ids
+        route = L.moe_route
+
+        def recorded(p, xg, c):
+            probs, gate_v, gate_i = route(p, xg, c)
+            routed.append(gate_i)
+            return probs, gate_v, gate_i
+
+        L.moe_route = recorded
+        try:
+            run = drive_engine(eng, libs, submit, src, FAMILY_MAX_NEW, f"lm family {arch}")
+        finally:
+            L.moe_route = route
+        timing = run["timing"]
+        touched = (float(np.mean([len(torch.unique(g)) for g in routed]))
+                   if cfg.family == "moe" else None)
+        weights = decode_weights_bytes(model, cfg, touched)
+        tokens = sum(len(v) for v in run["done"].values())
+        n_pre = sum(n for n, _ in timing["prefill"])
+        rec.update({
+            "tokens": tokens, "wall_s": run["wall"], "tokens_per_s": tokens / run["wall"],
+            "prefill_tokens": n_pre,
+            "prefill_ms_per_token": sum(ms for _, ms in timing["prefill"]) / n_pre,
+            "decode_steps": len(timing["decode_ms"]),
+            "decode_step_ms": float(np.median(timing["decode_ms"])),
+            "decode_host_ms": float(np.median(timing["host_ms"])),
+            "experts_touched": touched, "step_weights_bytes": weights,
+            "decode_bound_ms": weights / (hbm_gbps * 1e9) * 1e3,
+            "launches": run["launches"], "wave_launches": run["wave"]})
+        del eng, model
+        torch.cuda.empty_cache()
+        rec["family_s"] = time.perf_counter() - t_family
+        full = ARCHS[arch].n_layers
+        print(f"lm family {arch} layers {cfg.n_layers}/{full} params {rec['params']} init_s "
+              f"{rec['init_s']:.2f} parity_f32 layers {cut32.n_layers} max_abs_err "
+              f"{rec['parity_max_abs_err']:.6g} max_abs_logit {big:.6g} cpu_parity_s "
+              f"{rec['cpu_parity_s']:.2f} decode_step_ms {rec['decode_step_ms']:.4f} "
+              f"host_ms_per_step {rec['decode_host_ms']:.4f} weights_bound_ms "
+              f"{rec['decode_bound_ms']:.4f} ({weights / 1e9:.3f} GB"
+              + (f", {touched:.2f} of {cfg.n_experts} experts a layer" if touched else "")
+              + f") prefill_ms_per_prompt_token {rec['prefill_ms_per_token']:.4f} "
+              f"tokens_per_s {rec['tokens_per_s']:.2f} tokens {tokens} launches "
+              f"{run['launches']} wave_launches {run['wave']} family_s {rec['family_s']:.2f}")
+        out[arch] = rec
+    phase_s = time.perf_counter() - t_phase
+    print(f"lm families phase_s {phase_s:.2f}")
+    return out
 
 
 def main() -> int:
@@ -2141,6 +2357,12 @@ def main() -> int:
     from repro_torch.configs import ARCHS
     lm = run_lm_serving(ARCHS[LM_ARCH], args.seed, timer, libs, hbm)
 
+    # --------------------------------------------------------------- phase 12
+    families = {arch: (dataclasses.replace(ARCHS[arch], **cut),
+                       dataclasses.replace(ARCHS[arch], dtype=torch.float32, **cut32))
+                for arch, (cut, cut32) in LM_FAMILIES.items()}
+    lm_families = run_lm_families(families, args.seed, libs, hbm)
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -2215,7 +2437,8 @@ def main() -> int:
                 r["launches"] for r in baseline["columns"].values()),
             "baseline_ms_all_columns": baseline["totals"]["ms"],
             "lm_serve_launches": lm["launches"][kname],
-            "lm_prompt_wave_launches": lm["wave_launches"][kname]})
+            "lm_prompt_wave_launches": lm["wave_launches"][kname],
+            "lm_family_launches": {a: r["launches"][kname] for a, r in lm_families.items()}})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2228,6 +2451,7 @@ def main() -> int:
                                         "serve": served["serve"],
                                         "wide_queries": wide, "geometry": geometry,
                                         "baseline": baseline, "lm": lm,
+                                        "lm_families": lm_families,
                                         "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 """Batched LM serving through the PyTorch/CUDA port: continuous batching over
 two slots, compressed prompts decoded on the card, and compressed KV paging.
 
-Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu]
+Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch A] [--device cpu]
 
-The model is the reduced qwen1.5-0.5b config with random weights from seed 0.
+The model is the reduced (SMOKE) config of ``--arch`` (qwen1.5-0.5b unless
+given; any of the ten: dense, MoE, VLM, RWKV6, Zamba2 or enc-dec) with random
+weights from seed 0.
 Five requests share two slots; two of them ship their prompts as ZipFlow
 blobs (bitpack and rANS), which decode in one planned wave at admission (on
 the card: kernels 1 and 3).  Then a cold KV block is paged out in the bitpack
@@ -22,13 +24,14 @@ from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.kvcache import page_in, page_out
 
 ap = argparse.ArgumentParser()
+ap.add_argument("--arch", default="qwen1.5-0.5b", choices=sorted(SMOKES))
 ap.add_argument("--device", default="cuda")
 args = ap.parse_args()
 device = torch.device(args.device)
 if device.type == "cuda" and not torch.cuda.is_available():
     raise SystemExit("no CUDA device is available; pass --device cpu")
 
-cfg = SMOKES["qwen1.5-0.5b"]
+cfg = SMOKES[args.arch]
 params = get_model(cfg).init(torch.Generator(device).manual_seed(0), device)
 
 # --- continuous batching over 2 slots, 5 requests (two prompts compressed) ---

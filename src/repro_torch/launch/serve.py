@@ -2,9 +2,10 @@
 [--device cpu]``
 
 The continuous-batching engine over the uniform Model API, the reference's
-``launch/serve.py``: random weights from seed 0 (``--arch``'s config, or its
-reduced ``--smoke`` config), ``--requests`` plain 8-token prompts, greedy
-decoding of ``--max-new`` tokens each over ``--slots`` slots.  It runs on the
+``launch/serve.py``: random weights from seed 0 (``--arch``'s config, any of
+the ten and so of every family, or its reduced ``--smoke`` config),
+``--requests`` plain 8-token prompts, greedy decoding of ``--max-new`` tokens
+each over ``--slots`` slots.  It runs on the
 card (``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 from __future__ import annotations

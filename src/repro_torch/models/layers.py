@@ -1,4 +1,4 @@
-"""Dense transformer building blocks in PyTorch: the reference's ``models/layers.py``.
+"""Model building blocks in PyTorch: the reference's ``models/layers.py``.
 
 Conventions, as the reference's:
   * a layer's weights are a mapping from the reference's names to tensors -- a
@@ -16,7 +16,14 @@ Conventions, as the reference's:
     dropped here, with the head padding ``flash_attention`` does under one.
 
 Attention is plain torch ops in the reference's order of casts and sums
-(f32 accumulation, the ``-1e30`` mask), not a library attention kernel.
+(f32 accumulation, the ``-1e30`` mask), not a library attention kernel; the
+MoE layer is the reference's GShard einsum formulation, with its (G, g, E,
+cap) dispatch and combine tensors.
+
+Entry points that make weights or state (each family's ``init``,
+``init_state``/``init_cache``, ``params_from_reference``) put them on the card
+unless ``device`` says otherwise (``resolve_device``); the helpers here take
+the device they are given.
 """
 from __future__ import annotations
 
@@ -34,14 +41,27 @@ Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30     # the reference's mask value
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when it is None; raises when that is the card
+    and no CUDA device is available (the CPU must be asked for)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model runs on CUDA unless device='cpu' is passed, and no "
+                           "CUDA device is available")
+    return device
+
+
 class Weights(nn.Module):
     """A layer's weights as frozen parameters, read by name like the
-    reference's dicts (``p["wq"]``), so every function here takes either."""
+    reference's dicts (``p["wq"]``), so every function here takes either.
+    Stored in ``dtype``, but the names in ``keep`` in f32: what the reference
+    reads in f32 (norm scales, decays, biases of f32 sums)."""
 
-    def __init__(self, params: Params, dtype: torch.dtype = torch.float32):
+    def __init__(self, params: Params, dtype: torch.dtype = torch.float32,
+                 keep: frozenset[str] = frozenset()):
         super().__init__()
         for k, v in params.items():
-            t = torch.as_tensor(v).to(dtype)
+            t = torch.as_tensor(v).to(torch.float32 if k in keep else dtype)
             self.register_parameter(k, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
@@ -101,6 +121,27 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     """x: (..., S, H, hd), pos: broadcastable to (..., S)."""
     freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
     return rotate(x, *rope_cos_sin(pos, freqs))
+
+
+def mrope_cos_sin(pos3: torch.Tensor, freqs: torch.Tensor,
+                  sections: tuple[int, int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE's tables: pos3 (..., 3, S) are (t, h, w) position ids;
+    the hd/2 frequency bands split into ``sections``, each band's angle taken
+    from its own stream -> cos, sin of shape (..., S, 1, hd/2)."""
+    if sum(sections) != freqs.shape[0]:
+        raise ValueError(f"sections {sections} do not split {freqs.shape[0]} bands")
+    band_src = torch.from_numpy(np.concatenate([np.full(s, i) for i, s in
+                                                enumerate(sections)])).to(pos3.device)
+    pos_sel = pos3.index_select(-2, band_src)                  # (..., hd/2, S)
+    ang = pos_sel.movedim(-2, -1).float() * freqs              # (..., S, hd/2)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """x: (..., S, H, hd) rotated by M-RoPE (Qwen2-VL) at pos3 (..., 3, S)."""
+    freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
+    return rotate(x, *mrope_cos_sin(pos3, freqs, sections))
 
 
 # -------------------------------------------------------------------- attention
@@ -238,6 +279,68 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = torch.square(F.relu(h)) if cfg.mlp == "relu2" else F.gelu(h, approximate="tanh")
     return h @ p["w_down"].to(dt)
+
+
+# -------------------------------------------------------------------------- MoE
+
+def moe_init(gen: torch.Generator | None, cfg: ModelConfig,
+             device=None) -> dict[str, torch.Tensor]:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": ninit(gen, (D, E), device=device),
+            "experts_gate": ninit(gen, (E, D, Fd), device=device),
+            "experts_up": ninit(gen, (E, D, Fd), device=device),
+            "experts_down": ninit(gen, (E, Fd, D), scale=1.0 / math.sqrt(Fd),
+                                  device=device)}
+
+
+def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig):
+    """The router over groups xg (G, g, D) -> (probs (G, g, E) f32, gate values
+    and expert ids (G, g, k)).  Ties go to the lower expert id first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order)."""
+    logits = (xg @ p["router"].to(xg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_v, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, gate_v[..., :cfg.top_k], gate_i[..., :cfg.top_k]
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """GShard-style top-k dispatch with per-group capacity -> (y, aux loss).
+    A token's slot in its expert's queue is its place in the group's
+    (token, k) order; past ``cap`` it is dropped."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    dt = x.dtype
+    n = B * S
+    g = min(cfg.moe_group_size, n)
+    if n % g:
+        raise ValueError(f"{n} tokens do not split into MoE groups of {g}")
+    G = n // g
+    cap = max(1, int(math.ceil(g * cfg.top_k * cfg.capacity_factor / E)))
+    xg = x.reshape(G, g, D)
+    probs, gate_v, gate_i = moe_route(p, xg, cfg)
+    gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
+    onehot = F.one_hot(gate_i, E).float()                          # (G, g, k, E)
+    slot_flat = onehot.reshape(G, -1, E)
+    pos = (torch.cumsum(slot_flat, dim=1) - slot_flat).reshape(onehot.shape)
+    keep = (pos < cap) & (onehot > 0)
+    pos_c = torch.clamp(pos.long(), 0, cap - 1)
+    cap_oh = F.one_hot(pos_c, cap).float() * keep[..., None]
+    dispatch = cap_oh.sum(2)                                       # (G, g, E, cap)
+    combine = (cap_oh * gate_v[..., None, None]).sum(2)            # (G, g, E, cap)
+    xe = torch.einsum("Ggec,Ggd->eGcd", dispatch.to(dt), xg)       # (E, G, cap, D)
+    h = F.silu(torch.einsum("eGcd,edf->eGcf", xe, p["experts_gate"].to(dt)))
+    h = h * torch.einsum("eGcd,edf->eGcf", xe, p["experts_up"].to(dt))
+    ye = torch.einsum("eGcf,efd->eGcd", h, p["experts_down"].to(dt))
+    y = torch.einsum("Ggec,eGcd->Ggd", combine.to(dt), ye)
+    return y.reshape(B, S, D), _load_balance_loss(probs, onehot)
+
+
+def _load_balance_loss(probs: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss."""
+    E = probs.shape[-1]
+    frac_tokens = onehot.sum(2).mean(dim=(0, 1))    # (E,)
+    frac_probs = probs.mean(dim=(0, 1))
+    return E * torch.sum(frac_tokens * frac_probs)
 
 
 # -------------------------------------------------------------------- embedding

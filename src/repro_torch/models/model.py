@@ -1,15 +1,18 @@
-"""Uniform model API: the reference's ``models/model.py``, dense family.
+"""Uniform model API over all ten configs: the reference's ``models/model.py``.
 
 ``get_model(cfg)`` returns a ``Model`` whose members close over the config:
-  init(generator=None, device=None) -> Transformer
+  init(generator=None, device=None) -> the family's module (``Transformer``,
+      ``RWKV``, ``Zamba`` or ``EncDec``)
   prefill(params, batch, state) -> (logits, state)
   decode_step(params, token_batch, state) -> (logits, state)
-  make_state(batch, max_len, device=None)     -- the KV cache
+  make_state(batch, max_len, device=None)     -- KV cache or recurrent state
 
-``params`` is the ``Transformer`` itself.  The reference's ``train_loss``
-waits for the training port, and ``state_specs``/``input_specs`` (sharding
-specs and JAX shape stand-ins) for the mesh and the dry run (ROADMAP §1 items
-3 and 4).  The other families raise ``NotImplementedError``.
+``params`` is the module itself.  ``batch`` is the reference's: ``tokens``,
+with ``patch_embeds`` and ``pos3`` for a VLM (both optional) and ``frames``
+for enc-dec.  ``init`` and ``make_state`` put what they make on the card
+unless ``device`` says otherwise.  The reference's ``train_loss`` waits for
+the training port, and ``state_specs``/``input_specs`` (sharding specs and
+JAX shape stand-ins) for the mesh and the dry run (ROADMAP §1 items 3 and 4).
 """
 from __future__ import annotations
 
@@ -17,34 +20,53 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
-
-NOT_PORTED = ("moe", "vlm", "ssm", "hybrid", "encdec")
+from repro_torch.models import encdec, rwkv, transformer, zamba
+from repro_torch.models.encdec import SRC_RATIO
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    init: Callable
+    init: Callable              # (generator=None, device=None) -> the family's module
     prefill: Callable
     decode_step: Callable
-    make_state: Callable        # (batch, max_len, device=None) -> the KV cache
+    make_state: Callable        # (batch, max_len, device=None) -> cache/recurrent state
 
 
 def get_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam == "dense":
+    step = lambda p, t, st: p.decode_step(t, st)
+    if fam in transformer.FAMILIES:
         return Model(
             cfg=cfg,
             init=lambda generator=None, device=None: transformer.init(cfg, generator, device),
-            prefill=lambda p, batch, state: p.prefill(batch["tokens"], state),
-            decode_step=lambda p, t, st: p.decode_step(t, st),
+            prefill=lambda p, b, st: p.prefill(b["tokens"], st, pos3=b.get("pos3"),
+                                               prefix_embeds=b.get("patch_embeds")),
+            decode_step=step,
             make_state=lambda b, m, device=None: transformer.init_cache(cfg, b, m,
-                                                                        device=device),
-        )
-    if fam in NOT_PORTED:
-        raise NotImplementedError(f"the {fam} family is not ported yet: ROADMAP §1 item 4, "
-                                  "the other families' serving")
+                                                                        device=device))
+    if fam == "ssm":
+        return Model(
+            cfg=cfg,
+            init=lambda generator=None, device=None: rwkv.init(cfg, generator, device),
+            prefill=lambda p, b, st: p.prefill(b["tokens"], st),
+            decode_step=step,
+            make_state=lambda b, m, device=None: rwkv.init_state(cfg, b, device=device))
+    if fam == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda generator=None, device=None: zamba.init(cfg, generator, device),
+            prefill=lambda p, b, st: p.prefill(b["tokens"], st),
+            decode_step=step,
+            make_state=lambda b, m, device=None: zamba.init_state(cfg, b, m, device=device))
+    if fam == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda generator=None, device=None: encdec.init(cfg, generator, device),
+            prefill=lambda p, b, st: p.prefill(b["frames"], b["tokens"], st),
+            decode_step=step,
+            make_state=lambda b, m, device=None: encdec.init_cache(
+                cfg, b, m, max(m // SRC_RATIO, 128), device=device))
     raise ValueError(f"unknown family {fam}")
 
 

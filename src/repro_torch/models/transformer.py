@@ -1,9 +1,13 @@
-"""Decoder-only transformer LM, dense family: the reference's ``models/transformer.py``.
+"""Decoder-only transformer LM, dense, MoE and VLM families: the reference's
+``models/transformer.py``.
 
-An ``nn.Module`` per block (``Block``: its ``Attention`` and ``MLP`` weights
-and two norm scales) in an ``nn.ModuleList`` under ``Transformer``.  The
-reference stacks its layers and scans them; here each block holds its own
-slice and the model loops over them.  Inference only: no remat, no aux loss.
+An ``nn.Module`` per block (``Block``: its ``Attention`` and ``MLP`` or ``MoE``
+weights and two norm scales) in an ``nn.ModuleList`` under ``Transformer``.
+The reference stacks its layers and scans them; here each block holds its own
+slice and the model loops over them.  Inference only: no remat, and the MoE
+aux loss is dropped.  The VLM's prefill takes patch embeddings prepended to
+the tokens' and (t, h, w) M-RoPE positions ``pos3``; without ``pos3`` (every
+decode step) the text position drives all three streams.
 
 Serving weights are stored once in ``cfg.dtype`` (norm scales in f32), which
 gives the bits of the reference's per-use cast of its f32 weights.
@@ -14,6 +18,10 @@ every slot (``len`` a Python int here): ``decode_step`` writes all slots at
 therefore depends on what is served beside it (ROADMAP §3 R3); the port keeps
 that so that it gives the reference's results.  The cache's tensors are
 updated in place, and the returned cache shares them.
+
+``LM`` holds what every family's model shares (the embedding, the final norm,
+the logits, ``device``, ``with_dtype``); ``rwkv.py``, ``zamba.py`` and
+``encdec.py`` build on it and on ``Block``.
 """
 from __future__ import annotations
 
@@ -27,12 +35,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 NORMS = ("norm1", "norm2")
+FAMILIES = ("dense", "moe", "vlm")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family} family is not ported yet: ROADMAP §1 "
-                                  "item 4, the other families' serving")
+def _require_transformer(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the {cfg.family} family is not a transformer; get_model(cfg) "
+                         "builds its own model")
 
 
 class Attention(L.Weights):
@@ -49,6 +58,13 @@ class MLP(L.Weights):
         super().__init__(params, cfg.dtype)
 
 
+class MoE(L.Weights):
+    """router, experts_gate, experts_up, experts_down in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
+        super().__init__(params, cfg.dtype)
+
+
 class Embedding(L.Weights):
     """embedding (and lm_head unless tied) in ``cfg.dtype``, padded vocab."""
 
@@ -57,85 +73,93 @@ class Embedding(L.Weights):
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention and MLP with residuals."""
+    """One layer: pre-norm attention and MLP (or MoE) with residuals."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__()
         self.cfg = cfg
         self.attn = Attention(cfg, params["attn"])
-        self.mlp = MLP(cfg, params["mlp"])
+        self.mlp = (MoE if cfg.family == "moe" else MLP)(cfg, params["mlp"])
         self.norms = L.Weights({k: params[k] for k in NORMS})
 
     def tree(self) -> dict[str, Any]:
         return {"attn": self.attn.tree(), "mlp": self.mlp.tree(), **self.norms.tree()}
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-        """The reference's ``_layer_fwd`` over a whole sequence (causal):
-        returns the new residual stream and the rotated k and v."""
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.rms_norm(x, self.norms["norm2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            return x + L.moe_apply(self.mlp, h, cfg)[0]
+        return x + L.mlp_apply(self.mlp, h, cfg)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                causal: bool = True):
+        """The reference's ``_layer_fwd`` over a whole sequence: returns the
+        new residual stream and the rotated k and v."""
         cfg = self.cfg
         B, S, _ = x.shape
         h = L.rms_norm(x, self.norms["norm1"], cfg.norm_eps)
         q, k, v = L.attention_qkv(self.attn, h, cfg)
         q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
-        attn = L.flash_attention(q, k, v, causal=True)
+        attn = L.flash_attention(q, k, v, causal=causal)
         x = x + attn.reshape(B, S, -1) @ self.attn["wo"].to(x.dtype)
-        h = L.rms_norm(x, self.norms["norm2"], cfg.norm_eps)
-        return x + L.mlp_apply(self.mlp, h, cfg), k, v
+        return self._ffn(x), k, v
 
     def decode(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                kc: torch.Tensor, vc: torch.Tensor, pos: int) -> torch.Tensor:
         """One token per slot against this layer's cache ``kc``/``vc`` (B, S,
-        Hkv, hd), written in place at ``pos``; as the reference's
-        ``dynamic_update_slice``, a ``pos`` past the end writes the last row."""
-        cfg = self.cfg
-        B = x.shape[0]
-        h = L.rms_norm(x, self.norms["norm1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(self.attn, h, cfg)
-        q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
-        row = min(pos, kc.shape[1] - 1)
-        kc[:, row] = k[:, 0].to(kc.dtype)
-        vc[:, row] = v[:, 0].to(vc.dtype)
-        attn = L.attention_decode(q, kc, vc, pos + 1)
-        x = x + attn.reshape(B, 1, -1) @ self.attn["wo"].to(x.dtype)
-        h = L.rms_norm(x, self.norms["norm2"], cfg.norm_eps)
-        return x + L.mlp_apply(self.mlp, h, cfg)
+        Hkv, hd), written in place at ``pos``."""
+        x = x + self_attend(self.attn, self.norms["norm1"], x, cos, sin, kc, vc, pos,
+                            self.cfg)
+        return self._ffn(x)
 
 
-class Transformer(nn.Module):
-    """The dense LM: embedding, ``blocks``, final norm, logits.
+def self_attend(attn: L.Params, norm: torch.Tensor, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, pos: int,
+                cfg: ModelConfig) -> torch.Tensor:
+    """A decode step's self-attention, projected: the token's k and v go into
+    the cache in place at ``pos`` (as the reference's ``dynamic_update_slice``,
+    a ``pos`` past the end writes the last row), then q attends to ``pos + 1``
+    positions."""
+    B = x.shape[0]
+    h = L.rms_norm(x, norm, cfg.norm_eps)
+    q, k, v = L.attention_qkv(attn, h, cfg)
+    q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
+    row = min(pos, kc.shape[1] - 1)
+    kc[:, row] = k[:, 0].to(kc.dtype)
+    vc[:, row] = v[:, 0].to(vc.dtype)
+    out = L.attention_decode(q, kc, vc, pos + 1)
+    return out.reshape(B, 1, -1) @ attn["wo"].to(x.dtype)
 
-    ``params`` is the reference's tree with the layers as a list of per-layer
-    dicts: ``{"embed": {...}, "layers": [{"attn", "mlp", "norm1", "norm2"}, ...],
-    "final_norm": ...}``; weights are stored in ``cfg.dtype``, norm scales f32."""
+
+class LM(nn.Module):
+    """What every family's model shares: the embedding, the final norm and
+    the logits; ``tree()`` gives the weights back as the family's
+    constructor takes them."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
         super().__init__()
-        _require_dense(cfg)
-        if len(params["layers"]) != cfg.n_layers:
-            raise ValueError(f"{len(params['layers'])} layers for a {cfg.n_layers}-layer "
-                             "config")
         self.cfg = cfg
         self.embed = Embedding(cfg, params["embed"])
-        self.blocks = nn.ModuleList(Block(cfg, lp) for lp in params["layers"])
         self.final = L.Weights({"final_norm": params["final_norm"]})
         freqs = torch.from_numpy(L.rope_freqs(cfg.hd, cfg.rope_theta))
-        self.register_buffer("freqs", freqs.to(self.embed["embedding"].device),
-                             persistent=False)
+        self.register_buffer("freqs", freqs.to(self.device), persistent=False)
 
     @property
     def device(self) -> torch.device:
         return self.embed["embedding"].device
 
     def tree(self) -> dict[str, Any]:
-        """The weights as ``Transformer(cfg, ...)`` takes them."""
-        return {"embed": self.embed.tree(), "layers": [b.tree() for b in self.blocks],
-                "final_norm": self.final["final_norm"].data}
+        raise NotImplementedError
 
-    def with_dtype(self, dtype: torch.dtype) -> "Transformer":
-        """This model's weights cast to ``dtype`` (norm scales stay f32), under
-        a config of that dtype: what the reference computes from the same f32
-        weights when its config says ``dtype``."""
-        return Transformer(dataclasses.replace(self.cfg, dtype=dtype), self.tree())
+    def with_dtype(self, dtype: torch.dtype) -> "LM":
+        """This model's weights cast to ``dtype`` (what the reference keeps in
+        f32 stays f32), under a config of that dtype: what the reference
+        computes from the same f32 weights when its config says ``dtype``."""
+        return type(self)(dataclasses.replace(self.cfg, dtype=dtype), self.tree())
+
+    def _common_tree(self) -> dict[str, Any]:
+        return {"embed": self.embed.tree(), "final_norm": self.final["final_norm"].data}
 
     def _rope(self, positions: torch.Tensor):
         return L.rope_cos_sin(positions, self.freqs)
@@ -146,30 +170,69 @@ class Transformer(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return L.lm_logits(self.embed, x, self.cfg)
 
-    def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None
-                ) -> torch.Tensor:
-        """-> the final-normed hidden states (B, S, D)."""
+
+def check_layers(got: int, want: int, what: str = "layers") -> None:
+    if got != want:
+        raise ValueError(f"{got} {what} for a config of {want}")
+
+
+class Transformer(LM):
+    """The dense, MoE or VLM LM: embedding, ``blocks``, final norm, logits.
+
+    ``params`` is the reference's tree with the layers as a list (or any
+    iterable) of per-layer dicts: ``{"embed": {...}, "layers": [{"attn",
+    "mlp", "norm1", "norm2"}, ...], "final_norm": ...}``; weights are stored in
+    ``cfg.dtype``, norm scales f32."""
+
+    def __init__(self, cfg: ModelConfig, params: Mapping[str, Any]):
+        _require_transformer(cfg)
+        super().__init__(cfg, params)
+        self.blocks = nn.ModuleList(Block(cfg, lp) for lp in params["layers"])
+        check_layers(len(self.blocks), cfg.n_layers)
+
+    def tree(self) -> dict[str, Any]:
+        """The weights as ``Transformer(cfg, ...)`` takes them."""
+        return {**self._common_tree(), "layers": [b.tree() for b in self.blocks]}
+
+    def _embed(self, tokens: torch.Tensor, positions, pos3, prefix_embeds):
+        """Token embeddings after the VLM's patch prefix, and the rotation
+        tables of their positions."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        cos, sin = self._rope(positions)
+        return x, self._tables(positions, pos3)
+
+    def _tables(self, positions: torch.Tensor, pos3: torch.Tensor | None):
+        cfg = self.cfg
+        if not cfg.mrope:
+            return self._rope(positions)
+        if pos3 is None:
+            pos3 = positions[:, None, :].expand(positions.shape[0], 3, positions.shape[1])
+        return L.mrope_cos_sin(pos3, self.freqs, cfg.mrope_sections)
+
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None,
+                pos3: torch.Tensor | None = None,
+                prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """-> the final-normed hidden states (B, S, D), S counting the prefix."""
+        x, (cos, sin) = self._embed(tokens, positions, pos3, prefix_embeds)
         for blk in self.blocks:
             x, _, _ = blk(x, cos, sin)
         return self._finish(x)
 
-    def prefill(self, tokens: torch.Tensor, cache: dict, positions: torch.Tensor | None = None
+    def prefill(self, tokens: torch.Tensor, cache: dict, positions: torch.Tensor | None = None,
+                pos3: torch.Tensor | None = None, prefix_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
-        """Run the full prompt, fill the cache from position 0, return the
-        logits of the last position and the cache with ``len`` = S."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg)
-        B, S, _ = x.shape
+        """Run the full prompt (after the patch prefix, if any), fill the
+        cache from position 0, return the logits of the last position and the
+        cache with ``len`` = S."""
+        x, (cos, sin) = self._embed(tokens, positions, pos3, prefix_embeds)
+        S = x.shape[1]
         if S > cache["k"].shape[2]:
             raise ValueError(f"a {S}-token prompt does not fit a {cache['k'].shape[2]}-row "
                              "cache")
-        if positions is None:
-            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        cos, sin = self._rope(positions)
         for i, blk in enumerate(self.blocks):
             x, k, v = blk(x, cos, sin)
             cache["k"][i, :, :S] = k.to(cache["k"].dtype)
@@ -183,7 +246,7 @@ class Transformer(nn.Module):
         pos = int(cache["len"])
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=token.device)
         x = L.embed_lookup(self.embed, token, self.cfg)
-        cos, sin = self._rope(positions)
+        cos, sin = self._tables(positions, None)
         for i, blk in enumerate(self.blocks):
             x = blk.decode(x, cos, sin, cache["k"][i], cache["v"][i], pos)
         logits = self.logits(self._finish(x))
@@ -193,18 +256,22 @@ class Transformer(nn.Module):
 # ------------------------------------------------------------------------ params
 
 def layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None) -> dict:
+    mlp = L.moe_init if cfg.family == "moe" else L.mlp_init
     return {"attn": L.attention_init(gen, cfg, device=device),
-            "mlp": L.mlp_init(gen, cfg, device=device),
+            "mlp": mlp(gen, cfg, device=device),
             "norm1": L.oinit((cfg.d_model,), device), "norm2": L.oinit((cfg.d_model,), device)}
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None,
          device=None) -> Transformer:
     """A randomly initialised ``Transformer`` with the reference's shapes and
-    scales: f32 draws from ``generator`` on ``device``, stored in ``cfg.dtype``."""
-    _require_dense(cfg)
+    scales: f32 draws from ``generator`` on ``device`` (the card unless
+    given), stored in ``cfg.dtype``.  The layers are drawn one at a time as
+    the model stores them, so the f32 draws of one layer are alive at once."""
+    _require_transformer(cfg)
+    device = L.resolve_device(device)
     params = {"embed": L.embed_init(generator, cfg, device=device),
-              "layers": [layer_init(generator, cfg, device) for _ in range(cfg.n_layers)],
+              "layers": (layer_init(generator, cfg, device) for _ in range(cfg.n_layers)),
               "final_norm": L.oinit((cfg.d_model,), device)}
     return Transformer(cfg, params)
 
@@ -214,6 +281,7 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
                device=None) -> dict:
     dtype = dtype or cfg.dtype
+    device = L.resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}

@@ -19,6 +19,12 @@ host as numpy int32, as the reference's does.
 There is no ``jax.jit``: a prefill is a loop of ``decode_step`` over the prompt
 (the reference's ``lax.scan``), everything under ``torch.inference_mode()``.
 The engine runs on the card unless ``device="cpu"`` is passed.
+
+It serves every family through the uniform model API: ``params`` is the
+family's module, the state its cache or recurrent-state dict.  A recurrent
+family's prefill advances the other slots' state too (R3), and an enc-dec
+model is served against ``make_state``'s cross memory of zeros (ROADMAP §3
+R4): both as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from collections import deque
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
@@ -34,7 +41,6 @@ from repro_torch.core.compiler import ProgramCache
 from repro_torch.core.executor import StreamingExecutor
 from repro_torch.core.serve_planner import ServePlanner
 from repro_torch.models import get_model
-from repro_torch.models.transformer import Transformer
 
 
 @dataclasses.dataclass
@@ -50,7 +56,7 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params: Transformer, batch_slots: int = 4,
+    def __init__(self, cfg: ModelConfig, params: nn.Module, batch_slots: int = 4,
                  max_len: int = 512, eos: int = 0,
                  decode_policy: str = "johnson",
                  serve_policy: str = "shared",

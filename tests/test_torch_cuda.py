@@ -1398,6 +1398,47 @@ def test_lm_serving_engine_on_the_card(gpu):
     torch.testing.assert_close(card, host, rtol=1e-3, atol=1e-3 * scale)
 
 
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "dbrx-132b", "qwen2-vl-2b",
+                                  "rwkv6-7b", "zamba2-7b", "seamless-m4t-medium"])
+def test_lm_family_on_the_card(arch, gpu):
+    """A family's reduced config in f32 served on the card: a bitpack and an
+    rANS prompt decode on kernels 1 and 3 to their sources, and every request
+    gets the tokens the same weights give on the CPU (TF32 off)."""
+    import copy
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(SMOKES[arch], dtype=torch.float32)
+    host = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    src = {0: rng.integers(0, cfg.vocab, 16).astype(np.int32),
+           1: rng.integers(0, cfg.vocab, 24).astype(np.int32)}
+    plain = rng.integers(0, cfg.vocab, 8).astype(np.int32)
+    served, launched = {}, None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, model in ((gpu, copy.deepcopy(host).to(gpu)), ("cpu", host)):
+            eng = ServeEngine(cfg, model, batch_slots=2, max_len=64, eos=-1, device=dev)
+            before = (FP.launches, NP.launches)
+            for rid, codec in ((0, "bitpack"), (1, "ans")):
+                eng.submit_compressed(rid, encode(make_plan(codec), src[rid]), max_new=4)
+            eng.submit(Request(2, plain, max_new=4))
+            served[str(dev)] = eng.run_to_completion(100)
+            launched = launched or (FP.launches > before[0], NP.launches > before[1])
+            for req in eng._requests:
+                assert req.error is None
+                if req.rid in src:
+                    np.testing.assert_array_equal(req.prompt, src[req.rid])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert launched == (True, True)
+    assert served[str(gpu)] == served["cpu"]
+    assert {k: len(v) for k, v in served["cpu"].items()} == dict.fromkeys(range(3), 4)
+
+
 def test_kv_page_in_on_kernel_1(gpu):
     from repro_torch.serve.kvcache import page_in, page_out
 

@@ -41,6 +41,8 @@ for new in ("repro_torch.core.query", "repro_torch.data.queries",
             "repro_torch.configs.qwen1_5_0_5b", "repro_torch.models",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.models.model", "repro_torch.models.weights",
+            "repro_torch.models.ssm", "repro_torch.models.rwkv", "repro_torch.models.zamba",
+            "repro_torch.models.encdec",
             "repro_torch.serve", "repro_torch.serve.kvcache", "repro_torch.serve.engine",
             "repro_torch.launch", "repro_torch.launch.serve"):
     assert new in names, new

@@ -7,8 +7,9 @@ a ``PRNGKey``; ``params_from_reference`` carries them into the port.  Then
 take the same tokens: logits and caches within 1e-4 in f32, and within the
 reference's own 0.12 in bf16.  Also: the reference's prefill/decode against
 forward check (``tests/test_models.py``) repeated on the port, the port's own
-init against the reference's shapes, dtypes and scales, and the families not
-ported yet refusing.
+init against the reference's shapes, dtypes and scales, and the model API
+taking the card unless ``device="cpu"`` is passed.  The other families are
+held to the reference in ``test_torch_lm_families.py``.
 """
 import dataclasses
 
@@ -46,7 +47,7 @@ def pair(request):
     rcfg = dataclasses.replace(REF_SMOKES[arch], dtype=jdt)
     cfg = dataclasses.replace(SMOKES[arch], dtype=tdt)
     params, _ = ref_get_model(rcfg).init(jax.random.PRNGKey(1))
-    model = params_from_reference(jax.tree.map(np.asarray, params), cfg)
+    model = params_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
     return rcfg, params, cfg, model, tol
 
 
@@ -90,7 +91,7 @@ def test_prefill_decode_step_and_cache(pair, ref_decode):
     toks = tokens(cfg)
     half = S // 2
     rst = RT.init_cache(rcfg, B, 24)
-    pst = T.init_cache(cfg, B, 24)
+    pst = T.init_cache(cfg, B, 24, device="cpu")
     for k in ("k", "v"):
         assert tuple(pst[k].shape) == rst[k].shape and pst[k].dtype == cfg.dtype
     assert pst["len"] == int(rst["len"]) == 0
@@ -112,7 +113,7 @@ def test_decode_past_the_cache_writes_its_last_row(pair, ref_decode):
     keeps writing row 3, and positions keep counting (both packages)."""
     rcfg, params, cfg, model, tol = pair
     toks = tokens(cfg, n=6, seed=3)
-    rst, pst = RT.init_cache(rcfg, B, 4), T.init_cache(cfg, B, 4)
+    rst, pst = RT.init_cache(rcfg, B, 4), T.init_cache(cfg, B, 4, device="cpu")
     with torch.inference_mode():
         for t in range(6):
             rl, rst = ref_decode(params, jnp.asarray(toks[:, t:t + 1]), rst)
@@ -127,12 +128,12 @@ def test_prefill_decode_matches_forward(arch):
     prefill the first half, decode the rest one token at a time, against the
     full forward's logits, within the reference's 0.12 (bf16 serving)."""
     cfg = SMOKES[arch]
-    model = get_model(cfg).init(torch.Generator().manual_seed(1))
+    model = get_model(cfg).init(torch.Generator().manual_seed(1), "cpu")
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 32)))
     with torch.inference_mode():
         full = model.logits(model(toks))
         half = 16
-        logits, state = model.prefill(toks[:, :half], T.init_cache(cfg, 2, 32))
+        logits, state = model.prefill(toks[:, :half], T.init_cache(cfg, 2, 32, device="cpu"))
         outs = [logits]
         for t in range(half, 31):
             logits, state = model.decode_step(toks[:, t:t + 1], state)
@@ -146,7 +147,7 @@ def test_prefill_decode_matches_forward(arch):
 def test_own_init_has_the_references_shapes_dtypes_and_scales(arch):
     rcfg, cfg = REF_SMOKES[arch], SMOKES[arch]
     ref, _ = ref_get_model(rcfg).init(jax.random.PRNGKey(0))
-    model = get_model(cfg).init(torch.Generator().manual_seed(0))
+    model = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     tree = model.tree()
     rflat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
              for path, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
@@ -176,8 +177,8 @@ def test_own_init_has_the_references_shapes_dtypes_and_scales(arch):
 def test_with_dtype_is_the_bf16_init_of_the_same_draws():
     cfg = SMOKES["qwen1.5-0.5b"]
     f32 = get_model(dataclasses.replace(cfg, dtype=torch.float32)).init(
-        torch.Generator().manual_seed(5))
-    bf16 = get_model(cfg).init(torch.Generator().manual_seed(5))
+        torch.Generator().manual_seed(5), "cpu")
+    bf16 = get_model(cfg).init(torch.Generator().manual_seed(5), "cpu")
     cast = f32.with_dtype(torch.bfloat16)
     assert cast.cfg == bf16.cfg
     for (n, a), (m, b) in zip(cast.named_parameters(), bf16.named_parameters()):
@@ -198,9 +199,19 @@ def test_configs_are_the_references(arch, smoke):
         assert cell_status(cfg, shape) == ref_cell_status(rcfg, REF_SHAPES[shape.name])
 
 
-@pytest.mark.parametrize("arch", sorted(a for a in SMOKES if SMOKES[a].family != "dense"))
-def test_families_not_ported_yet_refuse(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(SMOKES[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init(SMOKES[arch])
+def test_model_api_takes_the_card_unless_asked_for_the_cpu():
+    """``init``, ``make_state`` and ``params_from_reference`` put what they
+    make on the card when ``device`` is None: without CUDA they raise, as
+    ``ServeEngine`` does, and ``device="cpu"`` is the way to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = SMOKES["qwen1.5-0.5b"]
+    model = get_model(cfg)
+    params, _ = ref_get_model(REF_SMOKES["qwen1.5-0.5b"]).init(jax.random.PRNGKey(0))
+    for make in (lambda: model.init(), lambda: model.make_state(2, 8),
+                 lambda: T.init(cfg), lambda: T.init_cache(cfg, 2, 8),
+                 lambda: params_from_reference(jax.tree.map(np.asarray, params), cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert model.init(device="cpu").device.type == "cpu"
+    assert model.make_state(2, 8, device="cpu")["k"].device.type == "cpu"

@@ -51,7 +51,8 @@ def models():
     rcfg = dataclasses.replace(REF_SMOKES[ARCH], dtype=jnp.float32)
     cfg = dataclasses.replace(SMOKES[ARCH], dtype=torch.float32)
     params, _ = ref_get_model(rcfg).init(jax.random.PRNGKey(0))
-    return rcfg, params, cfg, params_from_reference(jax.tree.map(np.asarray, params), cfg)
+    return rcfg, params, cfg, params_from_reference(jax.tree.map(np.asarray, params), cfg,
+                                                    device="cpu")
 
 
 def engines(models, slots=2, max_len=256):
