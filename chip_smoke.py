@@ -155,7 +155,8 @@ non-zero before the final line:
  10. report: per-column lines, a totals line, the ``{"kernels": [...]}`` line
      (kernel 4's object beside the three decode kernels', each of those with
      its ``geometry`` object, the launches of phase 11's engine run and
-     prompt wave and ``lm_family_launches``, phase 12's per family), the
+     prompt wave and ``lm_family_launches``, phase 12's per family, and
+     ``lm_train_launches``, phase 13's training run), the
      card's name and power limit from ``nvidia-smi``, and last ``{"ok":
      true, "device": {...}}``;
  11. lm serve (runs after phase 9, so that phase 10 reports it): the
@@ -210,6 +211,42 @@ non-zero before the final line:
      experts, those this run's router picked, a mean a layer), prefill ms a
      prompt token, tokens/s and the launches per kernel; then the phase's
      seconds.  Each family's models are freed before the next is drawn.
+ 13. lm train (after phase 12): the training path.  qwen1.5-0.5b at full
+     width, f32 master weights drawn on the card from ``--seed`` by
+     ``init(train=True)``, bf16 compute, remat "dots", AdamW at the
+     reference's defaults (``weight_decay`` 0.1, ``total_steps`` 8), batch 4
+     x 256.  One fixed batch through ``CompressedTokenLoader``: packed at 18
+     bits on the host, unpacked on kernel 1, bitwise against the plain
+     version and the host's tokens.  The main path: 8 steps, each starting
+     with the unpack, with the counts zeroed just before and read just
+     after (kernel 1 once a step); the loss must fall and stay finite.
+     ``lm train`` lines: the losses; the step by events (median of steps
+     2-8) and its host issue time, tokens/s, peak memory, the FLOP bound (6
+     x the matrix weights x tokens plus causal attention, at 989 TFLOP/s)
+     and the bytes bound (weights read, gradients written, AdamW's reads and
+     writes, in f32, at the HBM rate); the loader's packed against int32
+     bytes and the unpack on kernel 1 against the plain version; the step
+     under remat none/"full"/"dots"; microbatch 2 against 1 in f32 (TF32
+     off) on the same weights: the loss within 1e-5, every gradient within
+     1e-3 of its parameter's largest, and one step at ``microbatch=2``; the
+     embedding's checkpoint encoding and decoding on the host (ms per MB).
+     f32 parity at 2 layers (TF32 off), AdamW at lr 3e-3 with 2 warm-up
+     steps so the weights move: every remat policy's gradients on the card
+     within 1e-4 of none's (bitwise printed); every gradient on the card
+     within 1e-3 of its parameter's largest on the CPU (the f32 and f64
+     grad norms printed); two AdamW updates on each side from the same
+     gradients (the CPU's, of two batches), each parameter within 1e-3 of
+     its largest change; then two train steps on each side, losses and
+     grad norms within 1e-4 relative, the parameters' difference within
+     1e-2 of their change (L2 over all).
+     Each other family (``LM_FAMILIES``' parity cuts, f32): one train step
+     on the card, loss and grad norm finite, the loss within 1e-4 of the
+     CPU's.  At the SMOKE size on the card: ``save`` then ``restore`` bit
+     for bit (ratio, seconds, ms per MB), a ``loop.run`` failing at step 5
+     and resumed equal bit for bit to an uninterrupted one (under
+     ``torch.use_deterministic_algorithms``), and ``python3 -m
+     repro_torch.launch.train --smoke --steps 4`` run to its end; then the
+     phase's seconds.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -218,6 +255,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -301,6 +339,26 @@ LM_FAMILIES = {
 FAMILY_PROMPTS = ((0, "bitpack", 16), (1, "ans", 24))   # rid 2 is a plain submit
 FAMILY_PLAIN, FAMILY_MAX_NEW = 8, 8
 FAMILY_PATCHES, FAMILY_FRAMES = 16, 64   # qwen2-vl's patch prefix, seamless's source frames
+# LM training phase (13): qwen1.5-0.5b at full width through the port's train
+# step, its tokens unpacked on kernel 1 (launch/train.py's batch, sequence and
+# AdamW defaults)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_REMAT = 4, 256, 8, "dots"
+TRAIN_TOL = 1e-4             # f32 card vs CPU: loss and grad norm, relative
+TRAIN_GRAD_TOL = 1e-3        # f32 gradients (card vs CPU; microbatch 2 vs 1), of each
+#                              parameter's largest |gradient| (the CPU tests' GRAD_TOL)
+TRAIN_ADAM_TOL = 1e-3        # AdamW on the card vs the CPU from the same gradients, of each
+#                              parameter's largest change (a lost update is 1, a lost decay
+#                              0.4, b2 0.999 for 0.95 5e-3 to 7e-3)
+TRAIN_STEP_TOL = 1e-2        # two train steps, card vs CPU: |params' difference| over
+#                              |params' change| (L2, all parameters; an update lost is 1)
+TRAIN_MB_TOL = 1e-5          # microbatch 2 vs 1 loss, f32 on the card, relative
+TRAIN_PARITY = (2, 64)       # layers and sequence (batch LM_SLOTS) of the f32 parity check
+TRAIN_PARITY_STEPS = 2
+TRAIN_PARITY_OPT = {"lr": 3e-3, "warmup_steps": 2, "total_steps": 50}   # weights move ~lr
+TRAIN_REMATS = (None, "full", "dots")
+TRAIN_REMAT_STEPS = 3        # steps timed under each remat policy (the first is warm-up)
+TRAIN_LOOP = (6, 4, 5)       # SMOKE loop: steps, ckpt_every, fail_at_step
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak (data sheet)
 
 
 def host_part(name: str) -> str | None:
@@ -1468,6 +1526,467 @@ def run_lm_families(families: dict, seed: int, libs, hbm_gbps: float,
     return out
 
 
+def train_batch(cfg, rng, n: int) -> dict:
+    """``family_batch`` of ``n`` tokens with their labels (random next tokens)."""
+    batch = family_batch(cfg, rng, n)
+    batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_SLOTS, n)))
+    return batch
+
+
+def _grads(api, model, batch, policy) -> list:
+    loss = api.train_loss(model, batch, policy)
+    plist = list(model.parameters())
+    grads = torch.autograd.grad(loss, plist, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(plist, grads)]
+
+
+def _leaf_errs(names, got, want, base=None) -> dict:
+    """Per parameter: max |got - want| over the largest |want - base| (over
+    the largest |want| without ``base``); on the CPU."""
+    out = {}
+    for n, a, w, b in zip(names, got, want, base or [None] * len(names)):
+        a, w = a.detach().cpu().float(), w.detach().cpu().float()
+        ref = w if b is None else w - b
+        out[n] = float((a - w).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    return out
+
+
+def _worst(errs: dict) -> tuple:
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def run_lm_train(cfg, smoke, families: dict, seed: int, timer, libs, hbm_gbps: float,
+                 device: str = "cuda") -> dict:
+    """Phase 13: the LM training path (see the module docstring): ``cfg`` at
+    full width, ``families`` (f32, cut in depth) one step each, the
+    checkpoint and loop at ``smoke``'s size; returns its record, with per
+    kernel the launches of the full-width training run."""
+    import copy
+    import os
+    import tempfile
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.loader import CompressedTokenLoader
+    from repro_torch.models import get_model
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer
+    from repro_torch.train.loop import (LoopConfig, SimulatedFailure, load_state, run,
+                                        state_like, state_tree)
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.remat import get_policy
+    from repro_torch.train.train_step import make_train_step, make_value_and_grad
+
+    fp = libs[0]
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    rec: dict = {"arch": cfg.name, "batch": B, "seq": S, "steps": TRAIN_STEPS,
+                 "remat": TRAIN_REMAT}
+
+    # full width: f32 master weights drawn on the card, bf16 compute
+    base = torch.cuda.memory_allocated(dev)       # what earlier phases still hold
+    t0 = time.perf_counter()
+    api = get_model(cfg)
+    model = api.init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    plist = list(model.parameters())
+    n_params = sum(p.numel() for p in plist)
+    n_matmul = sum(p.numel() for n, p in model.named_parameters()
+                   if p.ndim >= 2 and n != "embed.embedding")
+    rec.update({"params": n_params, "matmul_params": n_matmul})
+
+    # the tokens: one fixed batch, packed on the host, unpacked on kernel 1
+    src = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
+    loader = CompressedTokenLoader(cfg.vocab, B, S, source=lambda step: src, device=dev)
+    bufs = loader.to_device(loader.encode_host(0))
+    decode, decode_plain = loader.decode_fn("kernel"), loader.decode_fn("torch")
+    got, plain = decode(bufs), decode_plain(bufs)
+    for k in ("tokens", "labels"):
+        same(got[k], plain[k], f"lm train loader {k}")
+    want = torch.from_numpy(src).to(dev)
+    if not (torch.equal(got["tokens"], want[:, :-1]) and torch.equal(got["labels"], want[:, 1:])):
+        raise AssertionError("lm train: the unpacked tokens differ from the host's")
+    packed = bufs["root.packed"].numel() * 4
+    rec.update({
+        "bits": loader.bits, "packed_bytes": packed, "int32_bytes": src.nbytes,
+        "unpack_ms": timer.ms(lambda: decode(bufs)),
+        "unpack_plain_ms": timer.ms(lambda: decode_plain(bufs)),
+        "unpack_bound_ms": (packed + src.nbytes) / (hbm_gbps * 1e9) * 1e3})
+
+    # the main path: TRAIN_STEPS steps on the fixed batch, the unpack each
+    # step's first launch, with every kernel's count zeroed just before
+    step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=TRAIN_REMAT)
+    opt = optimizer.init(model)
+    losses, gnorms, step_ms, host_ms = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for lib in libs:
+        lib.launches = 0
+    t_run = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        h0 = time.perf_counter()
+        model, opt, m = step(model, opt, decode(bufs))
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    wall = time.perf_counter() - t_run
+    launches = {lib.name: lib.launches for lib in libs}
+    rec["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    if launches[fp.name] != TRAIN_STEPS:
+        raise AssertionError(f"lm train: {launches[fp.name]} kernel-1 launches in "
+                             f"{TRAIN_STEPS} steps")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"lm train: non-finite loss or grad norm {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm train: the loss did not fall: {losses}")
+    tokens = B * S
+    warm = step_ms[1:]
+    flops = 6 * n_matmul * tokens + 3 * 2 * B * S * S * cfg.d_model * cfg.n_layers
+    # bytes: the forward reads each f32 weight once, the backward writes each
+    # gradient once, AdamW reads weights, gradients, mu, nu and writes weights,
+    # mu, nu (f32 each)
+    step_bytes = 4 * n_params * (1 + 1 + 4 + 3)
+    rec.update({
+        "losses": losses, "grad_norms": gnorms, "launches": launches, "wall_s": wall,
+        "step_ms": float(np.median(warm)), "step_ms_min": min(warm), "step_ms_first": step_ms[0],
+        "host_ms": float(np.median(host_ms[1:])), "tokens_per_s": tokens / np.median(warm) * 1e3,
+        "flops": flops, "flop_bound_ms": flops / BF16_FLOPS * 1e3,
+        "step_bytes": step_bytes, "bytes_bound_ms": step_bytes / (hbm_gbps * 1e9) * 1e3})
+    rec["bound_ms"] = max(rec["flop_bound_ms"], rec["bytes_bound_ms"])
+    print(f"lm train {cfg.name} params {n_params} (matmul {n_matmul}) bf16 compute f32 master "
+          f"batch {B} seq {S} remat {TRAIN_REMAT} steps {TRAIN_STEPS} init_s "
+          f"{rec['init_s']:.2f} losses {[round(x, 4) for x in losses]}")
+    print(f"lm train step_ms {rec['step_ms']:.4f} (median of steps 2-{TRAIN_STEPS}; min "
+          f"{rec['step_ms_min']:.4f} first {rec['step_ms_first']:.4f}) host_ms_per_step "
+          f"{rec['host_ms']:.4f} tokens_per_s {rec['tokens_per_s']:.1f} peak_gb "
+          f"{rec['peak_gb']:.3f} flop_bound_ms {rec['flop_bound_ms']:.4f} ({flops / 1e12:.3f} "
+          f"TFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s) bytes_bound_ms "
+          f"{rec['bytes_bound_ms']:.4f} ({step_bytes / 1e9:.2f} GB at {hbm_gbps} GB/s) "
+          f"launches {launches}")
+    print(f"lm train loader bits {loader.bits} packed_bytes {packed} int32_bytes {src.nbytes} "
+          f"ratio {src.nbytes / packed:.3f} unpack_ms {rec['unpack_ms']:.4f} unpack_plain_ms "
+          f"{rec['unpack_plain_ms']:.4f} unpack_bound_ms {rec['unpack_bound_ms']:.5f} "
+          f"launches_per_step {launches[fp.name] / TRAIN_STEPS:g} bitwise True")
+
+    # the step under each remat policy (a few warm steps each, same batch)
+    rec["remat_step_ms"], rec["remat_host_ms"] = {}, {}
+    for r in TRAIN_REMATS:
+        st = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=r)
+        ev, hs = [], []
+        for _ in range(TRAIN_REMAT_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            model, opt, _ = st(model, opt, decode(bufs))
+            hs.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            ev.append(a.elapsed_time(b))
+        rec["remat_step_ms"][str(r)] = float(np.median(ev[1:]))
+        rec["remat_host_ms"][str(r)] = float(np.median(hs[1:]))
+    # the host's work in a step: its top-level aten ops under a CPU-only
+    # profiler session (the remat policy's recompute included)
+    st = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=TRAIN_REMAT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model, opt, _ = st(model, opt, decode(bufs))
+        torch.cuda.synchronize()
+    top = [e for e in prof.events() if e.name.startswith("aten::") and
+           (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    rec["host_ops_per_step"] = len(top)
+    rec["host_ops_top"] = dict(Counter(e.name for e in top).most_common(6))
+    print("lm train remat step_ms " + " ".join(
+        f"{r} {rec['remat_step_ms'][r]:.4f} (host {rec['remat_host_ms'][r]:.4f})"
+        for r in rec["remat_step_ms"]) + f" (median of steps 2-{TRAIN_REMAT_STEPS} each); "
+        f"host_ops_per_step ({TRAIN_REMAT}) {len(top)} top {rec['host_ops_top']}")
+
+    # microbatch 2 against 1 in f32 (TF32 off) on the same weights (an
+    # f32-compute view of the master weights): the loss and every gradient
+    # of the port's accumulation, then one step through microbatch 2
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        view32 = type(model).trainable(cfg32, model.tree())
+        names = [n for n, _ in view32.named_parameters()]
+        batch = decode(bufs)
+        whole, g1 = make_value_and_grad(cfg32, TRAIN_REMAT)(view32, batch)
+        halves, g2 = make_value_and_grad(cfg32, TRAIN_REMAT, 2)(view32, batch)
+        mb_errs = _leaf_errs(names, g2, g1)
+        del g1, g2
+        mb = make_train_step(cfg32, AdamWConfig(total_steps=TRAIN_STEPS), remat=TRAIN_REMAT,
+                             microbatch=2)(view32, optimizer.init(view32), batch)[2]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    whole, halves = whole.item(), halves.item()
+    worst, mb_grad = _worst(mb_errs)
+    rec.update({"microbatch2_loss": mb["loss"].item(), "microbatch1_loss": whole,
+                "microbatch2_grad_err": mb_grad})
+    print(f"lm train microbatch 2 loss {halves:.8f} (its step {rec['microbatch2_loss']:.8f}) "
+          f"microbatch 1 loss {whole:.8f} rel_diff {abs(halves - whole) / abs(whole):.3g} "
+          f"(f32, rtol {TRAIN_MB_TOL}); gradients of {len(names)} parameters: worst "
+          f"{mb_grad:.3g} of the largest |gradient| ({worst}; tol {TRAIN_GRAD_TOL})")
+    if not (abs(halves - whole) <= TRAIN_MB_TOL * abs(whole)
+            and abs(rec["microbatch2_loss"] - whole) <= TRAIN_MB_TOL * abs(whole)):
+        raise AssertionError("lm train: the microbatch-2 loss differs from the whole batch's")
+    if not mb_grad <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"lm train: the microbatch-2 gradient of {worst} differs from "
+                             f"the whole batch's by {mb_grad:.3g} of its largest")
+    # the checkpoint's host encode and decode at full width: the embedding
+    # (the largest leaf), as a save and a restore would treat it
+    from repro_torch.train.checkpoint import _decode_leaf, _encode_leaf
+    emb = model.embed["embedding"].detach()
+    t0 = time.perf_counter()
+    arr = emb.cpu().numpy()
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = _encode_leaf(arr)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = _decode_leaf(enc, arr.shape, str(arr.dtype))
+    decode_s = time.perf_counter() - t0
+    if not np.array_equal(back.numpy().view(np.uint32), arr.view(np.uint32)):
+        raise AssertionError("lm train: the embedding's checkpoint encoding does not round-trip")
+    stored = sum(np.asarray(v).nbytes for v in enc.values() if not isinstance(v, str))
+    mb = arr.nbytes / 1e6
+    rec.update({"leaf_mb": mb, "leaf_d2h_s": d2h_s, "leaf_encode_s": encode_s,
+                "leaf_decode_s": decode_s, "leaf_ratio": arr.nbytes / stored,
+                "leaf_encode_ms_per_mb": encode_s * 1e3 / mb,
+                "leaf_decode_ms_per_mb": decode_s * 1e3 / mb})
+    full_mb = 3 * 4 * n_params / 1e6
+    print(f"lm train ckpt_leaf embed.embedding {arr.shape} {mb:.1f} MB d2h_s {d2h_s:.3f} "
+          f"encode_s {encode_s:.3f} ({rec['leaf_encode_ms_per_mb']:.1f} ms/MB) decode_s "
+          f"{decode_s:.3f} ({rec['leaf_decode_ms_per_mb']:.1f} ms/MB) ratio "
+          f"{rec['leaf_ratio']:.4f} round-trip bitwise; a full-width save of params, mu, nu "
+          f"({full_mb:.0f} MB) at this rate ~{rec['leaf_encode_ms_per_mb'] * full_mb / 1e3:.0f} s "
+          f"of encoding")
+    del model, opt, view32, batch, step, emb, arr, enc, back
+    torch.cuda.empty_cache()
+
+    # f32 parity, card against CPU, at a cut depth (TF32 off): every remat
+    # policy's gradients on the card; every gradient against the CPU's from
+    # the same weights; AdamW alone on both sides from the same gradients
+    # (the CPU's, of two batches); then two train steps on each side
+    layers, ps = TRAIN_PARITY
+    cut = dataclasses.replace(cfg, n_layers=layers, dtype=torch.float32)
+    capi = get_model(cut)
+    card = capi.init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+    host = copy.deepcopy(card).cpu()
+    names = [n for n, _ in card.named_parameters()]
+    before = [p.detach().cpu().clone() for p in host.parameters()]
+    pbatch, pbatch2 = (train_batch(cut, np.random.default_rng(seed + i), ps) for i in (0, 1))
+    opt_cfg = AdamWConfig(**TRAIN_PARITY_OPT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        cb = {k: v.to(dev) for k, v in pbatch.items()}
+        g0 = _grads(capi, card, cb, None)
+        remat_err = {}
+        for r in TRAIN_REMATS[1:]:
+            g = _grads(capi, card, cb, get_policy(r))
+            remat_err[r] = max(float((a - w).abs().max()) for a, w in zip(g, g0))
+            bitwise = all(torch.equal(a, w) for a, w in zip(g, g0))
+            print(f"lm train remat {r} vs none: max_abs_grad_diff {remat_err[r]:.6g} bitwise "
+                  f"{bitwise}")
+            if not all(torch.allclose(a, w, rtol=0, atol=TRAIN_TOL * float(w.abs().max()))
+                       for a, w in zip(g, g0)):
+                raise AssertionError(f"lm train: remat {r} changes the gradients")
+        del g
+        hg = _grads(capi, host, pbatch, None)
+        grad_errs = _leaf_errs(names, g0, hg)
+        gnorm = {"card": float(optimizer.global_norm(g0)), "cpu": float(optimizer.global_norm(hg))}
+        gnorm64 = {side: math.sqrt(sum(float(torch.sum(t.detach().double() ** 2)) for t in gs))
+                   for side, gs in (("card", g0), ("cpu", hg))}
+        del g0
+        hg2 = _grads(capi, host, pbatch2, None)
+        adam = {}
+        for side, m in (("card", copy.deepcopy(card)), ("cpu", copy.deepcopy(host))):
+            d = next(m.parameters()).device
+            o = optimizer.init(m)
+            for gs in (hg, hg2)[:TRAIN_PARITY_STEPS]:
+                m, o, _ = optimizer.update(opt_cfg, m, o, [t.to(d) for t in gs])
+            adam[side] = [p.detach().cpu() for p in m.parameters()]
+            del m, o
+        adam_errs = _leaf_errs(names, adam["card"], adam["cpu"], before)
+        del hg, hg2, adam
+        sides = {}
+        for name, m, d in (("card", card, dev), ("cpu", host, torch.device("cpu"))):
+            st = make_train_step(cut, opt_cfg, remat=None)
+            o = optimizer.init(m)
+            hist = []
+            for _ in range(TRAIN_PARITY_STEPS):
+                m, o, met = st(m, o, {k: v.to(d) for k, v in pbatch.items()})
+                hist.append((met["loss"].item(), met["grad_norm"].item()))
+            sides[name] = (hist, [p.detach().cpu() for p in m.parameters()])
+        rec["parity_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (ch, cp), (hh, hp) = sides["card"], sides["cpu"]
+    lerr = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(ch, hh))
+    gerr = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(ch, hh))
+    l2 = lambda ts: math.sqrt(sum(float(torch.sum(t.double() ** 2)) for t in ts))
+    step_rel = l2(a - b for a, b in zip(cp, hp)) / l2(b - p for b, p in zip(hp, before))
+    step_leaf = {n: float(torch.linalg.vector_norm(a - b)) /
+                 max(float(torch.linalg.vector_norm(b - p)), 1e-30)
+                 for n, a, b, p in zip(names, cp, hp, before)}
+    perr = max(float((a - b).abs().max()) for a, b in zip(cp, hp))
+    moved = max(float((b - p).abs().max()) for b, p in zip(hp, before))
+    (gworst, grad_err), (aworst, adam_err) = _worst(grad_errs), _worst(adam_errs)
+    sworst, sleaf = _worst(step_leaf)
+    rec.update({"parity_layers": layers, "parity_loss_rel": lerr, "parity_gnorm_rel": gerr,
+                "parity_grad_err": grad_err, "parity_gnorm": gnorm, "parity_gnorm_f64": gnorm64,
+                "parity_adam_err": adam_err, "parity_step_rel": step_rel,
+                "parity_step_leaf_worst": sleaf, "parity_param_err": perr,
+                "parity_param_moved": moved, "remat_grad_err": remat_err})
+    print(f"lm train parity f32 card_vs_cpu layers {layers} batch {LM_SLOTS} seq {ps}: "
+          f"gradients of {len(names)} parameters: worst {grad_err:.3g} of the largest "
+          f"|gradient| ({gworst}; tol {TRAIN_GRAD_TOL}); grad_norm f32 card {gnorm['card']:.9g} "
+          f"cpu {gnorm['cpu']:.9g}, f64 card {gnorm64['card']:.9g} cpu {gnorm64['cpu']:.9g}")
+    print(f"lm train parity adamw lr {opt_cfg.lr} warmup {opt_cfg.warmup_steps} weight_decay "
+          f"{opt_cfg.weight_decay}, {TRAIN_PARITY_STEPS} updates from the CPU's gradients: "
+          f"worst {adam_err:.3g} of the parameter's largest change ({aworst}; tol "
+          f"{TRAIN_ADAM_TOL})")
+    print(f"lm train parity {TRAIN_PARITY_STEPS} train steps: loss_rel {lerr:.3g} "
+          f"grad_norm_rel {gerr:.3g} (tol {TRAIN_TOL}) params: |difference| / |change| "
+          f"{step_rel:.3g} (tol {TRAIN_STEP_TOL}; worst parameter {sleaf:.3g}, {sworst}) "
+          f"max_abs_err {perr:.3g} against a largest change of {moved:.3g} losses card "
+          f"{[round(h[0], 6) for h in ch]} cpu {[round(h[0], 6) for h in hh]} parity_s "
+          f"{rec['parity_s']:.2f}")
+    if grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError(f"lm train: the card's gradient of {gworst} differs from the "
+                             f"CPU's by {grad_err:.3g} of its largest")
+    if adam_err > TRAIN_ADAM_TOL:
+        raise AssertionError(f"lm train: AdamW on the card moves {aworst} otherwise than on "
+                             f"the CPU ({adam_err:.3g} of its change)")
+    if lerr > TRAIN_TOL or gerr > TRAIN_TOL or step_rel > TRAIN_STEP_TOL:
+        raise AssertionError("lm train: f32 training on the card differs from the CPU's")
+    del card, host, sides, cp, hp, before
+    torch.cuda.empty_cache()
+
+    # every other family: one train step at its published width, cut in
+    # depth as phase 12's parity check
+    rec["families"] = {}
+    for arch, cut32 in families.items():
+        t0 = time.perf_counter()
+        fapi = get_model(cut32)
+        m = fapi.init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+        host = copy.deepcopy(m).cpu()
+        fb = train_batch(cut32, np.random.default_rng(seed), LM_PREFILL)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                want = fapi.train_loss(host, fb).item()
+            del host
+            _, _, met = make_train_step(cut32, AdamWConfig(), remat=TRAIN_REMAT)(
+                m, optimizer.init(m), {k: v.to(dev) for k, v in fb.items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        loss, gn = met["loss"].item(), met["grad_norm"].item()
+        err = abs(loss - want) / abs(want)
+        fr = {"layers": cut32.n_layers, "loss": loss, "cpu_loss": want, "loss_rel": err,
+              "grad_norm": gn, "s": time.perf_counter() - t0,
+              "params": sum(p.numel() for p in m.parameters())}
+        rec["families"][arch] = fr
+        print(f"lm train family {arch} layers {cut32.n_layers} params {fr['params']} f32 loss "
+              f"{loss:.6f} cpu_loss {want:.6f} rel {err:.3g} grad_norm {gn:.6g} finite "
+              f"{bool(np.isfinite([loss, gn]).all())} family_s {fr['s']:.2f}")
+        if not (np.isfinite([loss, gn]).all() and err <= TRAIN_TOL):
+            raise AssertionError(f"lm train family {arch}: loss {loss} (cpu {want}), grad norm "
+                                 f"{gn}")
+        del m, met
+        torch.cuda.empty_cache()
+
+    # the checkpoint, the loop and a restart at the SMOKE size, on the card
+    sl = CompressedTokenLoader(smoke.vocab, 2, 32, device=dev)
+    sdecode = sl.decode_fn()
+
+    def setup():
+        m = get_model(smoke).init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+        return m, optimizer.init(m), make_train_step(
+            smoke, AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=50), remat=TRAIN_REMAT)
+
+    def batch_fn(i):
+        return sdecode(sl.to_device(sl.encode_host(i)))
+
+    def bitwise(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            m, o, st = setup()
+            m, o, _ = st(m, o, batch_fn(0))
+            t0 = time.perf_counter()
+            ck.save(os.path.join(tmp, "one"), 1, state_tree(m, o))
+            save_s = time.perf_counter() - t0
+            m2, o2, _ = setup()
+            t0 = time.perf_counter()
+            tree, _, _ = ck.restore(os.path.join(tmp, "one"), state_like(m2))
+            restore_s = time.perf_counter() - t0
+            o2 = load_state(m2, tree)
+            if not (bitwise(m.parameters(), m2.parameters()) and bitwise(o["mu"], o2["mu"])
+                    and bitwise(o["nu"], o2["nu"]) and o["step"] == o2["step"]):
+                raise AssertionError("lm train: a restored checkpoint differs from the state")
+            report = ck.compression_report(os.path.join(tmp, "one"))
+            steps, every, fail = TRAIN_LOOP
+            quiet = lambda s: None
+            m, o, st = setup()
+            p_ref, o_ref, _ = run(LoopConfig(steps, os.path.join(tmp, "a"), every), st, m, o,
+                                  batch_fn, log=quiet)
+            m, o, st = setup()
+            try:
+                run(LoopConfig(steps, os.path.join(tmp, "b"), every, fail_at_step=fail), st, m,
+                    o, batch_fn, log=quiet)
+                raise AssertionError("lm train: the loop did not fail at its step")
+            except SimulatedFailure:
+                pass
+            m, o, st = setup()
+            p_fin, o_fin, hist = run(LoopConfig(steps, os.path.join(tmp, "b"), every), st, m, o,
+                                     batch_fn, log=quiet)
+            resumed = hist[0]["step"]
+            if resumed != every or not (bitwise(p_ref.parameters(), p_fin.parameters())
+                                        and bitwise(o_ref["mu"], o_fin["mu"])
+                                        and bitwise(o_ref["nu"], o_fin["nu"])):
+                raise AssertionError("lm train: the resumed loop differs from the "
+                                     "uninterrupted one")
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            t0 = time.perf_counter()
+            cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                                  "--steps", "4", "--ckpt-dir", os.path.join(tmp, "cli")],
+                                 cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t0
+            if cli.returncode != 0 or "[train] done" not in cli.stdout:
+                raise AssertionError(f"lm train: launch.train failed ({cli.returncode}): "
+                                     f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    raw_mb = report["raw_bytes"] / 1e6
+    rec.update({"ckpt_ratio": report["ratio"], "ckpt_raw_bytes": report["raw_bytes"],
+                "ckpt_stored_bytes": report["stored_bytes"], "ckpt_save_s": save_s,
+                "ckpt_restore_s": restore_s, "ckpt_save_ms_per_mb": save_s * 1e3 / raw_mb,
+                "ckpt_restore_ms_per_mb": restore_s * 1e3 / raw_mb, "cli_s": cli_s})
+    print(f"lm train ckpt {smoke.name} raw_bytes {report['raw_bytes']} stored_bytes "
+          f"{report['stored_bytes']} ratio {report['ratio']:.4f} save_s {save_s:.3f} "
+          f"restore_s {restore_s:.3f} save_ms_per_mb {rec['ckpt_save_ms_per_mb']:.1f} "
+          f"restore_ms_per_mb {rec['ckpt_restore_ms_per_mb']:.1f} (45 small leaves: a fixed "
+          f"cost a leaf) restore bitwise True")
+    print(f"lm train loop {smoke.name} steps {steps} ckpt_every {every} fail_at {fail} "
+          f"resumed_at {resumed} bitwise True; launch.train --smoke --steps 4 rc 0 cli_s "
+          f"{cli_s:.2f} ({cli.stdout.strip().splitlines()[-1]})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm train phase_s {rec['phase_s']:.2f}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor")
@@ -2363,6 +2882,12 @@ def main() -> int:
                 for arch, (cut, cut32) in LM_FAMILIES.items()}
     lm_families = run_lm_families(families, args.seed, libs, hbm)
 
+    # --------------------------------------------------------------- phase 13
+    from repro_torch.configs import SMOKES
+    lm_train = run_lm_train(ARCHS[LM_ARCH], SMOKES[LM_ARCH],
+                            {arch: cut32 for arch, (_, cut32) in families.items()},
+                            args.seed, timer, libs, hbm)
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -2438,7 +2963,8 @@ def main() -> int:
             "baseline_ms_all_columns": baseline["totals"]["ms"],
             "lm_serve_launches": lm["launches"][kname],
             "lm_prompt_wave_launches": lm["wave_launches"][kname],
-            "lm_family_launches": {a: r["launches"][kname] for a, r in lm_families.items()}})
+            "lm_family_launches": {a: r["launches"][kname] for a, r in lm_families.items()},
+            "lm_train_launches": lm_train["launches"][kname]})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2451,7 +2977,7 @@ def main() -> int:
                                         "serve": served["serve"],
                                         "wide_queries": wide, "geometry": geometry,
                                         "baseline": baseline, "lm": lm,
-                                        "lm_families": lm_families,
+                                        "lm_families": lm_families, "lm_train": lm_train,
                                         "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,9 @@
-"""Compressed host->device column pipeline (the paper's end-to-end workflow, Fig. 3).
+"""Compressed host->device data pipeline (the paper's end-to-end workflow, Fig. 3).
+
+``CompressedTokenLoader`` feeds LM training: token batches cross the link
+bit-packed at ``ceil(log2 vocab)`` bits with a fixed width, so every step's
+words have one shape and one decode program, and are unpacked on the device
+by the Fully-Parallel kernel (kernel 1).
 
 ``ColumnPipeline`` is the user-facing entry point: per-column plans, host encoding
 (``compress``), planning (``plan``) and streamed transfer + decompression on the
@@ -17,14 +22,17 @@ the backend is ``"torch"``.
 """
 from __future__ import annotations
 
+import math
 import time
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
+from repro_torch.algos.bitpack import pack_np
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import scheduler
-from repro_torch.core.compiler import device_buffers
+from repro_torch.core.compiler import compile_blob, device_buffers
 from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
 from repro_torch.core.plan import Plan
 from repro_torch.core.planner import ExecutionPlan
@@ -32,6 +40,95 @@ from repro_torch.core.serve_planner import ServePlanner
 
 # the executor's per-column record IS the pipeline's result type
 ColumnResult = ColumnExec
+
+
+def _device(device) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the loader runs on CUDA by default and no CUDA device is "
+                           "available; pass device='cpu' to unpack on the host")
+    return device
+
+
+# ------------------------------------------------------------- training loader
+
+class CompressedTokenLoader:
+    """A token source moved host->device bit-packed at a fixed width.
+
+    ``source(step)`` gives a (batch, seq_len + 1) int array, deterministic in
+    ``step`` (a restarted run sees the same batches); the default draws
+    uniform tokens from ``numpy.random.default_rng(step)``, as the
+    reference's.  ``encode_host`` packs a step's tokens into the reference's
+    words (``pack_np``); ``to_device`` moves them and the blob's meta
+    operands to ``device`` (the card unless given); ``decode_fn(backend)``
+    returns the device side, unpacking the words with kernel 1 (``"kernel"``;
+    its plain version when the words are on the CPU) or with the plain
+    version (``"torch"``) into ``tokens``/``labels`` (int32, shifted by one).
+    ``bytes_plain``/``bytes_compressed`` count what ``encode_host`` packed."""
+
+    def __init__(self, vocab: int, batch: int, seq_len: int,
+                 source: Callable[[int], np.ndarray] | None = None, device=None):
+        self.vocab = vocab
+        self.batch = batch
+        self.seq = seq_len
+        self.bits = max(1, math.ceil(math.log2(max(vocab, 2))))
+        self.device = _device(device)
+        self._source = source or self._synthetic
+        self.bytes_plain = 0
+        self.bytes_compressed = 0
+
+    def _synthetic(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(step)
+        return rng.integers(0, self.vocab, (self.batch, self.seq + 1), dtype=np.int32)
+
+    @property
+    def n(self) -> int:
+        return self.batch * (self.seq + 1)
+
+    def encode_host(self, step: int) -> dict[str, np.ndarray]:
+        """Host side: the step's tokens -> fixed-shape packed words."""
+        toks = self._source(step)
+        packed = pack_np(toks.reshape(-1).astype(np.int64), self.bits)
+        self.bytes_plain += toks.nbytes
+        self.bytes_compressed += packed.nbytes
+        return {"packed": packed}
+
+    def blob(self, packed: np.ndarray) -> plan_mod.Encoded:
+        """The words as a bitpack blob of the batch's int32 tokens."""
+        return plan_mod.Encoded(codec="bitpack", meta={"bit_width": self.bits, "base": 0},
+                                buffers={"packed": packed}, children={}, n=self.n,
+                                dtype=np.dtype(np.int32))
+
+    def to_device(self, host: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The transfer: the words and the blob's meta operands on the device."""
+        return device_buffers(self.blob(host["packed"]), self.device)
+
+    def decode_fn(self, backend: str = "kernel") -> Callable:
+        """The device side: device operands -> {tokens, labels}, one launch
+        of the decode program a step (its structure is the same every
+        step)."""
+        words = (self.n * self.bits + 31) // 32 + 1
+        prog = compile_blob(self.blob(np.zeros(words, np.uint32)), backend=backend)
+        B, S = self.batch, self.seq
+
+        def decode(bufs: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+            toks = prog(bufs).reshape(B, S + 1)
+            return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        return decode
+
+    def batches(self, start_step: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+        step = start_step
+        while True:
+            yield self.to_device(self.encode_host(step))
+            step += 1
+
+    @property
+    def ratio(self) -> float:
+        return self.bytes_plain / max(self.bytes_compressed, 1)
+
+
+# ------------------------------------------------------------ analytics pipeline
 
 
 class ColumnPipeline:

@@ -117,27 +117,35 @@ class EncDec(LM):
     def tree(self) -> dict[str, Any]:
         return {**self._common_tree(), "enc": [b.tree() for b in self.enc],
                 "dec": [d.tree() for d in self.dec],
-                "enc_norm": self.enc_final["enc_norm"].data}
+                "enc_norm": self.enc_final.tree()["enc_norm"]}
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, S_src, D) stub frontend embeddings -> encoder memory."""
+    def encode(self, frames: torch.Tensor, remat=None) -> torch.Tensor:
+        """frames: (B, S_src, D) stub frontend embeddings -> encoder memory;
+        each layer under ``remat`` (``layers.remat``)."""
         x = frames.to(self.cfg.dtype)
         cos, sin = self._rope(self._positions(*x.shape[:2]))
         for blk in self.enc:
-            x, _, _ = blk(x, cos, sin, causal=False)
+            x = L.remat(remat, blk.train_fwd, x, cos, sin, False)[0]
         return L.rms_norm(x, self.enc_final["enc_norm"], self.cfg.norm_eps)
 
-    def forward(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, memory: torch.Tensor, remat=None) -> torch.Tensor:
         """The reference's ``decode_train`` (its loss aside): the decoder's
         final-normed hidden states (B, S, D) against ``memory``."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
         cos, sin = self._rope(self._positions(*tokens.shape))
         for lyr in self.dec:
-            x = lyr(x, cos, sin, memory)[0]
+            x = L.remat(remat, lyr, x, cos, sin, memory)[0]
         return self._finish(x)
+
+    def train_loss(self, batch: Mapping[str, torch.Tensor], remat=None) -> torch.Tensor:
+        """The reference's ``train_loss``: encode ``frames``, then the
+        decoder's next-token loss against that memory."""
+        memory = self.encode(batch["frames"], remat)
+        x = self(batch["tokens"], memory, remat)
+        return L.cross_entropy(self.logits(x), batch["labels"])
 
     def prefill(self, frames: torch.Tensor, tokens: torch.Tensor, cache: dict
                 ) -> tuple[torch.Tensor, dict]:
@@ -173,16 +181,18 @@ class EncDec(LM):
         return self.logits(self._finish(x)), dict(cache, len=pos + 1)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> EncDec:
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None,
+         train: bool = False) -> EncDec:
     """Random weights with the reference's shapes and scales, drawn in f32 on
-    ``device`` (the card unless given) one layer at a time."""
+    ``device`` (the card unless given) one layer at a time; with ``train``
+    kept in f32 to take gradients (``LM.trainable``)."""
     device = L.resolve_device(device)
     params = {"embed": L.embed_init(generator, cfg, device=device),
               "enc": (enc_layer_init(generator, cfg, device) for _ in range(cfg.enc_layers)),
               "dec": (dec_layer_init(generator, cfg, device) for _ in range(cfg.dec_layers)),
               "enc_norm": L.oinit((cfg.d_model,), device),
               "final_norm": L.oinit((cfg.d_model,), device)}
-    return EncDec(cfg, params)
+    return (EncDec.trainable if train else EncDec)(cfg, params)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,

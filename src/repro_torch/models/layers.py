@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -55,7 +56,8 @@ class Weights(nn.Module):
     """A layer's weights as frozen parameters, read by name like the
     reference's dicts (``p["wq"]``), so every function here takes either.
     Stored in ``dtype``, but the names in ``keep`` in f32: what the reference
-    reads in f32 (norm scales, decays, biases of f32 sums)."""
+    reads in f32 (norm scales, decays, biases of f32 sums).  Training holds
+    them in f32 and unfrozen (``transformer.LM.trainable``)."""
 
     def __init__(self, params: Params, dtype: torch.dtype = torch.float32,
                  keep: frozenset[str] = frozenset()):
@@ -67,8 +69,19 @@ class Weights(nn.Module):
     def __getitem__(self, name: str) -> torch.Tensor:
         return self._parameters[name]
 
-    def tree(self) -> dict[str, torch.Tensor]:
-        return {k: v.data for k, v in self._parameters.items()}
+    def tree(self) -> dict[str, nn.Parameter]:
+        """The parameters by name (a module built from them shares no
+        gradient with them: ``nn.Parameter`` detaches its input)."""
+        return dict(self._parameters)
+
+
+def remat(policy, fn, *args):
+    """``fn(*args)`` -- one layer -- under the activation checkpoint
+    ``policy`` (a context function from ``train.remat.get_policy``; None runs
+    it plainly), as the reference's ``jax.checkpoint`` of its scan body."""
+    if policy is None:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=policy)
 
 
 # --------------------------------------------------------------------- init helpers
@@ -371,3 +384,16 @@ def lm_logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if logits.shape[-1] != cfg.vocab:  # mask the vocab padding, in the logits' dtype
         logits[..., cfg.vocab:] = NEG_INF
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """The mean next-token loss in f32, with the z-loss term on the log
+    partition function."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss.mean()

@@ -1,18 +1,21 @@
 """Uniform model API over all ten configs: the reference's ``models/model.py``.
 
 ``get_model(cfg)`` returns a ``Model`` whose members close over the config:
-  init(generator=None, device=None) -> the family's module (``Transformer``,
-      ``RWKV``, ``Zamba`` or ``EncDec``)
+  init(generator=None, device=None, train=False) -> the family's module
+      (``Transformer``, ``RWKV``, ``Zamba`` or ``EncDec``); with ``train``
+      its weights are f32 parameters that take gradients
+  train_loss(params, batch, remat=None)        -- next-token loss (a scalar
+      tensor); ``remat`` a policy from ``train.remat.get_policy``
   prefill(params, batch, state) -> (logits, state)
   decode_step(params, token_batch, state) -> (logits, state)
   make_state(batch, max_len, device=None)     -- KV cache or recurrent state
 
-``params`` is the module itself.  ``batch`` is the reference's: ``tokens``,
-with ``patch_embeds`` and ``pos3`` for a VLM (both optional) and ``frames``
-for enc-dec.  ``init`` and ``make_state`` put what they make on the card
-unless ``device`` says otherwise.  The reference's ``train_loss`` waits for
-the training port, and ``state_specs``/``input_specs`` (sharding specs and
-JAX shape stand-ins) for the mesh and the dry run (ROADMAP §1 items 3 and 4).
+``params`` is the module itself.  ``batch`` is the reference's: ``tokens``
+(and ``labels`` for the loss), with ``patch_embeds`` and ``pos3`` for a VLM
+(both optional) and ``frames`` for enc-dec.  ``init`` and ``make_state`` put
+what they make on the card unless ``device`` says otherwise.  The
+reference's ``state_specs``/``input_specs`` (sharding specs and JAX shape
+stand-ins) wait for the mesh and the dry run (ROADMAP §1 items 3 and 4).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch.models.encdec import SRC_RATIO
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    init: Callable              # (generator=None, device=None) -> the family's module
+    init: Callable              # (generator=None, device=None, train=False) -> module
+    train_loss: Callable        # (params, batch, remat=None) -> scalar loss
     prefill: Callable
     decode_step: Callable
     make_state: Callable        # (batch, max_len, device=None) -> cache/recurrent state
@@ -36,10 +40,13 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
     step = lambda p, t, st: p.decode_step(t, st)
+    loss = lambda p, b, remat=None: p.train_loss(b, remat)
     if fam in transformer.FAMILIES:
         return Model(
             cfg=cfg,
-            init=lambda generator=None, device=None: transformer.init(cfg, generator, device),
+            init=lambda generator=None, device=None, train=False: transformer.init(
+                cfg, generator, device, train),
+            train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["tokens"], st, pos3=b.get("pos3"),
                                                prefix_embeds=b.get("patch_embeds")),
             decode_step=step,
@@ -48,21 +55,27 @@ def get_model(cfg: ModelConfig) -> Model:
     if fam == "ssm":
         return Model(
             cfg=cfg,
-            init=lambda generator=None, device=None: rwkv.init(cfg, generator, device),
+            init=lambda generator=None, device=None, train=False: rwkv.init(
+                cfg, generator, device, train),
+            train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["tokens"], st),
             decode_step=step,
             make_state=lambda b, m, device=None: rwkv.init_state(cfg, b, device=device))
     if fam == "hybrid":
         return Model(
             cfg=cfg,
-            init=lambda generator=None, device=None: zamba.init(cfg, generator, device),
+            init=lambda generator=None, device=None, train=False: zamba.init(
+                cfg, generator, device, train),
+            train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["tokens"], st),
             decode_step=step,
             make_state=lambda b, m, device=None: zamba.init_state(cfg, b, m, device=device))
     if fam == "encdec":
         return Model(
             cfg=cfg,
-            init=lambda generator=None, device=None: encdec.init(cfg, generator, device),
+            init=lambda generator=None, device=None, train=False: encdec.init(
+                cfg, generator, device, train),
+            train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["frames"], b["tokens"], st),
             decode_step=step,
             make_state=lambda b, m, device=None: encdec.init_cache(

@@ -35,21 +35,27 @@ class RWKV(LM):
     def tree(self) -> dict[str, Any]:
         return {**self._common_tree(), "layers": [lp.tree() for lp in self.layers]}
 
-    def forward(self, tokens: torch.Tensor, state: dict | None = None
+    def forward(self, tokens: torch.Tensor, state: dict | None = None, remat=None
                 ) -> tuple[torch.Tensor, dict]:
-        """-> (final-normed hidden states (B, S, D), the new state)."""
+        """-> (final-normed hidden states (B, S, D), the new state); each
+        layer under ``remat`` (``layers.remat``)."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
         st = state or init_state(self.cfg, x.shape[0], device=x.device)
         tm, cm = st["tm_last"].to(x.dtype), st["cm_last"].to(x.dtype)
         new = {k: [] for k in STATE}
         for i, lp in enumerate(self.layers):
-            x, ns = rwkv_layer_fwd(self.cfg, lp, x,
-                                   {"tm_last": tm[i], "cm_last": cm[i], "wkv": st["wkv"][i]})
+            x, ns = L.remat(remat, rwkv_layer_fwd, self.cfg, lp, x,
+                            {"tm_last": tm[i], "cm_last": cm[i], "wkv": st["wkv"][i]})
             for k in STATE:
                 new[k].append(ns[k])
         new_state = {k: torch.stack(v) for k, v in new.items()}
         new_state["len"] = int(st["len"]) + tokens.shape[1]
         return self._finish(x), new_state
+
+    def train_loss(self, batch: Mapping[str, torch.Tensor], remat=None) -> torch.Tensor:
+        """The reference's ``train_loss``: the next-token loss from a zero state."""
+        x, _ = self(batch["tokens"], remat=remat)
+        return L.cross_entropy(self.logits(x), batch["labels"])
 
     def prefill(self, tokens: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
         x, new_state = self(tokens, state)
@@ -62,14 +68,16 @@ class RWKV(LM):
         return self.logits(x), new_state
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> RWKV:
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None,
+         train: bool = False) -> RWKV:
     """Random weights with the reference's shapes and scales, drawn in f32 on
-    ``device`` (the card unless given) one layer at a time."""
+    ``device`` (the card unless given) one layer at a time; with ``train``
+    kept in f32 to take gradients (``LM.trainable``)."""
     device = L.resolve_device(device)
     params = {"embed": L.embed_init(generator, cfg, device=device),
               "layers": (rwkv_layer_init(generator, cfg, device) for _ in range(cfg.n_layers)),
               "final_norm": L.oinit((cfg.d_model,), device)}
-    return RWKV(cfg, params)
+    return (RWKV.trainable if train else RWKV)(cfg, params)
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype | None = None,

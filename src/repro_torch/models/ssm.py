@@ -5,7 +5,8 @@ Both use the reference's *chunked* linear-recurrence formulation for
 prefill -- quadratic only within a chunk (``ssm_chunk``), with the state
 carried from chunk to chunk (a Python loop here, its ``lax.scan`` there) --
 and a decode step is the same code over one token.  All recurrence math runs
-in f32.
+in f32.  Training differentiates through the chunk loops with autograd: no
+tensor is written in place once it is computed.
 
 The decay products keep the reference's factorisation: the pairwise decay
 exp(cum_t - cum_s) is exp(cum_t) * exp(min(-cum_s, 60)).  cum is

@@ -4,13 +4,16 @@
 An ``nn.Module`` per block (``Block``: its ``Attention`` and ``MLP`` or ``MoE``
 weights and two norm scales) in an ``nn.ModuleList`` under ``Transformer``.
 The reference stacks its layers and scans them; here each block holds its own
-slice and the model loops over them.  Inference only: no remat, and the MoE
-aux loss is dropped.  The VLM's prefill takes patch embeddings prepended to
+slice and the model loops over them.  ``train_loss`` runs each block under the
+remat policy (``layers.remat``) and adds the MoE layers' summed aux loss; the
+serving paths drop it.  The VLM's forward takes patch embeddings prepended to
 the tokens' and (t, h, w) M-RoPE positions ``pos3``; without ``pos3`` (every
 decode step) the text position drives all three streams.
 
 Serving weights are stored once in ``cfg.dtype`` (norm scales in f32), which
-gives the bits of the reference's per-use cast of its f32 weights.
+gives the bits of the reference's per-use cast of its f32 weights.  Training
+holds f32 weights that take gradients and still computes in ``cfg.dtype``
+(``LM.trainable``; ``init(..., train=True)``).
 
 The KV cache is the reference's ``{"k", "v", "len"}`` with ONE length for
 every slot (``len`` a Python int here): ``decode_step`` writes all slots at
@@ -83,27 +86,40 @@ class Block(nn.Module):
         self.norms = L.Weights({k: params[k] for k in NORMS})
 
     def tree(self) -> dict[str, Any]:
-        return {"attn": self.attn.tree(), "mlp": self.mlp.tree(), **self.norms.tree()}
+        return {"attn": self.attn.tree(), "mlp": self.mlp.tree(),
+                **self.norms.tree()}
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor):
+        """-> (the residual stream after the MLP or MoE, the MoE's aux loss or
+        None)."""
         cfg = self.cfg
         h = L.rms_norm(x, self.norms["norm2"], cfg.norm_eps)
         if cfg.family == "moe":
-            return x + L.moe_apply(self.mlp, h, cfg)[0]
-        return x + L.mlp_apply(self.mlp, h, cfg)
+            y, aux = L.moe_apply(self.mlp, h, cfg)
+            return x + y, aux
+        return x + L.mlp_apply(self.mlp, h, cfg), None
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                causal: bool = True):
-        """The reference's ``_layer_fwd`` over a whole sequence: returns the
-        new residual stream and the rotated k and v."""
+    def _attend(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                causal: bool):
         cfg = self.cfg
         B, S, _ = x.shape
         h = L.rms_norm(x, self.norms["norm1"], cfg.norm_eps)
         q, k, v = L.attention_qkv(self.attn, h, cfg)
         q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
         attn = L.flash_attention(q, k, v, causal=causal)
-        x = x + attn.reshape(B, S, -1) @ self.attn["wo"].to(x.dtype)
-        return self._ffn(x), k, v
+        return x + attn.reshape(B, S, -1) @ self.attn["wo"].to(x.dtype), k, v
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                causal: bool = True):
+        """The reference's ``_layer_fwd`` over a whole sequence: returns the
+        new residual stream and the rotated k and v."""
+        x, k, v = self._attend(x, cos, sin, causal)
+        return self._ffn(x)[0], k, v
+
+    def train_fwd(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  causal: bool = True):
+        """-> (the new residual stream, the MoE aux loss or None)."""
+        return self._ffn(self._attend(x, cos, sin, causal)[0])
 
     def decode(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                kc: torch.Tensor, vc: torch.Tensor, pos: int) -> torch.Tensor:
@@ -111,7 +127,7 @@ class Block(nn.Module):
         Hkv, hd), written in place at ``pos``."""
         x = x + self_attend(self.attn, self.norms["norm1"], x, cos, sin, kc, vc, pos,
                             self.cfg)
-        return self._ffn(x)
+        return self._ffn(x)[0]
 
 
 def self_attend(attn: L.Params, norm: torch.Tensor, x: torch.Tensor, cos: torch.Tensor,
@@ -149,7 +165,20 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed["embedding"].device
 
+    @classmethod
+    def trainable(cls, cfg: ModelConfig, params: Mapping[str, Any]) -> "LM":
+        """``cls(cfg, params)`` as training holds it: every weight an f32
+        parameter that takes gradients (the reference's f32 master weights),
+        the compute still in ``cfg.dtype``, as the reference casts each weight
+        where it is used."""
+        model = cls(dataclasses.replace(cfg, dtype=torch.float32), params)
+        for m in model.modules():
+            if "cfg" in vars(m):
+                m.cfg = cfg
+        return model.requires_grad_(True)
+
     def tree(self) -> dict[str, Any]:
+        """The parameters, nested as the family's constructor takes them."""
         raise NotImplementedError
 
     def with_dtype(self, dtype: torch.dtype) -> "LM":
@@ -159,7 +188,8 @@ class LM(nn.Module):
         return type(self)(dataclasses.replace(self.cfg, dtype=dtype), self.tree())
 
     def _common_tree(self) -> dict[str, Any]:
-        return {"embed": self.embed.tree(), "final_norm": self.final["final_norm"].data}
+        return {"embed": self.embed.tree(),
+                "final_norm": self.final.tree()["final_norm"]}
 
     def _rope(self, positions: torch.Tensor):
         return L.rope_cos_sin(positions, self.freqs)
@@ -191,7 +221,6 @@ class Transformer(LM):
         check_layers(len(self.blocks), cfg.n_layers)
 
     def tree(self) -> dict[str, Any]:
-        """The weights as ``Transformer(cfg, ...)`` takes them."""
         return {**self._common_tree(), "layers": [b.tree() for b in self.blocks]}
 
     def _embed(self, tokens: torch.Tensor, positions, pos3, prefix_embeds):
@@ -221,6 +250,23 @@ class Transformer(LM):
         for blk in self.blocks:
             x, _, _ = blk(x, cos, sin)
         return self._finish(x)
+
+    def train_loss(self, batch: Mapping[str, torch.Tensor], remat=None) -> torch.Tensor:
+        """The reference's ``train_loss``: the next-token loss over the text
+        positions (the VLM's patch prefix sliced off before the logits) plus
+        0.01 x the MoE layers' summed aux loss; each block under ``remat``."""
+        prefix = batch.get("patch_embeds")
+        x, (cos, sin) = self._embed(batch["tokens"], None, batch.get("pos3"), prefix)
+        aux = None
+        for blk in self.blocks:
+            x, a = L.remat(remat, blk.train_fwd, x, cos, sin)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        x = self._finish(x)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
+        loss = L.cross_entropy(self.logits(x), batch["labels"])
+        return loss if aux is None else loss + 0.01 * aux
 
     def prefill(self, tokens: torch.Tensor, cache: dict, positions: torch.Tensor | None = None,
                 pos3: torch.Tensor | None = None, prefix_embeds: torch.Tensor | None = None
@@ -263,17 +309,19 @@ def layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None) -> di
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None,
-         device=None) -> Transformer:
+         device=None, train: bool = False) -> Transformer:
     """A randomly initialised ``Transformer`` with the reference's shapes and
     scales: f32 draws from ``generator`` on ``device`` (the card unless
-    given), stored in ``cfg.dtype``.  The layers are drawn one at a time as
-    the model stores them, so the f32 draws of one layer are alive at once."""
+    given), stored in ``cfg.dtype`` -- or, with ``train``, kept as the f32
+    weights training updates (``LM.trainable``).  The layers are drawn one at
+    a time as the model stores them, so the f32 draws of one layer are alive
+    at once."""
     _require_transformer(cfg)
     device = L.resolve_device(device)
     params = {"embed": L.embed_init(generator, cfg, device=device),
               "layers": (layer_init(generator, cfg, device) for _ in range(cfg.n_layers)),
               "final_norm": L.oinit((cfg.d_model,), device)}
-    return Transformer(cfg, params)
+    return (Transformer.trainable if train else Transformer)(cfg, params)
 
 
 # ----------------------------------------------------------------------- serving

@@ -72,9 +72,10 @@ class Zamba(LM):
         for lp in list(self.mamba_tail)[:tail]:
             yield lp, None
 
-    def _forward(self, tokens: torch.Tensor, state: dict | None, mode: str
+    def _forward(self, tokens: torch.Tensor, state: dict | None, mode: str, remat=None
                  ) -> tuple[torch.Tensor, dict]:
-        """The reference's ``_forward``: ``mode`` "train" (no cache), or
+        """The reference's ``_forward``: ``mode`` "train" (no cache; each
+        Mamba2 layer and shared-block call under ``remat``), or
         "prefill"/"decode" (one token against the cache, or a segment)."""
         cfg = self.cfg
         x = L.embed_lookup(self.embed, tokens, cfg)
@@ -86,13 +87,14 @@ class Zamba(LM):
         conv = st["conv"].to(x.dtype)
         convs, ssds = [], []
         for i, (lp, si) in enumerate(self._mambas()):
-            x, ns = mamba_layer_fwd(cfg, lp, x, {"conv": conv[i], "ssd": st["ssd"][i]})
+            x, ns = L.remat(remat, mamba_layer_fwd, cfg, lp, x,
+                            {"conv": conv[i], "ssd": st["ssd"][i]})
             convs.append(ns["conv"])
             ssds.append(ns["ssd"])
             if si is None:
                 continue
             if mode == "train":
-                x, _, _ = self.shared(x, cos, sin)
+                x = L.remat(remat, self.shared.train_fwd, x, cos, sin)[0]
             elif S == 1:
                 x = self.shared.decode(x, cos, sin, st["k"][si], st["v"][si], base)
             else:  # prefill from scratch: the segment IS the cache prefix
@@ -103,10 +105,15 @@ class Zamba(LM):
                      "k": st["k"], "v": st["v"], "len": base + S}
         return self._finish(x), new_state
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, remat=None) -> torch.Tensor:
         """The reference's ``_forward`` in "train" mode: the final-normed
         hidden states (B, S, D)."""
-        return self._forward(tokens, None, "train")[0]
+        return self._forward(tokens, None, "train", remat)[0]
+
+    def train_loss(self, batch: Mapping[str, torch.Tensor], remat=None) -> torch.Tensor:
+        """The reference's ``train_loss``: the next-token loss of the "train"
+        forward."""
+        return L.cross_entropy(self.logits(self(batch["tokens"], remat)), batch["labels"])
 
     def prefill(self, tokens: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
         x, ns = self._forward(tokens, state, "prefill")
@@ -127,9 +134,11 @@ def _write(cache: torch.Tensor, new: torch.Tensor, base: int) -> None:
     cache[:, start:start + S] = new.to(cache.dtype)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> Zamba:
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None,
+         train: bool = False) -> Zamba:
     """Random weights with the reference's shapes and scales, drawn in f32 on
-    ``device`` (the card unless given) one layer at a time."""
+    ``device`` (the card unless given) one layer at a time; with ``train``
+    kept in f32 to take gradients (``LM.trainable``)."""
     n_super, k, tail = _split(cfg)
     device = L.resolve_device(device)
     layer = lambda: mamba_layer_init(generator, cfg, device)
@@ -138,7 +147,7 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
               "mamba_tail": (layer() for _ in range(max(tail, 1))),
               "shared": shared_block_init(generator, cfg, device),
               "final_norm": L.oinit((cfg.d_model,), device)}
-    return Zamba(cfg, params)
+    return (Zamba.trainable if train else Zamba)(cfg, params)
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,

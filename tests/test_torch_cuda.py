@@ -1455,3 +1455,67 @@ def test_kv_page_in_on_kernel_1(gpu):
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
     assert pb.packed.nbytes < block.numel() * block.element_size() / 1.9
+
+
+def test_token_loader_on_kernel_1(gpu):
+    """qwen1.5-0.5b's 18-bit tokens of a (4, 256) batch unpacked on kernel 1,
+    one launch, bitwise against the plain version and the host's tokens."""
+    from repro_torch.data.loader import CompressedTokenLoader
+
+    loader = CompressedTokenLoader(151936, 4, 256, device=gpu)
+    host = loader.encode_host(7)
+    bufs = loader.to_device(host)
+    before = FP.launches
+    got = loader.decode_fn()(bufs)
+    assert FP.launches == before + 1
+    plain = loader.decode_fn("torch")(bufs)
+    assert FP.launches == before + 1
+    torch.cuda.synchronize()
+    want = torch.from_numpy(np.random.default_rng(7).integers(0, 151936, (4, 257),
+                                                               dtype=np.int32))
+    for k, w in (("tokens", want[:, :-1]), ("labels", want[:, 1:])):
+        assert got[k].dtype == torch.int32 and got[k].device.type == "cuda"
+        assert torch.equal(got[k], plain[k]) and torch.equal(got[k].cpu(), w)
+    assert loader.bits == 18 and host["packed"].nbytes < want.numpy().nbytes / 1.7
+
+
+def test_train_step_on_the_card(gpu):
+    """Two steps of the reduced qwen1.5-0.5b's train step in f32 (remat
+    "dots", AdamW with weight decay), its tokens unpacked on kernel 1: the
+    losses, grad norms and every parameter within 1e-4 of the same weights'
+    steps on the CPU (TF32 off; parameters as a share of the largest)."""
+    import copy
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.data.loader import CompressedTokenLoader
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(SMOKES["qwen1.5-0.5b"], dtype=torch.float32)
+    card = get_model(cfg).init(torch.Generator(gpu).manual_seed(0), gpu, train=True)
+    host = copy.deepcopy(card).cpu()
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, model in ((gpu, card), (torch.device("cpu"), host)):
+            loader = CompressedTokenLoader(cfg.vocab, 4, 32, device=dev)
+            decode = loader.decode_fn()
+            step = make_train_step(cfg, opt_cfg, remat="dots")
+            opt, hist = optimizer.init(model), []
+            before = FP.launches
+            for i in range(2):
+                model, opt, m = step(model, opt, decode(loader.to_device(loader.encode_host(i))))
+                hist.append((m["loss"].item(), m["grad_norm"].item()))
+            assert FP.launches - before == (2 if dev.type == "cuda" else 0)
+            out[dev.type] = hist, [p.detach().cpu() for p in model.parameters()]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (ch, cp), (hh, hp) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(np.array(ch), np.array(hh), rtol=1e-4)
+    top = max(float(p.abs().max()) for p in hp)
+    for a, b in zip(cp, hp):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * top)

@@ -44,7 +44,10 @@ for new in ("repro_torch.core.query", "repro_torch.data.queries",
             "repro_torch.models.ssm", "repro_torch.models.rwkv", "repro_torch.models.zamba",
             "repro_torch.models.encdec",
             "repro_torch.serve", "repro_torch.serve.kvcache", "repro_torch.serve.engine",
-            "repro_torch.launch", "repro_torch.launch.serve"):
+            "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.remat",
+            "repro_torch.train.train_step", "repro_torch.train.grad_compress",
+            "repro_torch.train.checkpoint", "repro_torch.train.loop"):
     assert new in names, new
 print(len(names))
 """
