@@ -247,6 +247,22 @@ non-zero before the final line:
      ``torch.use_deterministic_algorithms``), and ``python3 -m
      repro_torch.launch.train --smoke --steps 4`` run to its end; then the
      phase's seconds.
+ 14. lm roofline (after phase 13): qwen1.5-0.5b at full width, random
+     weights from ``--seed``: phase 11's decode step (2 slots, ``max_len``
+     256, bf16, the cache 128 rows full), a prefill of 2 x 256, and phase
+     13's train step (batch 4 x 256, remat "dots", AdamW, f32 master
+     weights).  Each is counted by ``roofline.op_cost.analyze`` on the card
+     and the same call on ``meta``: the run fails unless the FLOPs and bytes
+     are equal (the dry run predicts the card's work).  Each is timed warm by
+     CUDA events (median of 5); one ``lm roofline`` line each: ``model_flops``,
+     the counted FLOPs and bytes, the events time, ``mfu`` (model FLOPs over
+     the time at 989 TFLOP/s), ``hbm_share`` (counted bytes over the time at
+     3.35 TB/s), the roofline's step time and bottleneck, and the meta
+     count's ``peak_bytes`` against the step's ``max_memory_allocated``
+     rise.  Then ``launch.dryrun.run_cell`` on meta for ``ROOF_CELLS``
+     (qwen1.5-0.5b train_4k and decode_32k on the card and the 16 x 16 pod,
+     phi3.5-moe decode_32k on the card), a ``dryrun`` line each; then the
+     phase's seconds.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -358,7 +374,14 @@ TRAIN_PARITY_OPT = {"lr": 3e-3, "warmup_steps": 2, "total_steps": 50}   # weight
 TRAIN_REMATS = (None, "full", "dots")
 TRAIN_REMAT_STEPS = 3        # steps timed under each remat policy (the first is warm-up)
 TRAIN_LOOP = (6, 4, 5)       # SMOKE loop: steps, ckpt_every, fail_at_step
-BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak (data sheet)
+# LM roofline phase (14): qwen1.5-0.5b's decode step (phase 11's engine: 2
+# slots, max_len 256, bf16), a prefill of 2 x 256 and phase 13's train step,
+# each counted on the card and on meta; then dry-run cells on meta
+ROOF_DECODE_LEN = 128        # cache rows filled before the timed decode step
+ROOF_REPS = 5                # warm steps timed (median)
+ROOF_CELLS = (("qwen1.5-0.5b", "train_4k", "card"), ("qwen1.5-0.5b", "train_4k", "pod"),
+              ("qwen1.5-0.5b", "decode_32k", "card"), ("qwen1.5-0.5b", "decode_32k", "pod"),
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "card"))
 
 
 def host_part(name: str) -> str | None:
@@ -1571,6 +1594,7 @@ def run_lm_train(cfg, smoke, families: dict, seed: int, timer, libs, hbm_gbps: f
 
     from repro_torch.data.loader import CompressedTokenLoader
     from repro_torch.models import get_model
+    from repro_torch.roofline.analysis import PEAK_FLOPS as BF16_FLOPS
     from repro_torch.train import checkpoint as ck
     from repro_torch.train import optimizer
     from repro_torch.train.loop import (LoopConfig, SimulatedFailure, load_state, run,
@@ -1984,6 +2008,129 @@ def run_lm_train(cfg, smoke, families: dict, seed: int, timer, libs, hbm_gbps: f
           f"{cli_s:.2f} ({cli.stdout.strip().splitlines()[-1]})")
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"lm train phase_s {rec['phase_s']:.2f}")
+    return rec
+
+
+def _count_diff(a: dict, b: dict) -> dict:
+    """The ops whose count, FLOPs or bytes differ between two ``by_op``."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)}
+
+
+def run_lm_roofline(cfg, seed: int, device: str = "cuda") -> dict:
+    """Phase 14: the roofline of three full-width steps of ``cfg`` (see the
+    module docstring), each counted by ``op_cost.analyze`` on the card and on
+    ``meta`` (equal FLOPs and bytes or the run fails), timed by CUDA events
+    and put beside ``model_flops`` and the H100's datasheet rates; then
+    ``launch.dryrun.run_cell`` on meta for ``ROOF_CELLS``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import get_model
+    from repro_torch.roofline import analysis, op_cost
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    api = get_model(cfg)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    shapes = {"decode": ShapeConfig("decode", LM_MAX_LEN, LM_SLOTS, "decode"),
+              "prefill": ShapeConfig("prefill", LM_MAX_LEN, LM_SLOTS, "prefill"),
+              "train": ShapeConfig("train", S, B, "train")}
+
+    def tokens(shape, d):
+        if d.type == "meta":
+            return torch.zeros(shape, dtype=torch.int32, device=d)
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape, dtype=np.int32)).to(d)
+
+    def steps(d) -> dict:
+        """name -> a call of that step on device ``d``, its state made once."""
+        g = gen if d.type != "meta" else None
+        serve, train = api.init(g, d), api.init(g, d, train=True)
+        cache = api.make_state(LM_SLOTS, LM_MAX_LEN, device=d)
+        cache["len"] = ROOF_DECODE_LEN
+        tok = tokens((LM_SLOTS, 1), d)
+        pcache = api.make_state(LM_SLOTS, LM_MAX_LEN, device=d)
+        prompt = {"tokens": tokens((LM_SLOTS, LM_MAX_LEN), d)}
+        step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=TRAIN_REMAT)
+        opt = optimizer.init(train)
+        seq = tokens((B, S + 1), d)
+        batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+        return {"decode": lambda: api.decode_step(serve, tok, cache),
+                "prefill": lambda: api.prefill(serve, prompt, pcache),
+                "train": lambda: step(train, opt, batch)[2]}
+
+    rec: dict = {"arch": cfg.name, "steps": {}, "dryrun": []}
+    card, meta = steps(dev), steps(torch.device("meta"))
+    for name, fn in card.items():
+        got = op_cost.analyze(fn)
+        want = op_cost.analyze(meta[name])
+        if (got["flops"], got["bytes"]) != (want["flops"], want["bytes"]):
+            raise AssertionError(f"lm roofline {name}: card counts {got['flops']} FLOPs "
+                                 f"{got['bytes']} bytes, meta {want['flops']} FLOPs "
+                                 f"{want['bytes']} bytes; ops that differ "
+                                 f"{_count_diff(got['by_op'], want['by_op'])}")
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(ROOF_REPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        t = float(np.median(ms)) / 1e3
+        mflops = analysis.model_flops(cfg, shapes[name], shapes[name].kind)
+        roof = analysis.Roofline(
+            arch=cfg.name, shape=name, mesh="card_1x1", chips=1,
+            hlo_flops_per_chip=got["flops"], hlo_bytes_per_chip=got["bytes"],
+            coll_bytes_per_chip=got["coll_bytes"], coll_breakdown=got["collectives"],
+            model_flops_total=mflops, per_device_bytes=0)
+        r = {"model_flops": mflops, "counted_flops": got["flops"],
+             "counted_bytes": got["bytes"], "n_ops": got["n_ops"], "meta_equal": True,
+             "ms": t * 1e3, "ms_all": ms, "mfu": mflops / (t * analysis.PEAK_FLOPS),
+             "hbm_share": got["bytes"] / (t * analysis.HBM_BW),
+             "roofline_step_ms": roof.step_time * 1e3, "bottleneck": roof.bottleneck,
+             "t_compute_ms": roof.t_compute * 1e3, "t_memory_ms": roof.t_memory * 1e3,
+             "peak_bytes_meta": want["peak_bytes"], "peak_bytes_card": got["peak_bytes"],
+             "max_memory_rise": rise, "count_s_card": got["seconds"],
+             "count_s_meta": want["seconds"]}
+        rec["steps"][name] = r
+        print(f"lm roofline {cfg.name} {name} model_flops {mflops:.6e} counted_flops "
+              f"{got['flops']:.6e} counted_bytes {got['bytes']:.6e} n_ops {got['n_ops']} "
+              f"meta_equal True ms {r['ms']:.4f} mfu {r['mfu']:.5f} hbm_share "
+              f"{r['hbm_share']:.5f} roofline_step_ms {r['roofline_step_ms']:.4f} "
+              f"bottleneck {roof.bottleneck} (t_compute_ms {r['t_compute_ms']:.4f} "
+              f"t_memory_ms {r['t_memory_ms']:.4f}) peak_bytes_meta {want['peak_bytes']} "
+              f"max_memory_rise {rise} count_s card {got['seconds']:.2f} meta "
+              f"{want['seconds']:.2f}")
+    card = meta = None
+    torch.cuda.empty_cache()
+    for arch, shape, mesh in ROOF_CELLS:
+        c = run_cell(arch, shape, mesh)
+        c.pop("by_op", None)
+        if c["status"] != "ok":
+            raise AssertionError(f"lm roofline dryrun {arch} {shape} {mesh}: {c['status']}")
+        rec["dryrun"].append(c)
+        ro, mem = c["roofline"], c["memory"]
+        print(f"dryrun {arch} {shape} {c['mesh']} split {c['split']} bottleneck "
+              f"{ro['bottleneck']} t_compute_ms {ro['t_compute'] * 1e3:.4f} t_memory_ms "
+              f"{ro['t_memory'] * 1e3:.4f} t_collective {ro['t_collective']} "
+              f"roofline_frac {ro['roofline_frac']:.5f} per_device_gb "
+              f"{mem['per_device_live'] / 1e9:.3f} argument_gb {mem['argument'] / 1e9:.3f} "
+              f"fits_80g_hbm {mem['fits_80g_hbm']} n_ops {c['n_ops']['n_ops']} lower_s "
+              f"{c['lower_s']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm roofline phase_s {rec['phase_s']:.2f}")
     return rec
 
 
@@ -2888,6 +3035,9 @@ def main() -> int:
                             {arch: cut32 for arch, (_, cut32) in families.items()},
                             args.seed, timer, libs, hbm)
 
+    # --------------------------------------------------------------- phase 14
+    lm_roofline = run_lm_roofline(ARCHS[LM_ARCH], args.seed)
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -2978,7 +3128,7 @@ def main() -> int:
                                         "wide_queries": wide, "geometry": geometry,
                                         "baseline": baseline, "lm": lm,
                                         "lm_families": lm_families, "lm_train": lm_train,
-                                        "kernels": kernels},
+                                        "lm_roofline": lm_roofline, "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -23,7 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (LM, MLP, Attention, Block, check_layers,
-                                            self_attend)
+                                            layer_specs, self_attend)
 
 SRC_RATIO = 8  # decoder length = encoder length // SRC_RATIO for train/prefill
 DEC_NORMS = ("norm1", "norm2", "norm3")
@@ -40,6 +40,19 @@ def dec_layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None) -
             "cross": L.attention_init(gen, cfg, device=device),
             "mlp": L.mlp_init(gen, cfg, device=device),
             **{k: L.oinit((cfg.d_model,), device) for k in DEC_NORMS}}
+
+
+def dec_layer_specs(cfg: ModelConfig) -> dict:
+    return {"self": L.attention_specs(cfg), "cross": L.attention_specs(cfg),
+            "mlp": L.mlp_specs(cfg), **{k: (None,) for k in DEC_NORMS}}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's logical specs of the param tree (layers stacked; an
+    encoder layer's are a dense layer's)."""
+    return {"embed": L.embed_specs(cfg), "enc": ("stacked", layer_specs(cfg)),
+            "dec": ("stacked", dec_layer_specs(cfg)), "enc_norm": (None,),
+            "final_norm": (None,)}
 
 
 class DecLayer(nn.Module):
@@ -205,3 +218,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
             "v": torch.zeros(kv, dtype=dtype, device=device),
             "ck": torch.zeros(ckv, dtype=dtype, device=device),
             "cv": torch.zeros(ckv, dtype=dtype, device=device), "len": 0}
+
+
+def cache_specs(cfg: ModelConfig, tp_size: int = 16) -> dict:
+    if cfg.n_kv_heads % tp_size == 0:
+        kv = (None, "fsdp", None, "tp", None)
+    else:
+        kv = (None, "fsdp", "tp", None, None)
+    return {"k": kv, "v": kv, "ck": kv, "cv": kv, "len": ()}

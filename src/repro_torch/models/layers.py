@@ -13,7 +13,11 @@ Conventions, as the reference's:
     reference's shapes and scales (the draws themselves differ from JAX's);
   * the reference's ``shard``/``wcast`` sharding constraints are the identity
     without a mesh, and the port has no mesh yet (ROADMAP §1 item 3): they are
-    dropped here, with the head padding ``flash_attention`` does under one.
+    dropped here, with the head padding ``flash_attention`` does under one;
+  * the reference's init functions also return each weight's *logical*
+    sharding spec; here the ``*_specs`` functions give them, the same tuples
+    of None | "fsdp" | "tp" | ("tp"|"fsdp", dim_size) per dimension, which
+    ``launch/mesh.py`` resolves against a mesh.
 
 Attention is plain torch ops in the reference's order of casts and sums
 (f32 accumulation, the ``-1e30`` mask), not a library attention kernel; the
@@ -81,7 +85,10 @@ def remat(policy, fn, *args):
     it plainly), as the reference's ``jax.checkpoint`` of its scan body."""
     if policy is None:
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=policy)
+    # no layer draws random numbers, so there is no RNG state to stash and
+    # restore around the recompute (on the card that would copy it each time)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=policy,
+                      preserve_rng_state=False)
 
 
 # --------------------------------------------------------------------- init helpers
@@ -228,7 +235,7 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) / math.sqrt(hd)
     if isinstance(cache_len, int):
         if cache_len < S:
-            s[..., max(cache_len, 0):] = NEG_INF
+            s[..., max(cache_len, 0):].fill_(NEG_INF)     # fill_: the same ops on every device
     else:
         pos = torch.arange(S, device=s.device)
         valid = pos[None, :] < cache_len.reshape(-1, 1)
@@ -252,6 +259,16 @@ def attention_init(gen: torch.Generator | None, cfg: ModelConfig,
         params |= {"bq": zinit((H * hd,), device), "bk": zinit((Hkv * hd,), device),
                    "bv": zinit((Hkv * hd,), device)}
     return params
+
+
+def attention_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    specs = {"wq": ("fsdp", ("tp", H * hd)), "wk": ("fsdp", ("tp", Hkv * hd)),
+             "wv": ("fsdp", ("tp", Hkv * hd)), "wo": (("tp", H * hd), "fsdp")}
+    if cfg.qkv_bias:
+        specs |= {"bq": (("tp", H * hd),), "bk": (("tp", Hkv * hd),),
+                  "bv": (("tp", Hkv * hd),)}
+    return specs
 
 
 def attention_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -283,6 +300,14 @@ def mlp_init(gen: torch.Generator | None, cfg: ModelConfig, d_ff: int | None = N
             "w_down": ninit(gen, (Fd, D), scale=down, device=device)}
 
 
+def mlp_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    Fd = cfg.d_ff
+    specs = {"w_up": ("fsdp", ("tp", Fd)), "w_down": (("tp", Fd), "fsdp")}
+    if cfg.mlp == "swiglu":
+        specs = {"w_gate": ("fsdp", ("tp", Fd)), **specs}
+    return specs
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.mlp == "swiglu":
@@ -306,6 +331,13 @@ def moe_init(gen: torch.Generator | None, cfg: ModelConfig,
                                   device=device)}
 
 
+def moe_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    E = cfg.n_experts
+    return {"router": ("fsdp", None), "experts_gate": (("tp", E), "fsdp", None),
+            "experts_up": (("tp", E), "fsdp", None),
+            "experts_down": (("tp", E), None, "fsdp")}
+
+
 def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig):
     """The router over groups xg (G, g, D) -> (probs (G, g, E) f32, gate values
     and expert ids (G, g, k)).  Ties go to the lower expert id first, as
@@ -314,6 +346,14 @@ def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig):
     probs = torch.softmax(logits, dim=-1)
     gate_v, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     return probs, gate_v[..., :cfg.top_k], gate_i[..., :cfg.top_k]
+
+
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot of ``idx`` over ``n`` classes, as an equality with
+    ``arange(n)``: ``F.one_hot`` takes another path of ops on each device
+    (a value check and a scatter on the CPU), and the op counter must count
+    the same on ``meta`` as on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -332,12 +372,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
     xg = x.reshape(G, g, D)
     probs, gate_v, gate_i = moe_route(p, xg, cfg)
     gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
-    onehot = F.one_hot(gate_i, E).float()                          # (G, g, k, E)
+    onehot = one_hot(gate_i, E)                                    # (G, g, k, E)
     slot_flat = onehot.reshape(G, -1, E)
     pos = (torch.cumsum(slot_flat, dim=1) - slot_flat).reshape(onehot.shape)
     keep = (pos < cap) & (onehot > 0)
     pos_c = torch.clamp(pos.long(), 0, cap - 1)
-    cap_oh = F.one_hot(pos_c, cap).float() * keep[..., None]
+    cap_oh = one_hot(pos_c, cap) * keep[..., None]
     dispatch = cap_oh.sum(2)                                       # (G, g, E, cap)
     combine = (cap_oh * gate_v[..., None, None]).sum(2)            # (G, g, E, cap)
     xe = torch.einsum("Ggec,Ggd->eGcd", dispatch.to(dt), xg)       # (E, G, cap, D)
@@ -374,6 +414,14 @@ def embed_init(gen: torch.Generator | None, cfg: ModelConfig,
     return params
 
 
+def embed_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    V = padded_vocab(cfg.vocab)
+    specs = {"embedding": (("tp", V), "fsdp")}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", ("tp", V))
+    return specs
+
+
 def embed_lookup(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return p["embedding"].to(cfg.dtype)[tokens]
 
@@ -382,7 +430,7 @@ def lm_logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
     logits = x @ w.to(x.dtype)
     if logits.shape[-1] != cfg.vocab:  # mask the vocab padding, in the logits' dtype
-        logits[..., cfg.vocab:] = NEG_INF
+        logits[..., cfg.vocab:].fill_(NEG_INF)
     return logits
 
 

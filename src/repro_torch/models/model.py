@@ -9,18 +9,29 @@
   prefill(params, batch, state) -> (logits, state)
   decode_step(params, token_batch, state) -> (logits, state)
   make_state(batch, max_len, device=None)     -- KV cache or recurrent state
+  param_specs()                               -- logical specs of the param tree
+  state_specs(batch=None)                     -- logical specs of the state
+  input_specs(shape) -> (tree of meta tensors, tree of logical specs)
 
 ``params`` is the module itself.  ``batch`` is the reference's: ``tokens``
 (and ``labels`` for the loss), with ``patch_embeds`` and ``pos3`` for a VLM
 (both optional) and ``frames`` for enc-dec.  ``init`` and ``make_state`` put
-what they make on the card unless ``device`` says otherwise.  The
-reference's ``state_specs``/``input_specs`` (sharding specs and JAX shape
-stand-ins) wait for the mesh and the dry run (ROADMAP §1 items 3 and 4).
+what they make on the card unless ``device`` says otherwise.
+
+The specs are the reference's, keyed as its trees are (its stacked layers
+under ``("stacked", ...)``/``("stacked2", ...)`` markers, so that
+``weights.layout`` paths find them); ``launch/mesh.py`` resolves them
+against a mesh.  ``input_specs`` gives the reference's
+``ShapeDtypeStruct`` stand-ins as tensors on the ``meta`` device (nothing
+allocated): tokens for LMs, stub frame embeddings for [audio], stub patch
+embeddings + M-RoPE ids for [vlm].
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, rwkv, transformer, zamba
@@ -35,6 +46,50 @@ class Model:
     prefill: Callable
     decode_step: Callable
     make_state: Callable        # (batch, max_len, device=None) -> cache/recurrent state
+    param_specs: Callable       # () -> logical specs of the param tree
+    state_specs: Callable       # (batch=None) -> logical specs for the state
+    input_specs: Callable       # (ShapeConfig) -> (meta tensors, logical specs)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _lm_inputs(cfg: ModelConfig, shape: ShapeConfig):
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": _meta((B, 1), torch.int32)}, {"token": ("fsdp", None)}
+    shapes = {"tokens": _meta((B, S), torch.int32), "labels": _meta((B, S), torch.int32)}
+    specs = {"tokens": ("fsdp", None), "labels": ("fsdp", None)}
+    return shapes, specs
+
+
+def _vlm_inputs(cfg: ModelConfig, shape: ShapeConfig):
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": _meta((B, 1), torch.int32)}, {"token": ("fsdp", None)}
+    s_img = int(S * cfg.image_frac) // 256 * 256
+    s_txt = S - s_img
+    shapes = {"tokens": _meta((B, s_txt), torch.int32),
+              "labels": _meta((B, s_txt), torch.int32),
+              "patch_embeds": _meta((B, s_img, cfg.d_model), cfg.dtype),
+              "pos3": _meta((B, 3, S), torch.int32)}
+    specs = {"tokens": ("fsdp", None), "labels": ("fsdp", None),
+             "patch_embeds": ("fsdp", None, None), "pos3": ("fsdp", None, None)}
+    return shapes, specs
+
+
+def _encdec_inputs(cfg: ModelConfig, shape: ShapeConfig):
+    B, S = shape.global_batch, shape.seq_len
+    s_tgt = max(S // SRC_RATIO, 128)
+    if shape.kind == "decode":
+        return {"token": _meta((B, 1), torch.int32)}, {"token": ("fsdp", None)}
+    shapes = {"frames": _meta((B, S, cfg.d_model), cfg.dtype),
+              "tokens": _meta((B, s_tgt), torch.int32),
+              "labels": _meta((B, s_tgt), torch.int32)}
+    specs = {"frames": ("fsdp", None, None), "tokens": ("fsdp", None),
+             "labels": ("fsdp", None)}
+    return shapes, specs
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -51,7 +106,11 @@ def get_model(cfg: ModelConfig) -> Model:
                                                prefix_embeds=b.get("patch_embeds")),
             decode_step=step,
             make_state=lambda b, m, device=None: transformer.init_cache(cfg, b, m,
-                                                                        device=device))
+                                                                        device=device),
+            param_specs=lambda: transformer.param_specs(cfg),
+            state_specs=lambda b=None: transformer.cache_specs(cfg),
+            input_specs=(lambda s: _vlm_inputs(cfg, s)) if fam == "vlm"
+            else (lambda s: _lm_inputs(cfg, s)))
     if fam == "ssm":
         return Model(
             cfg=cfg,
@@ -60,7 +119,10 @@ def get_model(cfg: ModelConfig) -> Model:
             train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["tokens"], st),
             decode_step=step,
-            make_state=lambda b, m, device=None: rwkv.init_state(cfg, b, device=device))
+            make_state=lambda b, m, device=None: rwkv.init_state(cfg, b, device=device),
+            param_specs=lambda: rwkv.param_specs(cfg),
+            state_specs=lambda b=None: rwkv.state_specs(cfg),
+            input_specs=lambda s: _lm_inputs(cfg, s))
     if fam == "hybrid":
         return Model(
             cfg=cfg,
@@ -69,7 +131,10 @@ def get_model(cfg: ModelConfig) -> Model:
             train_loss=loss,
             prefill=lambda p, b, st: p.prefill(b["tokens"], st),
             decode_step=step,
-            make_state=lambda b, m, device=None: zamba.init_state(cfg, b, m, device=device))
+            make_state=lambda b, m, device=None: zamba.init_state(cfg, b, m, device=device),
+            param_specs=lambda: zamba.param_specs(cfg),
+            state_specs=lambda b=None: zamba.state_specs(cfg, batch=b),
+            input_specs=lambda s: _lm_inputs(cfg, s))
     if fam == "encdec":
         return Model(
             cfg=cfg,
@@ -79,7 +144,10 @@ def get_model(cfg: ModelConfig) -> Model:
             prefill=lambda p, b, st: p.prefill(b["frames"], b["tokens"], st),
             decode_step=step,
             make_state=lambda b, m, device=None: encdec.init_cache(
-                cfg, b, m, max(m // SRC_RATIO, 128), device=device))
+                cfg, b, m, max(m // SRC_RATIO, 128), device=device),
+            param_specs=lambda: encdec.param_specs(cfg),
+            state_specs=lambda b=None: encdec.cache_specs(cfg),
+            input_specs=lambda s: _encdec_inputs(cfg, s))
     raise ValueError(f"unknown family {fam}")
 
 

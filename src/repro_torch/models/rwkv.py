@@ -16,7 +16,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import RWKVLayer, rwkv_layer_fwd, rwkv_layer_init
+from repro_torch.models.ssm import (RWKVLayer, rwkv_layer_fwd, rwkv_layer_init,
+                                    rwkv_layer_specs)
 from repro_torch.models.transformer import LM, check_layers
 
 STATE = ("tm_last", "cm_last", "wkv")
@@ -80,6 +81,12 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
     return (RWKV.trainable if train else RWKV)(cfg, params)
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's logical specs of the param tree (layers stacked)."""
+    return {"embed": L.embed_specs(cfg), "layers": ("stacked", rwkv_layer_specs(cfg)),
+            "final_norm": (None,)}
+
+
 def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype | None = None,
                device=None) -> dict:
     dtype = dtype or cfg.dtype
@@ -91,3 +98,8 @@ def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype | None = None,
             "cm_last": torch.zeros((Lyr, batch, D), dtype=dtype, device=device),
             "wkv": torch.zeros((Lyr, batch, H, hd, hd), dtype=torch.float32, device=device),
             "len": 0}
+
+
+def state_specs(cfg: ModelConfig) -> dict:
+    return {"tm_last": (None, "fsdp", None), "cm_last": (None, "fsdp", None),
+            "wkv": (None, "fsdp", ("tp", cfg.n_heads), None, None), "len": ()}

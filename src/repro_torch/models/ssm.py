@@ -78,6 +78,21 @@ def rwkv_layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None) 
     }
 
 
+def rwkv_layer_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """The logical sharding spec of each of ``rwkv_layer_init``'s weights."""
+    D, Fd, H = cfg.d_model, cfg.d_ff, cfg.n_heads
+    return {
+        "wr": ("fsdp", ("tp", D)), "wk": ("fsdp", ("tp", D)),
+        "wv": ("fsdp", ("tp", D)), "wg": ("fsdp", ("tp", D)),
+        "wo": (("tp", D), "fsdp"),
+        "w0": (("tp", D),), "w_lora_a": ("fsdp", None), "w_lora_b": (None, ("tp", D)),
+        "u": (("tp", H), None), "mix": (None, None), "ln_x": (None,),
+        "cm_wk": ("fsdp", ("tp", Fd)), "cm_wv": (("tp", Fd), "fsdp"),
+        "cm_wr": ("fsdp", ("tp", D)), "cm_mix": (None, None),
+        "norm1": (None,), "norm2": (None,),
+    }
+
+
 def _token_shift(x: torch.Tensor, x_last: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D); x_last: (B, D) hidden from the previous segment."""
     return torch.cat([x_last[:, None], x[:, :-1]], dim=1)
@@ -183,6 +198,20 @@ def mamba_layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None)
         "ssm_norm": L.oinit((d_in,), device),
         "w_out": L.ninit(gen, (d_in, D), scale=1 / math.sqrt(d_in), device=device),
         "norm": L.oinit((D,), device),
+    }
+
+
+def mamba_layer_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """The logical sharding spec of each of ``mamba_layer_init``'s weights."""
+    d_in, H = 2 * cfg.d_model, cfg.ssm_heads
+    return {
+        "w_z": ("fsdp", ("tp", d_in)), "w_x": ("fsdp", ("tp", d_in)),
+        "w_B": ("fsdp", None), "w_C": ("fsdp", None),
+        "w_dt": ("fsdp", ("tp", H)),
+        "conv_w": (None, ("tp", d_in)),
+        "A_log": (("tp", H),), "D_skip": (("tp", H),), "dt_bias": (("tp", H),),
+        "ssm_norm": (None,), "w_out": (("tp", d_in), "fsdp"),
+        "norm": (None,),
     }
 
 

@@ -308,6 +308,21 @@ def layer_init(gen: torch.Generator | None, cfg: ModelConfig, device=None) -> di
             "norm1": L.oinit((cfg.d_model,), device), "norm2": L.oinit((cfg.d_model,), device)}
 
 
+def layer_specs(cfg: ModelConfig) -> dict:
+    """The logical sharding specs of one layer's weights (``layer_init``'s)."""
+    mlp = L.moe_specs if cfg.family == "moe" else L.mlp_specs
+    return {"attn": L.attention_specs(cfg), "mlp": mlp(cfg),
+            "norm1": (None,), "norm2": (None,)}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's logical specs of the param tree, the layers under a
+    ``("stacked", ...)`` marker (one leading layer dimension)."""
+    _require_transformer(cfg)
+    return {"embed": L.embed_specs(cfg), "layers": ("stacked", layer_specs(cfg)),
+            "final_norm": (None,)}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator | None = None,
          device=None, train: bool = False) -> Transformer:
     """A randomly initialised ``Transformer`` with the reference's shapes and
@@ -333,3 +348,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | 
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+def cache_specs(cfg: ModelConfig, tp_size: int = 16) -> dict:
+    """Logical partition specs for the KV cache.
+
+    Heads shard over tp when divisible; otherwise the *sequence* dim does --
+    decode attention contracts over S, so a partitioner reduces partial sums
+    instead of replicating a multi-GB cache per chip."""
+    if cfg.n_kv_heads % tp_size == 0:
+        kv = (None, "fsdp", None, "tp", None)
+    else:
+        kv = (None, "fsdp", "tp", None, None)
+    return {"k": kv, "v": kv, "len": ()}

@@ -16,7 +16,9 @@ widening that loses nothing).  ``layout`` says where each of the module's
 parameters sits in that tree; with it ``to_reference``/``from_reference``
 move any per-parameter tensors (gradients, AdamW's moments) to and from the
 reference's leaves, which is how a checkpoint names them and how AdamW finds
-a leaf's stacked rank.
+a leaf's stacked rank.  ``meta_tree`` gives that tree's shapes alone, as
+tensors on the ``meta`` device: what the dry run resolves the logical specs
+against.
 """
 from __future__ import annotations
 
@@ -103,6 +105,21 @@ def _layout(t) -> dict[str, tuple[tuple[int, ...], list]]:
             raise ValueError(f"{path}: stacked layers of unequal structure")
         out[path] = ((len(t), *stacks.pop()), [p for it in items for p in it[path][1]])
     return out
+
+
+def meta_tree(model: nn.Module, dtype: torch.dtype | None = None) -> dict:
+    """The reference's nested tree of the module's weights as ``meta``
+    tensors (stacked shapes, nothing allocated), each in ``dtype`` or its
+    parameter's."""
+    tree: dict = {}
+    for path, (stack, params) in layout(model).items():
+        node = tree
+        *dirs, leaf = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = torch.empty((*stack, *params[0].shape), dtype=dtype or params[0].dtype,
+                                 device="meta")
+    return tree
 
 
 def to_reference(model: nn.Module, tensors) -> dict:

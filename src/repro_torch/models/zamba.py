@@ -23,8 +23,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import MambaLayer, mamba_layer_fwd, mamba_layer_init
-from repro_torch.models.transformer import LM, Block, check_layers
+from repro_torch.models.ssm import (MambaLayer, mamba_layer_fwd, mamba_layer_init,
+                                    mamba_layer_specs)
+from repro_torch.models.transformer import LM, Block, check_layers, layer_specs
 
 
 def _split(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -150,6 +151,16 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
     return (Zamba.trainable if train else Zamba)(cfg, params)
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's logical specs of the param tree: ``mamba_main`` under
+    ``("stacked2", ...)`` (super-block and layer dimensions), ``mamba_tail``
+    under ``("stacked", ...)``; the shared block is a dense layer's."""
+    mspec = mamba_layer_specs(cfg)
+    return {"embed": L.embed_specs(cfg), "mamba_main": ("stacked2", mspec),
+            "mamba_tail": ("stacked", mspec), "shared": layer_specs(cfg),
+            "final_norm": (None,)}
+
+
 def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
                device=None) -> dict:
     """Mamba states for all layers + shared-attention KV cache (n_super entries)."""
@@ -165,3 +176,20 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype | 
             "ssd": torch.zeros((nl, batch, H, P, N), dtype=torch.float32, device=device),
             "k": torch.zeros(kv, dtype=dtype, device=device),
             "v": torch.zeros(kv, dtype=dtype, device=device), "len": 0}
+
+
+def state_specs(cfg: ModelConfig, tp_size: int = 16, batch: int | None = None,
+                fsdp_size: int = 16) -> dict:
+    heads_ok = cfg.n_kv_heads % tp_size == 0
+    batch_ok = batch is None or batch % fsdp_size == 0
+    if heads_ok and batch_ok:
+        kv = (None, "fsdp", None, "tp", None)
+    elif heads_ok:
+        # tiny batch (long-context decode): the data axis is idle -- shard the
+        # cache sequence over it instead of replicating GBs per chip
+        kv = (None, None, "fsdp", "tp", None)
+    else:
+        kv = (None, "fsdp", "tp", None, None)
+    return {"conv": (None, "fsdp", None, ("tp", 2 * cfg.d_model)),
+            "ssd": (None, "fsdp", ("tp", cfg.ssm_heads), None, None),
+            "k": kv, "v": kv, "len": ()}

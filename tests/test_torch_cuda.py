@@ -1519,3 +1519,39 @@ def test_train_step_on_the_card(gpu):
     top = max(float(p.abs().max()) for p in hp)
     for a, b in zip(cp, hp):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * top)
+
+
+def _counted_steps(cfg, dev):
+    """The SMOKE model's decode step (2 slots, a 64-row cache half full) and
+    train step (4 x 32, remat "dots", AdamW) on ``dev``, each a call."""
+    from repro_torch.models import get_model
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    api = get_model(cfg)
+    gen = torch.Generator(dev).manual_seed(0) if dev.type != "meta" else None
+    serve, train = api.init(gen, dev), api.init(gen, dev, train=True)
+    cache = api.make_state(2, 64, device=dev)
+    cache["len"] = 32
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    seq = torch.zeros((4, 33), dtype=torch.int32, device=dev)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    step = make_train_step(cfg, AdamWConfig(), remat="dots")
+    opt = optimizer.init(train)
+    return {"decode": lambda: api.decode_step(serve, tok, cache),
+            "train": lambda: step(train, opt, batch)[2]}
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("name", ["decode", "train"])
+def test_op_cost_counts_the_card_as_meta(arch, name, gpu):
+    """``op_cost.analyze`` of a step on the card counts the FLOPs, bytes and
+    ops it counts on ``meta``: the dry run predicts the card's work."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.roofline.op_cost import analyze
+
+    card = analyze(_counted_steps(SMOKES[arch], gpu)[name])
+    meta = analyze(_counted_steps(SMOKES[arch], torch.device("meta"))[name])
+    assert card["by_op"] == meta["by_op"]
+    assert (card["flops"], card["bytes"]) == (meta["flops"], meta["bytes"]) != (0, 0)

@@ -47,7 +47,10 @@ for new in ("repro_torch.core.query", "repro_torch.data.queries",
             "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.remat",
             "repro_torch.train.train_step", "repro_torch.train.grad_compress",
-            "repro_torch.train.checkpoint", "repro_torch.train.loop"):
+            "repro_torch.train.checkpoint", "repro_torch.train.loop",
+            "repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.op_cost", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"):
     assert new in names, new
 print(len(names))
 """
