@@ -260,18 +260,52 @@ non-zero before the final line:
      3.35 TB/s), the roofline's step time and bottleneck, and the meta
      count's ``peak_bytes`` against the step's ``max_memory_allocated``
      rise.  Then ``launch.dryrun.run_cell`` on meta for ``ROOF_CELLS``
-     (qwen1.5-0.5b train_4k and decode_32k on the card and the 16 x 16 pod,
-     phi3.5-moe decode_32k on the card), a ``dryrun`` line each; then the
-     phase's seconds.
+     (qwen1.5-0.5b train_4k on the card, decode_32k on the card and the
+     16 x 16 pod, phi3.5-moe decode_32k on the card; the pod cell counted
+     per device on a fake group that the cell opens and destroys), a
+     ``dryrun`` line each; then the phase's seconds.  qwen's train_4k pod
+     cell moved to phase 15 (d);
+ 15. mesh (after phase 14): (a) ``ColumnPipeline(mesh=N).mesh_plan()`` over
+     the 24 columns' blobs with phase 4's calibrated cost model at N = 1, 2
+     and 4, and N = 4 with ``placement="sharded"`` on a topology whose fabric
+     is priced at NVLink's rate over the host link's (``mesh plan`` lines:
+     modeled makespan, baselines, sharded columns, D2D legs, planning host
+     ms; modeled, not measured); each makespan at or below its round-robin
+     and single-device baselines, N = 1 equal to ``plan_execution``'s.
+     (b) qwen1.5-0.5b's f32 training weights at full width placed as
+     DTensors on a 1 x 1 ("data", "model") ``DeviceMesh`` over an NCCL group
+     of one, under the mesh context: ``MESH_STEPS`` train steps (phase 13's
+     batch, sequence and remat) against the same steps unplaced, the losses
+     and every parameter bitwise equal (``mesh placed`` line: both steps'
+     ms by events and host ms).  (c) ``make_dp_compressed_step`` over a
+     ("pod",) mesh of ``DP_RANKS`` processes on ``cuda:0`` (NCCL refuses two
+     ranks on one card: a gloo group, which takes CUDA tensors) at full
+     width, global batch 4 x 256, ``MESH_STEPS`` steps, each step's tokens
+     unpacked on kernel 1 by ``CompressedTokenLoader``: the ranks'
+     parameters bitwise equal after every step, the synced gradients and
+     each member's new error buffer bitwise the plain int8 sum's (rank 0
+     takes rank 1's pre-sync gradients and errors), the loss finite
+     (``mesh dp`` lines: step ms, sync ms, an f32 all-reduce of the same
+     gradients, which through gloo's host memory say nothing of NVLink;
+     R6: ``wire_bytes(compressed=True)`` beside the sync's all-reduce wire
+     bytes that ``op_cost`` counts).  (d) ``MESH_CELL`` (qwen1.5-0.5b
+     train_4k on the pod) through ``python -m repro_torch.launch.dryrun`` in
+     a child process (a process has one default group): one device's
+     counted FLOPs and bytes, collectives by kind, ``t_collective`` and
+     ``per_device_live`` beside the ideal split of phase 14's card cell,
+     its FLOPs exactly the card cell's / 256 (``mesh dryrun`` line; modeled
+     from counts on meta).  Then the phase's seconds.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -379,9 +413,20 @@ TRAIN_LOOP = (6, 4, 5)       # SMOKE loop: steps, ckpt_every, fail_at_step
 # each counted on the card and on meta; then dry-run cells on meta
 ROOF_DECODE_LEN = 128        # cache rows filled before the timed decode step
 ROOF_REPS = 5                # warm steps timed (median)
-ROOF_CELLS = (("qwen1.5-0.5b", "train_4k", "card"), ("qwen1.5-0.5b", "train_4k", "pod"),
-              ("qwen1.5-0.5b", "decode_32k", "card"), ("qwen1.5-0.5b", "decode_32k", "pod"),
+ROOF_CELLS = (("qwen1.5-0.5b", "train_4k", "card"), ("qwen1.5-0.5b", "decode_32k", "card"),
+              ("qwen1.5-0.5b", "decode_32k", "pod"),
               ("phi3.5-moe-42b-a6.6b", "decode_32k", "card"))
+# mesh phase (15): decode plans over N links from phase 4's calibrated cost
+# model; the placed train step and the compressed data-parallel step at
+# qwen1.5-0.5b's full width (phase 13's batch, sequence and remat); one
+# per-device dry-run cell in a child process (phase 14's qwen train_4k pod
+# cell, counted there)
+MESH_PLAN_N = (1, 2, 4)
+MESH_FABRIC_GBPS = 450.0     # NVLink 4, each direction (H100 SXM5 datasheet)
+MESH_STEPS = 3
+DP_RANKS = 2                 # two processes on the one card, a gloo group
+MESH_CELL = ("qwen1.5-0.5b", "train_4k", "pod")
+MESH_REL = 1e-9              # N = 1 against plan_execution: the same simulation
 
 
 def host_part(name: str) -> str | None:
@@ -2134,6 +2179,393 @@ def run_lm_roofline(cfg, seed: int, device: str = "cuda") -> dict:
     return rec
 
 
+def run_mesh_plans(plans: dict, encoded: dict, cost_model) -> dict:
+    """Phase 15 (a): ``ColumnPipeline(mesh=N).mesh_plan()`` over the columns'
+    blobs with ``cost_model`` (phase 4's, calibrated) at ``MESH_PLAN_N``, and
+    N = 4 with ``placement="sharded"`` on a topology with a fabric priced at
+    NVLink's rate over the host link's; each modeled makespan <= its
+    round-robin and single-device baselines, N = 1 equal to
+    ``plan_execution``'s.  Modeled, not measured."""
+    from repro_torch.core.costmodel import LinkTopology
+    from repro_torch.core.planner import plan_execution
+    from repro_torch.data.loader import ColumnPipeline
+
+    pipe = ColumnPipeline(plans, device="cuda", cost_model=cost_model, mesh=max(MESH_PLAN_N))
+    pipe.load(encoded)
+    profiles = {c: pipe.executor.column_profile(c) for c in encoded}
+    d2d = cost_model.spec.host_link_gbps / MESH_FABRIC_GBPS
+    cases = [(f"n{n}", {"n_devices": n}) for n in MESH_PLAN_N]
+    cases.append(("n4_sharded_fabric", {
+        "n_devices": 4, "placement": "sharded", "shard_threshold_bytes": 0,
+        "topology": LinkTopology(n_links=4, d2d_scale=d2d)}))
+    rec = {}
+    for label, kw in cases:
+        t0 = time.perf_counter()
+        mp = pipe.mesh_plan(**kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        mk, base = mp.modeled_makespan_s, mp.baselines
+        for ref_ in ("round-robin", "single-device"):
+            if mk > base[ref_] + 1e-15:
+                raise AssertionError(f"mesh plan {label}: makespan {mk} above {ref_} "
+                                     f"{base[ref_]}")
+        r = {"n_devices": mp.n_devices, "policy": mp.policy, "modeled_makespan_ms": mk * 1e3,
+             "baselines_ms": {k: v * 1e3 for k, v in sorted(base.items())},
+             "sharded_columns": sorted(mp.shards), "n_shards": sum(map(len, mp.shards.values())),
+             "redistribution": [list(x) for x in mp.redistribution],
+             "items": len(mp.items), "planning_host_ms": host_ms}
+        if mp.n_devices == 1:
+            # the single-device plan the mesh planner starts from (its
+            # chunk_decode default is True, plan_execution's False)
+            one = plan_execution(profiles, cost_model, policy=pipe.executor.policy,
+                                 chunk_bytes=pipe.executor.chunk_bytes, chunk_decode=True,
+                                 batch_columns=False)
+            if abs(one.modeled_makespan_s - mk) > MESH_REL * mk:
+                raise AssertionError(f"mesh plan n1: {mk} against plan_execution's "
+                                     f"{one.modeled_makespan_s}")
+            r["plan_execution_ms"] = one.modeled_makespan_s * 1e3
+        rec[label] = r
+        print(f"mesh plan {label} (modeled, not measured) devices {mp.n_devices} policy "
+              f"{mp.policy} makespan_ms {mk * 1e3:.4f} round_robin_ms "
+              f"{base['round-robin'] * 1e3:.4f} single_device_ms "
+              f"{base['single-device'] * 1e3:.4f} serial_issue_ms "
+              f"{base['serial-issue'] * 1e3:.4f} items {len(mp.items)} sharded "
+              f"{r['sharded_columns']} shards {r['n_shards']} redistribution "
+              f"{len(mp.redistribution)} legs {r['redistribution']} planning_host_ms "
+              f"{host_ms:.2f}" + (f" plan_execution_ms {r['plan_execution_ms']:.4f}"
+                                  if "plan_execution_ms" in r else ""))
+    return rec
+
+
+@contextlib.contextmanager
+def _group_store(tag: str):
+    """A fresh rendezvous file for a process group (no network needed), in
+    a directory that lives as long as the ``with`` block (the group's
+    lifetime) and is removed after it."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as d:
+        yield os.path.join(d, "store")
+
+
+def run_placed_train(cfg, seed: int, device: str = "cuda") -> dict:
+    """Phase 15 (b): ``cfg``'s f32 training weights placed as DTensors on a
+    1 x 1 ("data", "model") ``DeviceMesh`` over an NCCL group of one, under
+    the mesh context; ``MESH_STEPS`` train steps (phase 13's batch, sequence
+    and remat) against the same steps unplaced: the losses and every
+    parameter bitwise equal (a 1 x 1 mesh splits nothing)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import device_mesh, make_card_mesh, place
+    from repro_torch.models import get_model
+    from repro_torch.models.sharding_ctx import mesh_context
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device(device)
+    with _group_store("nccl") as store:
+        dist.init_process_group("nccl", init_method="file://" + store, rank=0, world_size=1)
+        try:
+            dm = device_mesh(make_card_mesh(), device)
+            api = get_model(cfg)
+            plain = api.init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+            placed = place(api.init(torch.Generator(dev).manual_seed(seed), dev, train=True),
+                           api.param_specs(), dm)
+            if not all(isinstance(p, DTensor) for p in placed.parameters()):
+                raise AssertionError("mesh placed: a parameter is not a DTensor")
+            step = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), remat=TRAIN_REMAT)
+            o1, o2 = optimizer.init(plain), optimizer.init(placed)
+            rng = np.random.default_rng(seed)
+            rec: dict = {"plain_ms": [], "placed_ms": [], "plain_host_ms": [],
+                         "placed_host_ms": [], "losses": []}
+            for i in range(MESH_STEPS):
+                seq = torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                                    dtype=np.int32)).to(dev)
+                batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+                out = {}
+                for label, model, opt, ctx in (("plain", plain, o1, None),
+                                               ("placed", placed, o2, dm)):
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    a.record()
+                    h0 = time.perf_counter()
+                    if ctx is None:
+                        m = step(model, opt, batch)[2]
+                    else:
+                        with mesh_context(ctx):
+                            m = step(model, opt, batch)[2]
+                    rec[f"{label}_host_ms"].append((time.perf_counter() - h0) * 1e3)
+                    b.record()
+                    b.synchronize()
+                    rec[f"{label}_ms"].append(a.elapsed_time(b))
+                    loss = m["loss"]
+                    out[label] = (loss.full_tensor() if isinstance(loss, DTensor) else loss).item()
+                if out["plain"] != out["placed"]:
+                    raise AssertionError(f"mesh placed step {i}: loss {out['placed']} against "
+                                         f"{out['plain']} unplaced")
+                rec["losses"].append(out["plain"])
+            for (n, a), b in zip(placed.named_parameters(), plain.parameters()):
+                if not torch.equal(a.to_local(), b):
+                    raise AssertionError(f"mesh placed: {n} differs from the unplaced step's")
+            rec["bitwise"] = True
+            print(f"mesh placed {cfg.name} 1x1 nccl steps {MESH_STEPS} bitwise True losses "
+                  f"{' '.join(f'{x:.6f}' for x in rec['losses'])} step_ms placed "
+                  f"{' '.join(f'{x:.2f}' for x in rec['placed_ms'])} plain "
+                  f"{' '.join(f'{x:.2f}' for x in rec['plain_ms'])} host_ms placed "
+                  f"{' '.join(f'{x:.2f}' for x in rec['placed_host_ms'])} plain "
+                  f"{' '.join(f'{x:.2f}' for x in rec['plain_host_ms'])}")
+            return rec
+        finally:
+            dist.destroy_process_group()
+
+
+def _dp_rank(rank: int, store: str, out_dir: str, arch: str, seed: int, smoke: bool) -> None:
+    """One member of phase 15 (c): ``make_dp_compressed_step`` over a ("pod",)
+    mesh of ``DP_RANKS`` processes on ``cuda:0`` in a gloo group; writes its
+    record to ``out_dir``.  Rank 0 also holds the synced gradients and each
+    member's new error buffer against the int8 sum in plain torch."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    try:
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                                world_size=DP_RANKS)
+        _dp_member(rank, dev, out_dir, arch, seed, smoke, DeviceMesh, dist)
+    except BaseException:
+        with open(os.path.join(out_dir, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dp_member(rank, dev, out_dir, arch, seed, smoke, DeviceMesh, dist) -> None:
+
+    from repro_torch.configs import ARCHS, SMOKES
+    from repro_torch.data.loader import CompressedTokenLoader
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.fully_parallel import KERNEL as FP
+    from repro_torch.models import get_model
+    from repro_torch.roofline import op_cost
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train import make_dp_compressed_step, optimizer, train_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cuda.build([FP])               # the parent built it: this loads the library
+    FP.load(dev)
+    cfg = (SMOKES if smoke else ARCHS)[arch]
+    api = get_model(cfg)
+    model = api.init(torch.Generator(dev).manual_seed(seed), dev, train=True)
+    dm = DeviceMesh("cuda", torch.arange(DP_RANKS), mesh_dim_names=("pod",))
+    group = dm.get_group("pod")
+    step = make_dp_compressed_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS), dm)
+    opt, err = optimizer.init(model), GC.init_error_feedback(model)
+    B, S = TRAIN_BATCH, (32 if smoke else TRAIN_SEQ)
+    loader = CompressedTokenLoader(cfg.vocab, B, S, device=dev)
+    decode = loader.decode_fn("kernel")
+    seen: dict = {}
+    compress, update = GC.compress_tree, optimizer.update
+
+    def compress_spy(grads, errs, group_, leaves):
+        seen["pre"] = ([g.detach().clone() for g in grads], [e.clone() for e in errs])
+        seen["leaves"] = leaves
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = compress(grads, errs, group_, leaves)
+        b.record()
+        b.synchronize()
+        seen["sync_ms"] = a.elapsed_time(b)
+        seen["new_err"] = out[1]
+        return out
+
+    def update_spy(cfg_, params, opt_state, grads):
+        seen["synced"] = [g.clone() for g in grads]
+        return update(cfg_, params, opt_state, grads)
+
+    train_step.grad_compress.compress_tree = compress_spy
+    train_step.optimizer.update = update_spy
+    rec = {"rank": rank, "step_ms": [], "sync_ms": [], "f32_allreduce_ms": [], "losses": [],
+           "params_equal": [], "synced_equal": [], "err_equal": [], "launches": 0}
+    try:
+        FP.launches = 0
+        for i in range(MESH_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            dist.barrier(group)
+            a.record()
+            batch = decode(loader.to_device(loader.encode_host(i)))   # kernel 1
+            model, opt, err, m = step(model, opt, err, batch)
+            b.record()
+            b.synchronize()
+            rec["step_ms"].append(a.elapsed_time(b))
+            rec["sync_ms"].append(seen["sync_ms"])
+            rec["losses"].append(float(m["loss"]))
+            # the ranks' parameters, bitwise (rank 1's sent to rank 0)
+            mine = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+            other = mine.clone()
+            dist.broadcast(other, src=1, group=group)
+            rec["params_equal"].append(bool(torch.equal(mine, other)))
+            # the plain int8 sum from both members' pre-sync gradients and errors
+            syn_ok, err_ok = _plain_int8_check(seen, rank, dist, group)
+            rec["synced_equal"].append(syn_ok)
+            rec["err_equal"].append(err_ok)
+            # an f32 all-reduce of the same gradients over the same group
+            pre = [g.clone() for g in seen["pre"][0]]
+            a2, b2 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            dist.barrier(group)
+            a2.record()
+            for g in pre:
+                dist.all_reduce(g, group=group)
+            b2.record()
+            b2.synchronize()
+            rec["f32_allreduce_ms"].append(a2.elapsed_time(b2))
+            del pre
+        rec["launches"] = FP.launches
+        grads, errs = seen["pre"]
+        counted = op_cost.analyze(compress, grads, errs, group, seen["leaves"])
+        rec["sync_allreduce_wire_bytes"] = counted["collectives"].get("all-reduce", 0.0)
+        rec["wire_bytes_int8"] = GC.wire_bytes(grads, compressed=True)
+        rec["wire_bytes_f32"] = GC.wire_bytes(grads, compressed=False)
+        rec["params"] = sum(p.numel() for p in model.parameters())
+        rec["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        train_step.grad_compress.compress_tree = compress
+        train_step.optimizer.update = update
+    with open(os.path.join(out_dir, f"dp_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _plain_int8_check(seen: dict, rank: int, dist, group) -> tuple[bool, bool]:
+    """The step's synced gradients (what AdamW got) and each member's new
+    error buffer against the int8 sum in plain torch, leaf by leaf: rank 1
+    sends its pre-sync gradients + errors and its new errors to rank 0."""
+    grads, errs = seen["pre"]
+    syn_ok = err_ok = True
+    for idx in seen["leaves"]:
+        g = torch.stack([grads[i] for i in idx]).float() + torch.stack([errs[i] for i in idx])
+        e_new = torch.stack([seen["new_err"][i] for i in idx])
+        # rank 1's through host memory (the gloo group), the arithmetic on the
+        # card, as the step's own
+        g1, e1 = g.cpu(), e_new.cpu()
+        dist.broadcast(g1, src=1, group=group)
+        dist.broadcast(e1, src=1, group=group)
+        if rank != 0:
+            continue
+        g1, e1 = g1.to(g.device), e1.to(g.device)
+        scale = torch.maximum(g.abs().amax(), g1.abs().amax()) / 127.0 + 1e-12
+        q0 = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+        q1 = torch.clamp(torch.round(g1 / scale), -127, 127).to(torch.int8)
+        want = (q0.to(torch.int32) + q1.to(torch.int32)).float() * scale / DP_RANKS
+        got = torch.stack([seen["synced"][i] for i in idx])
+        syn_ok &= bool(torch.equal(got, want))
+        for gg, q, e in ((g, q0, e_new), (g1, q1, e1)):
+            err_ok &= bool(torch.equal(e, (gg.double() - q.double() * scale.double()).float()))
+    return syn_ok, err_ok
+
+
+def run_dp_compressed(arch: str, seed: int, smoke: bool = False) -> dict:
+    """Phase 15 (c): ``DP_RANKS`` processes on the one card (NCCL refuses two
+    ranks on one GPU, so a gloo group, which takes CUDA tensors) run
+    ``MESH_STEPS`` compressed data-parallel steps; gates: the ranks'
+    parameters bitwise equal after every step, the synced gradients and
+    every member's new error buffer bitwise the plain int8 sum's, the loss
+    finite."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        store = os.path.join(out_dir, "store")      # removed with the directory
+        ctx = mp.start_processes(_dp_rank, args=(store, out_dir, arch, seed, smoke),
+                                 nprocs=DP_RANKS, start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=600):
+                pass
+        except Exception:
+            errors = "".join(Path(out_dir, f).read_text() for f in sorted(os.listdir(out_dir))
+                             if f.startswith("error_"))
+            raise AssertionError(f"mesh dp: a rank failed\n{errors}") from None
+        recs = [json.loads(Path(out_dir, f"dp_{r}.json").read_text()) for r in range(DP_RANKS)]
+    r0 = recs[0]
+    for i in range(MESH_STEPS):
+        if not all(r["params_equal"][i] for r in recs):
+            raise AssertionError(f"mesh dp step {i}: the ranks' parameters differ")
+        if not (r0["synced_equal"][i] and r0["err_equal"][i]):
+            raise AssertionError(f"mesh dp step {i}: synced gradients {r0['synced_equal'][i]}"
+                                 f", error buffers {r0['err_equal'][i]} against the plain sum")
+        if not all(math.isfinite(r["losses"][i]) for r in recs):
+            raise AssertionError(f"mesh dp step {i}: a loss is not finite")
+    rec = {"ranks": recs, "launches_per_rank": [r["launches"] for r in recs]}
+    print(f"mesh dp {arch} ranks {DP_RANKS} gloo cuda:0 steps {MESH_STEPS} params_bitwise "
+          f"True synced_bitwise True err_bitwise True losses "
+          f"{' '.join(f'{x:.6f}' for x in r0['losses'])} step_ms "
+          f"{' '.join(f'{x:.1f}' for x in r0['step_ms'])} sync_ms "
+          f"{' '.join(f'{x:.1f}' for x in r0['sync_ms'])} f32_allreduce_ms "
+          f"{' '.join(f'{x:.1f}' for x in r0['f32_allreduce_ms'])} (gloo through host "
+          f"memory: says nothing of NVLink) kernel1_launches_per_rank "
+          f"{rec['launches_per_rank']} max_memory_gb "
+          f"{' '.join(f'{r['max_memory_gb']:.2f}' for r in recs)}")
+    print(f"mesh dp R6 wire_bytes_int8 {r0['wire_bytes_int8']} wire_bytes_f32 "
+          f"{r0['wire_bytes_f32']} counted_sync_allreduce_wire_bytes "
+          f"{r0['sync_allreduce_wire_bytes']:.0f} (int32 payload: "
+          f"{r0['sync_allreduce_wire_bytes'] / max(r0['wire_bytes_int8'], 1):.3f} x the "
+          f"int8 figure)")
+    return rec
+
+
+def run_mesh_cell(card: dict) -> dict:
+    """Phase 15 (d): ``MESH_CELL`` through ``python -m repro_torch.launch.dryrun``
+    in a child process (a process has one default group; the cell opens a
+    fake one of 256), its per-device counts beside the ideal split of
+    phase 14's card cell ``card`` (the whole step's temp / 256 plus the
+    pod's argument bytes).  Gate: every dimension of qwen1.5-0.5b's train
+    step splits 16 x 16, so one device counts exactly 1/256 of the card's
+    FLOPs (a product left split over the wrong axis, or run on partial
+    sums, shows as a multiple of that).  Modeled from counts on meta."""
+    import tempfile
+
+    arch, shape, mesh = MESH_CELL
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as out:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                              "--shape", shape, "--mesh", mesh, "--out", out], cwd=ROOT,
+                             env=env, capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"mesh dryrun: exit {run.returncode}\n{run.stderr[-3000:]}")
+        rec = json.loads(Path(out, f"{arch}_{shape}_{mesh}.json").read_text())
+    child_s = time.perf_counter() - t0
+    if rec.get("status") != "ok" or rec.get("split") != "counted":
+        raise AssertionError(f"mesh dryrun: {rec.get('status')} split {rec.get('split')}")
+    ro, mem = rec["roofline"], rec["memory"]
+    if ro["t_collective"] is None or not rec.get("collectives"):
+        raise AssertionError("mesh dryrun: no collective term")
+    card_flops = card["roofline"]["hlo_flops_per_chip"]
+    if ro["hlo_flops_per_chip"] * 256 != card_flops:
+        raise AssertionError(f"mesh dryrun: {ro['hlo_flops_per_chip']:.6e} FLOPs a device, "
+                             f"not the card's {card_flops:.6e} / 256")
+    ideal_live = mem["argument"] + card["memory"]["temp"] / 256
+    print(f"mesh dryrun {arch} {shape} {rec['mesh']} split counted (modeled from counts on "
+          f"meta) flops_per_device {ro['hlo_flops_per_chip']:.6e} bytes_per_device "
+          f"{ro['hlo_bytes_per_chip']:.6e} collectives "
+          + " ".join(f"{k} {v:.6e}" for k, v in sorted(rec["collectives"].items()))
+          + f" t_collective_ms {ro['t_collective'] * 1e3:.4f} t_compute_ms "
+          f"{ro['t_compute'] * 1e3:.4f} t_memory_ms {ro['t_memory'] * 1e3:.4f} bottleneck "
+          f"{ro['bottleneck']} per_device_live_gb {mem['per_device_live'] / 1e9:.3f} "
+          + f"ideal_split_gb {ideal_live / 1e9:.3f} card_flops_over_256 True "
+          f"fits_80g_hbm {mem['fits_80g_hbm']} count_s {rec['lower_s']} child_s "
+          f"{child_s:.1f}")
+    rec.pop("by_op", None)
+    rec["ideal_per_device_live"] = ideal_live
+    rec["child_s"] = child_s
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor")
@@ -3038,6 +3470,19 @@ def main() -> int:
     # --------------------------------------------------------------- phase 14
     lm_roofline = run_lm_roofline(ARCHS[LM_ARCH], args.seed)
 
+    # --------------------------------------------------------------- phase 15
+    t_mesh = time.perf_counter()
+    mesh = {"plans": run_mesh_plans(dict(TABLE2_PLANS), {c: pipe.encoded(c) for c in columns},
+                                    pipe.executor.cost_model)}
+    mesh["placed"] = run_placed_train(ARCHS[LM_ARCH], args.seed)
+    torch.cuda.empty_cache()
+    mesh["dp"] = run_dp_compressed(LM_ARCH, args.seed)
+    card_train = next(c for c in lm_roofline["dryrun"]
+                      if (c["arch"], c["shape"], c["mesh"]) == (LM_ARCH, "train_4k", "card_1x1"))
+    mesh["dryrun"] = run_mesh_cell(card_train)
+    mesh["phase_s"] = time.perf_counter() - t_mesh
+    print(f"mesh phase_s {mesh['phase_s']:.2f}")
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -3128,7 +3573,8 @@ def main() -> int:
                                         "wide_queries": wide, "geometry": geometry,
                                         "baseline": baseline, "lm": lm,
                                         "lm_families": lm_families, "lm_train": lm_train,
-                                        "lm_roofline": lm_roofline, "kernels": kernels},
+                                        "lm_roofline": lm_roofline, "mesh": mesh,
+                                        "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -36,7 +36,7 @@ complete on the device (the executor's ``on_ready``).
 
 ``ServePlanner()`` without an executor builds one for the card and raises
 when CUDA is absent.  Mesh waves (``mesh > 1``, ``placement``) are not ported
-yet (ROADMAP §1 item 3, multi-GPU).
+yet (ROADMAP §1 item 3(b), the executor half of the mesh).
 """
 from __future__ import annotations
 
@@ -149,7 +149,7 @@ class ServePlanner:
                              "shared, slo, fifo-per-query")
         if (mesh or 0) > 1 or placement is not None:
             raise NotImplementedError("mesh waves (mesh > 1, placement) are not ported "
-                                      "yet: ROADMAP §1 item 3, multi-GPU")
+                                      "yet: ROADMAP §1 item 3(b)")
         if executor is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("ServePlanner builds a CUDA executor by default and no "

@@ -11,7 +11,9 @@ device (``run``), transfer of one decode unit overlapping the decode of another;
 and decode-fused queries over the registered columns (``lower_query``,
 ``query_plan``, ``run_query``), where only partial aggregates reach the device's
 memory; and serving (``serve_planner``): many requests' columns decoded in
-shared waves (``core/serve_planner.py``).
+shared waves (``core/serve_planner.py``); and mesh plans (``mesh_plan``):
+which of N devices each column, or group-span shard of a large column,
+streams to and decodes on (``core/planner.py plan_mesh_execution``).
 
 It runs on the card unless the caller asks for the CPU: with no ``device`` it
 takes ``torch.device("cuda")`` and raises if CUDA is absent.  On a CUDA device
@@ -35,7 +37,7 @@ from repro_torch.core import scheduler
 from repro_torch.core.compiler import compile_blob, device_buffers
 from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
 from repro_torch.core.plan import Plan
-from repro_torch.core.planner import ExecutionPlan
+from repro_torch.core.planner import ExecutionPlan, MeshExecutionPlan, plan_mesh_execution
 from repro_torch.core.serve_planner import ServePlanner
 
 # the executor's per-column record IS the pipeline's result type
@@ -149,7 +151,11 @@ class ColumnPipeline:
     ``CostModel.load``) seeds planning from an earlier process's calibration;
     each run's measurements feed it.  ``async_dispatch=True`` issues each run's
     copies from a transfer thread (``core.executor.DispatchEngine``).
-    ``fuse=False`` decodes the unfused graphs.  An ``executor`` passed in wins
+    ``fuse=False`` decodes the unfused graphs.  ``mesh=N`` sets the device
+    count ``mesh_plan`` plans over, and ``placement="sharded"`` pins shard
+    ``i`` of every sharded column to its final device ``i``, so that the
+    planner may land its bytes elsewhere and move them over a D2D fabric.
+    An ``executor`` passed in wins
     over every executor setting here (device, backend, chunking, policy,
     fusion), as in the reference; the pipeline mirrors its configuration."""
 
@@ -158,7 +164,8 @@ class ColumnPipeline:
                  chunk_decode: bool = False, policy: str = "chunk-johnson",
                  pipeline: bool = True, batch_columns: bool = True, cost_model=None,
                  async_dispatch: bool = False, fuse: bool = True,
-                 executor: StreamingExecutor | None = None):
+                 executor: StreamingExecutor | None = None, mesh: int | None = None,
+                 placement: str | None = None):
         if executor is not None:
             device = executor.device
         device = torch.device("cuda" if device is None else device)
@@ -170,6 +177,8 @@ class ColumnPipeline:
             device = torch.device("cuda", torch.cuda.current_device())
         self.plans = plans
         self.device = device
+        self.mesh = mesh
+        self.placement = placement
         self.executor = executor or StreamingExecutor(
             backend=backend or ("kernel" if device.type == "cuda" else "torch"),
             device=device, chunk_bytes=chunk_bytes, chunk_decode=chunk_decode,
@@ -230,6 +239,29 @@ class ColumnPipeline:
         configured policy unless given); an explicit ``order`` pins the issue
         order, and ``window`` overrides the plan's decode units in flight."""
         return self.executor.run(order=order, plan=plan, window=window)
+
+    def mesh_plan(self, n_devices: int | None = None, **kw) -> MeshExecutionPlan:
+        """A ``MeshExecutionPlan`` over the registered columns
+        (``planner.plan_mesh_execution``): whole columns, and group-span
+        shards of large ones, assigned to ``n_devices`` links so that the
+        modeled ``simulate_stream_multi`` makespan is <= round-robin's and
+        one device's.  ``n_devices`` defaults to the constructor's ``mesh``,
+        else to the CUDA devices visible for a CUDA pipeline and 1 for a CPU
+        one.  Keywords pass through to ``plan_mesh_execution``."""
+        n = n_devices if n_devices is not None else self.mesh
+        if n is None:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        profiles = {name: self.executor.column_profile(name) for name in self._encoded}
+        kw.setdefault("chunk_bytes", self.executor.chunk_bytes)
+        kw.setdefault("policy", self.executor.policy)
+        kw.setdefault("placement", self.placement)
+        return plan_mesh_execution(profiles, self.executor.cost_model, n_devices=n, **kw)
+
+    def run_sharded(self, n_devices: int | None = None, plan: MeshExecutionPlan | None = None):
+        """Executing a mesh plan is the executor's half of the mesh, not
+        ported yet."""
+        raise NotImplementedError("running a mesh plan over several devices is not ported "
+                                  "yet: ROADMAP §1 item 3(b)")
 
     def _measure(self, name: str) -> tuple[float, float]:
         """The column's (transfer_s, decode_s) for scheduling: the executor's

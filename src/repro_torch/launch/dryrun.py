@@ -18,12 +18,16 @@ seconds, there is no ``compile_s``, and ``n_ops`` (the aten ops counted)
 takes the place of ``hlo_ops``.
 
 Meshes: ``card`` (one H100: every term is the counted one), ``pod`` (16 x 16)
-and ``multipod`` (2 x 16 x 16).  On a production mesh the argument bytes are
-per device, by ``shard_tree``; the compute, memory and temp terms are the
-whole step's counts divided by the chips (``split: "ideal"``: the port has no
-SPMD partitioner yet), and the collective term is unknown (``t_collective``
-null) until the mesh exists (ROADMAP §1 item 3).  All figures are modeled at
-the H100's datasheet constants, not measured.
+and ``multipod`` (2 x 16 x 16).  On a production mesh the cell counts one
+device's program (``split: "counted"``): a fake process group of 256 or 512
+members opens in this process (``launch/mesh.py fake_group``), the weights,
+optimizer state, serving state and inputs are placed on its ``DeviceMesh``
+as DTensors by their resolved specs, the step runs under the mesh context
+(``models/sharding_ctx.py``), and the counter sees each device's local ops
+and the collectives DTensor issues (by kind, ``collectives``; their time
+``t_collective`` at NVLink's rate).  The group is destroyed before the cell
+returns.  The argument bytes are per device by ``shard_tree``.  All figures
+are modeled at the H100's datasheet constants, not measured.
 
 Usage (runs on the CPU, no GPU needed):
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k --mesh both
@@ -41,9 +45,11 @@ import traceback
 import torch
 
 from repro_torch.configs import ARCHS, SHAPES
-from repro_torch.launch.mesh import (Mesh, make_card_mesh, make_production_mesh,
-                                     per_device_bytes, shard_tree)
+from repro_torch.launch.mesh import (Mesh, device_mesh, fake_group, make_card_mesh,
+                                     make_production_mesh, per_device_bytes, place,
+                                     place_tree, shard_tree)
 from repro_torch.models import cell_status, get_model
+from repro_torch.models.sharding_ctx import mesh_context
 from repro_torch.models.weights import meta_tree
 from repro_torch.roofline import analysis, op_cost
 from repro_torch.train import optimizer
@@ -68,8 +74,6 @@ MESHES = {"card": make_card_mesh, "pod": make_production_mesh,
           "multipod": lambda: make_production_mesh(multi_pod=True)}
 MESH_CHOICES = {"card": ("card",), "pod": ("pod",), "multipod": ("multipod",),
                 "both": ("pod", "multipod"), "all": ("card", "pod", "multipod")}
-NO_COLLECTIVES = "waits for ROADMAP §1 item 3"
-_COUNTS: dict = {}   # the last cell's count and seconds, for its other meshes
 
 
 def abstract_init(model, train: bool = False):
@@ -109,56 +113,79 @@ def run_cell(arch: str, shape_name: str, mesh: Mesh | str = "card",
     module, p_logical = abstract_init(model, train=train)
     in_shapes, in_logical = model.input_specs(shape)
     args = [(meta_tree(module), p_logical)]
+    kn = None
     if train:
         kn = _knobs(arch, mesh, B, knobs)
         rec["knobs"] = kn
-        step = make_train_step(cfg, AdamWConfig(), remat=kn.get("remat", "full"),
-                               microbatch=kn["microbatch"])
-        opt = optimizer.init(module)
         f32 = meta_tree(module, torch.float32)
         args += [({"mu": f32, "nu": f32}, {"mu": p_logical, "nu": p_logical}),
                  (in_shapes, in_logical)]
-        call = (step, module, opt, in_shapes)
     else:
-        state = model.make_state(B, S, device="meta")
-        args += [(state, model.state_specs(B))]
-        if shape.kind == "prefill":
-            args.append((in_shapes, in_logical))
-            call = (model.prefill, module, in_shapes, state)
-        else:   # one token per sequence at the end of a full context
-            state["len"] = S - 1
-            args.append((in_shapes["token"], in_logical["token"]))
-            call = (model.decode_step, module, in_shapes["token"], state)
-    key = (arch, shape_name, tuple(sorted(rec.get("knobs", {}).items())))
-    if key not in _COUNTS:     # a step's count is the same on every mesh
-        counted = op_cost.analyze(*call)
-        _COUNTS.clear()
-        _COUNTS[key] = counted, time.time() - t0
-    counted, lower_s = _COUNTS[key]
+        args += [(model.make_state(B, S, device="meta"), model.state_specs(B))]
+        args.append((in_shapes, in_logical) if shape.kind == "prefill"
+                    else (in_shapes["token"], in_logical["token"]))
     argument = sum(per_device_bytes(t, shard_tree(t, spec, mesh), mesh) for t, spec in args)
-    output = counted["output_bytes"] / chips
-    temp = counted["peak_bytes"] / chips
+    if chips == 1:
+        counted = op_cost.analyze(*_call(model, shape, module, kn, lambda t, spec: t))
+    else:
+        counted = count_placed(mesh, model, shape, module, kn)
+    lower_s = time.time() - t0
+    output = counted["output_bytes"]
+    temp = counted["peak_bytes"]
     per_dev = int(argument + temp)
-    card = chips == 1
     roof = analysis.Roofline(
         arch=arch, shape=shape_name, mesh=mesh.name, chips=chips,
-        hlo_flops_per_chip=counted["flops"] / chips,
-        hlo_bytes_per_chip=counted["bytes"] / chips,
-        coll_bytes_per_chip=counted["coll_bytes"] if card else None,
-        coll_breakdown=counted["collectives"] if card else NO_COLLECTIVES,
+        hlo_flops_per_chip=counted["flops"],
+        hlo_bytes_per_chip=counted["bytes"],
+        coll_bytes_per_chip=counted["coll_bytes"],
+        coll_breakdown=counted["collectives"],
         model_flops_total=analysis.model_flops(cfg, shape, shape.kind),
         per_device_bytes=per_dev,
         useful_bytes_per_chip=float(argument + output),
-        split="counted" if card else "ideal")
+        split="counted")
     rec.update(status="ok", split=roof.split, lower_s=round(lower_s, 1),
                memory={"argument": int(argument), "output": int(output),
                        "temp": int(temp), "per_device_live": per_dev,
                        "fits_80g_hbm": bool(per_dev < analysis.HBM_BYTES)},
                roofline=roof.to_dict(),
                n_ops={"n_ops": counted["n_ops"]}, by_op=counted["by_op"])
-    if not card:
-        rec["collectives"] = NO_COLLECTIVES
+    if chips > 1:
+        rec["collectives"] = counted["collectives"]
     return rec
+
+
+def _call(model, shape, module, kn: dict | None, put) -> tuple:
+    """The cell's step as (fn, module, *arguments) on ``meta``; ``put(tree,
+    logical specs)`` puts each argument tree where the step reads it (as it
+    is on one card, placed on a production mesh).  The optimizer state is
+    made from ``module``'s parameters, placed or not."""
+    cfg = model.cfg
+    B, S = shape.global_batch, shape.seq_len
+    in_shapes, in_logical = model.input_specs(shape)
+    if shape.kind == "train":
+        step = make_train_step(cfg, AdamWConfig(), remat=kn.get("remat", "full"),
+                               microbatch=kn["microbatch"])
+        return (step, module, optimizer.init(module), put(in_shapes, in_logical))
+    state = model.make_state(B, S, device="meta")
+    if shape.kind == "prefill":
+        return (model.prefill, module, put(in_shapes, in_logical),
+                put(state, model.state_specs(B)))
+    state["len"] = S - 1     # one token per sequence at the end of a full context
+    return (model.decode_step, module, put(in_shapes["token"], in_logical["token"]),
+            put(state, model.state_specs(B)))
+
+
+def count_placed(mesh: Mesh, model, shape, module, kn: dict | None) -> dict:
+    """Count one device's program of the cell's step on ``mesh``: on a fake
+    group of ``mesh.size`` members, ``module``'s weights and the step's
+    other arguments placed by their logical specs, the step run under the
+    mesh context; the group is destroyed before it returns."""
+    with fake_group(mesh.size):
+        dm = device_mesh(mesh, "cpu")
+        place(module, model.param_specs(), dm)
+        call = _call(model, shape, module, kn, lambda t, spec: place_tree(t, spec, dm))
+        with mesh_context(dm):
+            return op_cost.analyze(*call)
 
 
 def main(argv=None) -> None:

@@ -15,18 +15,35 @@ archs on big meshes, B=1 long-context decode, odd vocabs), as the reference
 does.  ``shard_shape`` and ``per_device_bytes`` give what one device holds,
 as the reference's ``NamedSharding.shard_shape`` does.
 
-Deliberately left out: placing tensors on devices (the reference's
-``NamedSharding`` and ``jax.make_mesh``), which waits for the port's mesh
-(ROADMAP §1 item 3); and ``TPU_PERF_FLAGS``, XLA flags with no counterpart
-in an eager PyTorch program.
+Placement, the counterpart of the reference's ``jax.make_mesh`` and
+``NamedSharding``: ``device_mesh`` builds a
+``torch.distributed.device_mesh.DeviceMesh`` of a record's names and sizes
+over the current process group; ``placements`` turns a resolved spec into
+DTensor placements (``Shard(d)`` on each mesh axis a dimension splits over,
+``Replicate()`` on the others; a dimension split over two axes, as ``fsdp``
+on the multipod mesh, takes ``Shard(d)`` on both); ``place`` swaps each
+parameter of a family's module for a DTensor so placed, and ``replicated``
+gives a replicated tensor's placements.  A placed parameter's local shape
+is ``shard_shape`` of its resolved spec, so ``per_device_bytes`` counts what
+each device holds.  The group may be real (NCCL on the cards, gloo on the
+CPU) or fake (``fake_group``: a group of 256 or 512 members in one process,
+over which ``meta`` tensors are placed for the dry run).
+
+Deliberately left out: ``TPU_PERF_FLAGS``, XLA flags with no counterpart in
+an eager PyTorch program.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Sequence
 
 import torch
+from torch import nn
+
+# a resolved spec -> the DTensor placements on a DeviceMesh, one per dimension
+from repro_torch.models.sharding_ctx import placements_of as placements
 
 Spec = tuple    # a resolved spec: per dimension None | axis name | tuple of axis names
 
@@ -145,3 +162,105 @@ def per_device_bytes(tree, specs, mesh) -> int:
         if isinstance(leaf, torch.Tensor):
             total += math.prod(shard_shape(leaf.shape, spec, mesh)) * leaf.element_size()
     return total
+
+
+# ------------------------------------------------------------------ placement
+
+def device_mesh(mesh: Mesh, device_type: str = "cuda", ranks: Sequence[int] | None = None):
+    """A ``DeviceMesh`` with ``mesh``'s axis names and sizes over the current
+    process group: the group's ranks ``ranks`` (default ``0 .. size-1``)
+    laid out row-major.  Every rank of the group calls it, as
+    ``new_group`` wants; raises when no group exists or it has too few
+    ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(f"placing on the {mesh.name} mesh needs a process group; "
+                           "none is initialized")
+    ranks = list(range(mesh.size)) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) != mesh.size:
+        raise ValueError(f"{len(ranks)} ranks for the {mesh.size} devices of {mesh.name}")
+    world = dist.get_world_size()
+    if max(ranks) >= world:
+        raise RuntimeError(f"the {mesh.name} mesh needs rank {max(ranks)} and the process "
+                           f"group has {world} ranks")
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(mesh.sizes),
+                      mesh_dim_names=mesh.axis_names)
+
+
+def replicated(dmesh) -> tuple:
+    """The placements of a tensor every device holds whole."""
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * dmesh.ndim
+
+
+def record_of(dmesh, name: str = "placed") -> Mesh:
+    """The ``Mesh`` record of a ``DeviceMesh`` (its names and sizes)."""
+    return Mesh(name, tuple(dmesh.mesh_dim_names),
+                tuple(dmesh.size(i) for i in range(dmesh.ndim)))
+
+
+def _distribute(t: torch.Tensor, dmesh, spec: Spec):
+    from torch.distributed.tensor import distribute_tensor
+    # every rank holds the same full tensor (one seed, or one checkpoint), so
+    # each keeps its own slice: no rank's data is sent to another
+    return distribute_tensor(t, dmesh, placements(spec, dmesh), src_data_rank=None)
+
+
+def place(module: nn.Module, logical_specs, dmesh) -> nn.Module:
+    """Swap each parameter of a family's module for a DTensor on ``dmesh``,
+    placed by its leaf's logical spec (``Model.param_specs``) resolved on the
+    mesh as ``shard_tree`` resolves it; in place, returns ``module``.  A
+    stacked leaf's spec loses its leading stack dimensions
+    (``weights.layout``): each layer's parameter takes the rest."""
+    from repro_torch.models.weights import layout, meta_tree
+
+    mesh = record_of(dmesh)
+    specs = shard_tree(meta_tree(module), logical_specs, mesh)
+    owner = {id(p): (m, n) for m in module.modules() for n, p in m._parameters.items()
+             if p is not None}
+    for path, (stack, params) in layout(module).items():
+        spec = specs
+        for d in path.split("/"):
+            spec = spec[d]
+        if any(a is not None for a in spec[:len(stack)]):
+            raise ValueError(f"{path}: a stacked dimension is split ({spec})")
+        local = spec[len(stack):]
+        for p in params:
+            m, n = owner[id(p)]
+            m._parameters[n] = nn.Parameter(_distribute(p.detach(), dmesh, local),
+                                            requires_grad=p.requires_grad)
+    return module
+
+
+def place_tree(tree, logical_specs, dmesh):
+    """A tree of tensors (a batch, a state) -> the same tree of DTensors,
+    each placed by its logical spec resolved on ``dmesh``; a Python scalar
+    leaf stays as it is."""
+    specs = shard_tree(tree, logical_specs, record_of(dmesh))
+
+    def walk(t, s):
+        if isinstance(s, dict):
+            return {k: walk(t[k], s[k]) for k in s}
+        return _distribute(t, dmesh, s) if isinstance(t, torch.Tensor) else t
+
+    return walk(tree, specs)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int, rank: int = 0):
+    """A fake process group of ``world_size`` members in this process (every
+    collective a no-op that returns at once), for counting one device's
+    program on a production mesh; destroyed on exit, so that no later code
+    in the process sees a default group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists; a fake one would replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -11,9 +11,11 @@ Conventions, as the reference's:
     norm scales stay f32, as ``rms_norm`` reads them;
   * the init functions draw f32 weights from a ``torch.Generator`` with the
     reference's shapes and scales (the draws themselves differ from JAX's);
-  * the reference's ``shard``/``wcast`` sharding constraints are the identity
-    without a mesh, and the port has no mesh yet (ROADMAP §1 item 3): they are
-    dropped here, with the head padding ``flash_attention`` does under one;
+  * the reference's ``shard``/``wcast`` sharding constraints stand where the
+    reference has them (``models/sharding_ctx.py``): the identity without a
+    mesh context, a DTensor ``redistribute`` under one; ``flash_attention``
+    pads the heads with zero heads when the context's ``model`` axis does not
+    divide them, as the reference does;
   * the reference's init functions also return each weight's *logical*
     sharding spec; here the ``*_specs`` functions give them, the same tuples
     of None | "fsdp" | "tp" | ("tp"|"fsdp", dim_size) per dimension, which
@@ -41,6 +43,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding_ctx import (axis_size, get_mesh, is_dtensor, shard, tp_divides,
+                                              tp_splits)
 
 Params = Mapping[str, torch.Tensor]
 NEG_INF = -1e30     # the reference's mask value
@@ -180,11 +184,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd).  GQA handled by head repetition.
     kv_offset: absolute position of k[0] relative to q[0] (for cross-chunk decode).
+
+    On DTensors under a mesh context the heads split over TP and the batch
+    over the FSDP axes (the reference's constraints on its chunked q, k and
+    v), and each device runs the chunked attention on its own slices: the
+    work is independent per batch row and head, so no collective is needed
+    (``DTensor`` would otherwise gather the score blocks where its rules for
+    the products' merged (batch, head) dimension disagree, ROADMAP §3).
     """
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     k = _repeat_kv(k, H // Hkv)
     v = _repeat_kv(v, H // Hkv)
+    # head padding: when H does not divide the TP axis, pad with zero heads so the
+    # attention shards instead of replicating per TP rank; the padded outputs are
+    # sliced off, so the math is exact and padded projections get zero gradients
+    H_orig = H
+    mesh = get_mesh()
+    tp_size = axis_size(mesh, "model") if mesh is not None else 1
+    if H % tp_size:
+        H = -(-H // tp_size) * tp_size
+        q = torch.cat([q, q.new_zeros((B, Sq, H - H_orig, hd))], dim=2)
+        zk = k.new_zeros((B, Sk, H - H_orig, hd))
+        k = torch.cat([k, zk], dim=2)
+        v = torch.cat([v, zk], dim=2)
+    q, k, v = (shard(t, "fsdp", None, "tp", None) for t in (q, k, v))
+    if mesh is not None and is_dtensor(q):
+        from torch.distributed.tensor import DTensor
+
+        out = _flash(q.to_local(), k.to_local(), v.to_local(), causal, q_chunk, kv_chunk,
+                     kv_offset)
+        out = DTensor.from_local(out, mesh, q.placements, run_check=False)
+    else:
+        out = _flash(q, k, v, causal, q_chunk, kv_chunk, kv_offset)
+    if H == H_orig:
+        return out
+    out = shard(out, "fsdp", None, None, None)    # the heads whole, then unpadded
+    return out[:, :, :H_orig]
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_chunk: int,
+           kv_chunk: int, kv_offset: int) -> torch.Tensor:
+    """``flash_attention`` on plain tensors, the heads already repeated."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
     if Sq % q_chunk or Sk % kv_chunk:
@@ -228,6 +271,19 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     length.  Scores and the weighted sum accumulate in f32 (the cache is read
     in its storage dtype and widened exactly); ``p`` is cast to the cache's
     dtype first, as the reference does."""
+    mesh = get_mesh()
+    if mesh is not None and is_dtensor(k_cache) and isinstance(cache_len, int):
+        # the cache split by batch and kv heads: each device attends its own
+        # rows and heads on local tensors (DTensor's search over the product's
+        # splits takes minutes a layer on a 3-axis mesh); a cache split along
+        # the sequence goes through DTensor's ops
+        q, k_cache, v_cache = (shard(t, "fsdp", None, "tp", None) for t in (q, k_cache, v_cache))
+        if k_cache.placements == q.placements:
+            from torch.distributed.tensor import DTensor
+
+            out = attention_decode(q.to_local(), k_cache.to_local(), v_cache.to_local(),
+                                   cache_len)
+            return DTensor.from_local(out, mesh, q.placements, run_check=False)
     B, _, H, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = H // Hkv
@@ -276,14 +332,41 @@ def attention_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = x @ wcast(p["wq"], dt, "fsdp", "tp")
+    k = x @ wcast(p["wk"], dt, "fsdp", "tp")
+    v = x @ wcast(p["wv"], dt, "fsdp", "tp")
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd), v.reshape(B, S, Hkv, hd)
+    return (shard(_split_heads(q, H, hd), "fsdp", None, "tp", None),
+            shard(_split_heads(k, Hkv, hd), "fsdp", None, "tp", None),
+            shard(_split_heads(v, Hkv, hd), "fsdp", None, "tp", None))
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), the output projection's input.  Under
+    a context whose TP axis does not split the heads the width is pinned
+    whole: its gradient, split over TP by the projection, could not be
+    viewed back into heads."""
+    y = x.reshape(*x.shape[:-2], -1)
+    return y if tp_divides(x.shape[-2]) else shard(y, "fsdp", None, None)
+
+
+def _split_heads(x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd).  Under a context whose TP
+    axis splits the projection's width but not the heads, the width is
+    gathered first: a DTensor cannot view a split dim into dims the split
+    does not follow (XLA reshards there on its own)."""
+    if not tp_divides(heads):
+        x = shard(x, "fsdp", None, None)
+    return x.reshape(*x.shape[:-1], heads, hd)
+
+
+def wcast(w: torch.Tensor, dt: torch.dtype, *entries) -> torch.Tensor:
+    """A stored weight cast to the compute dtype *keeping its sharding*, so an
+    FSDP all-gather at the use site moves the compute dtype's bytes."""
+    return shard(w.to(dt), *entries)
 
 
 # ------------------------------------------------------------------------- MLPs
@@ -310,13 +393,18 @@ def mlp_specs(cfg: ModelConfig) -> dict[str, tuple]:
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
+    # the input batch-split and whole in D: DTensor picks each product's
+    # split op by op, and from a D-split input it would contract over TP
+    # with the hidden width unsplit (ROADMAP §3)
+    x = shard(x, "fsdp", None, None)
     if cfg.mlp == "swiglu":
-        g = F.silu(x @ p["w_gate"].to(dt))
-        return (g * (x @ p["w_up"].to(dt))) @ p["w_down"].to(dt)
-    h = x @ p["w_up"].to(dt)
+        g = F.silu(shard(x @ wcast(p["w_gate"], dt, "fsdp", "tp"), "fsdp", None, "tp"))
+        return (g * (x @ wcast(p["w_up"], dt, "fsdp", "tp"))) \
+            @ wcast(p["w_down"], dt, "tp", "fsdp")
+    h = shard(x @ wcast(p["w_up"], dt, "fsdp", "tp"), "fsdp", None, "tp")
     # jax.nn.gelu defaults to the tanh approximation
     h = torch.square(F.relu(h)) if cfg.mlp == "relu2" else F.gelu(h, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    return h @ wcast(p["w_down"], dt, "tp", "fsdp")
 
 
 # -------------------------------------------------------------------------- MoE
@@ -369,7 +457,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
         raise ValueError(f"{n} tokens do not split into MoE groups of {g}")
     G = n // g
     cap = max(1, int(math.ceil(g * cfg.top_k * cfg.capacity_factor / E)))
-    xg = x.reshape(G, g, D)
+    xg = shard(x.reshape(G, g, D), "fsdp", None, None)
     probs, gate_v, gate_i = moe_route(p, xg, cfg)
     gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
     onehot = one_hot(gate_i, E)                                    # (G, g, k, E)
@@ -381,9 +469,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig):
     dispatch = cap_oh.sum(2)                                       # (G, g, E, cap)
     combine = (cap_oh * gate_v[..., None, None]).sum(2)            # (G, g, E, cap)
     xe = torch.einsum("Ggec,Ggd->eGcd", dispatch.to(dt), xg)       # (E, G, cap, D)
-    h = F.silu(torch.einsum("eGcd,edf->eGcf", xe, p["experts_gate"].to(dt)))
-    h = h * torch.einsum("eGcd,edf->eGcf", xe, p["experts_up"].to(dt))
-    ye = torch.einsum("eGcf,efd->eGcd", h, p["experts_down"].to(dt))
+    xe = shard(xe, "tp", "fsdp", None, None)
+    h = F.silu(torch.einsum("eGcd,edf->eGcf", xe,
+                            wcast(p["experts_gate"], dt, "tp", "fsdp", None)))
+    h = h * torch.einsum("eGcd,edf->eGcf", xe, wcast(p["experts_up"], dt, "tp", "fsdp", None))
+    h = shard(h, "tp", "fsdp", None, None)
+    ye = torch.einsum("eGcf,efd->eGcd", h, wcast(p["experts_down"], dt, "tp", None, "fsdp"))
     y = torch.einsum("Ggec,eGcd->Ggd", combine.to(dt), ye)
     return y.reshape(B, S, D), _load_balance_loss(probs, onehot)
 
@@ -423,12 +514,21 @@ def embed_specs(cfg: ModelConfig) -> dict[str, tuple]:
 
 
 def embed_lookup(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["embedding"].to(cfg.dtype)[tokens]
+    table = p["embedding"].to(cfg.dtype)
+    if tp_splits(table.shape[0]) and is_dtensor(table):
+        x = _masked_rows(shard(table, "tp", None), tokens)
+    else:
+        x = table[tokens]
+    return shard(x, *("fsdp",) + (None,) * (x.ndim - 1))
 
 
 def lm_logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = x @ w.to(x.dtype)
+    # the FSDP axis of the projection gathered before the product, the input
+    # batch-split (ROADMAP §3): otherwise DTensor contracts over a split D
+    # with every token on every device
+    x = shard(x, "fsdp", None, None)
+    logits = shard(x @ shard(w.to(x.dtype), None, "tp"), "fsdp", None, "tp")
     if logits.shape[-1] != cfg.vocab:  # mask the vocab padding, in the logits' dtype
         logits[..., cfg.vocab:].fill_(NEG_INF)
     return logits
@@ -439,9 +539,69 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """The mean next-token loss in f32, with the z-loss term on the log
     partition function."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if tp_splits(logits.shape[-1]) and is_dtensor(logits):
+        # vocab-sharded logits (ROADMAP §3): the log partition function and
+        # the label's logit as sums over the split vocab, which reduce (B, S)
+        # partial sums over the TP axis -- DTensor's logsumexp would gather
+        # the vocab, and its rule for a gather fails there
+        top = shard(logits.detach().amax(-1, keepdim=True), "fsdp", None, None)
+        total = shard(torch.exp(logits - top).sum(-1, keepdim=True), "fsdp", None, None)
+        lse = (top + torch.log(total))[..., 0]
+        ll = _label_logit(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
-    return loss.mean()
+    return shard(loss, "fsdp", None).mean()
+
+
+def _local_ids(ids: torch.Tensor, n: int):
+    """This device's view of token or label ids against its slice of ``n``
+    vocab entries (the TP axis splits the vocab): the ids as a DTensor split
+    like the batch, their local offsets into the slice, clamped, and whether
+    each falls inside it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = get_mesh()
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    ids = shard(ids, *("fsdp",) + (None,) * (ids.ndim - 1))
+    off = mesh.get_local_rank("model") * n
+    local = ids.to_local().long() - off
+    return ids, local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+
+def _masked_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` from a table whose vocab the TP axis splits: each
+    device reads the rows of its slice (zeros for the others) into its own
+    slot of a (..., D, TP) tensor whose sum over the slots reduces over TP --
+    the masked lookup a partitioner makes of a gather from a split dim
+    (DTensor's own rules for it fail in the backward, ROADMAP §3)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    # the rows this device's tokens read: their gradient is a partial sum
+    # over the axes that replicate the table
+    loc = table.to_local(grad_placements=[Partial() if p.is_replicate() else p
+                                          for p in table.placements])
+    ids, idx, inside = _local_ids(tokens, loc.shape[0])
+    x = (loc[idx] * inside[..., None].to(loc.dtype))[..., None]
+    out = list(ids.placements)
+    out[get_mesh().mesh_dim_names.index("model")] = Shard(x.ndim - 1)
+    return DTensor.from_local(x, get_mesh(), out, run_check=False).sum(-1)
+
+
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each label's logit from vocab-split DTensor logits: each device reads
+    the labels that fall in its vocab slice (zero for the others) into its
+    own slot of a (B, S, TP) tensor whose sum over the slots reduces over the
+    TP axis -- the masked lookup a partitioner makes of a gather from a split
+    dimension."""
+    from torch.distributed.tensor import DTensor
+
+    logits = shard(logits, "fsdp", None, "tp")
+    loc = logits.to_local()
+    _, idx, inside = _local_ids(labels, loc.shape[-1])
+    ll = (torch.gather(loc, -1, idx[..., None])[..., 0] * inside)[..., None]
+    return DTensor.from_local(ll, get_mesh(), logits.placements, run_check=False).sum(-1)

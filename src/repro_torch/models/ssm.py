@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding_ctx import shard
 
 _CLAMP = 60.0
 RWKV_LORA_RANK = 64
@@ -103,7 +104,8 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     Returns (y (B, S, H, hd), s_end)."""
     B, S, H, hd = r.shape
     c = _chunk_len(S, chunk)
-    rc, kc, vc, wc = (_chunk(t, c).transpose(2, 3) for t in (r, k, v, logw))
+    rc, kc, vc, wc = (shard(_chunk(t, c).transpose(2, 3), "fsdp", None, "tp", None, None)
+                      for t in (r, k, v, logw))
     # shapes now (B, nc, H, c, hd)
     t_idx = torch.arange(c, device=r.device)
     mask = (t_idx[:, None] > t_idx[None, :]).float()
@@ -138,6 +140,7 @@ def rwkv_layer_fwd(cfg: ModelConfig, lp: L.Params, x: torch.Tensor, state=None):
     s0 = state["wkv"] if state else torch.zeros((B, H, hd, hd), device=x.device)
 
     # ---- time mix ----
+    x = shard(x, "fsdp", None, None)
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     prev = _token_shift(h, tm_last)
     mix = lp["mix"].to(dt)
@@ -255,9 +258,10 @@ def mamba_layer_fwd(cfg: ModelConfig, lp: L.Params, x: torch.Tensor, state=None)
     H, N = cfg.ssm_heads, cfg.ssm_state
     P = d_in // H
     dt_ = x.dtype
+    x = shard(x, "fsdp", None, None)
     h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-    z = h @ lp["w_z"].to(dt_)
-    xi = h @ lp["w_x"].to(dt_)
+    z = shard(h @ lp["w_z"].to(dt_), "fsdp", None, "tp")
+    xi = shard(h @ lp["w_x"].to(dt_), "fsdp", None, "tp")
     conv_state = state["conv"] if state else torch.zeros((B, 3, d_in), dtype=dt_,
                                                          device=x.device)
     xi_pad = torch.cat([conv_state, xi], dim=1)

@@ -36,6 +36,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding_ctx import shard
 
 NORMS = ("norm1", "norm2")
 FAMILIES = ("dense", "moe", "vlm")
@@ -93,6 +94,7 @@ class Block(nn.Module):
         """-> (the residual stream after the MLP or MoE, the MoE's aux loss or
         None)."""
         cfg = self.cfg
+        x = shard(x, "fsdp", None, None)     # the residual reduced once (ROADMAP §3)
         h = L.rms_norm(x, self.norms["norm2"], cfg.norm_eps)
         if cfg.family == "moe":
             y, aux = L.moe_apply(self.mlp, h, cfg)
@@ -103,11 +105,12 @@ class Block(nn.Module):
                 causal: bool):
         cfg = self.cfg
         B, S, _ = x.shape
+        x = shard(x, "fsdp", None, None)
         h = L.rms_norm(x, self.norms["norm1"], cfg.norm_eps)
         q, k, v = L.attention_qkv(self.attn, h, cfg)
         q, k = L.rotate(q, cos, sin), L.rotate(k, cos, sin)
         attn = L.flash_attention(q, k, v, causal=causal)
-        return x + attn.reshape(B, S, -1) @ self.attn["wo"].to(x.dtype), k, v
+        return x + L.merge_heads(attn) @ self.attn["wo"].to(x.dtype), k, v
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 causal: bool = True):
@@ -195,7 +198,10 @@ class LM(nn.Module):
         return L.rope_cos_sin(positions, self.freqs)
 
     def _finish(self, x: torch.Tensor) -> torch.Tensor:
-        return L.rms_norm(x, self.final["final_norm"], self.cfg.norm_eps)
+        # pinned like each block's input, so that the head's gradient is
+        # reduced here under a mesh context (ROADMAP §3)
+        return L.rms_norm(shard(x, "fsdp", None, None), self.final["final_norm"],
+                          self.cfg.norm_eps)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         return L.lm_logits(self.embed, x, self.cfg)

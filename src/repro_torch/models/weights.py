@@ -122,15 +122,23 @@ def meta_tree(model: nn.Module, dtype: torch.dtype | None = None) -> dict:
     return tree
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a plain tensor of its global shape: a DTensor gathered from
+    its mesh (a collective: every rank of the mesh calls it), any other
+    tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def to_reference(model: nn.Module, tensors) -> dict:
     """Tensors aligned with ``model.parameters()`` (its gradients, AdamW's
     moments, its weights) -> the reference's nested tree of stacked numpy
-    arrays; bf16 is widened to f32."""
+    arrays; bf16 is widened to f32.  Placed tensors (DTensors) are gathered
+    whole, so every rank of their mesh calls it."""
     index = {id(p): i for i, p in enumerate(model.parameters())}
     tensors = list(tensors)
     tree: dict = {}
     for path, (stack, params) in layout(model).items():
-        parts = [tensors[index[id(p)]].detach() for p in params]
+        parts = [whole(tensors[index[id(p)]].detach()) for p in params]
         arr = (torch.stack(parts) if stack else parts[0]).to("cpu", copy=True)
         if arr.dtype == torch.bfloat16:
             arr = arr.float()

@@ -10,12 +10,14 @@ The counts come from ``op_cost.analyze`` of the eager step (every aten op it
 dispatches, the backward and a remat's recompute included), where the
 reference reads XLA's compiled program.  The field names are the
 reference's: ``hlo_flops_per_chip`` and ``hlo_bytes_per_chip`` hold the
-counted op totals here.  On the one-card mesh they are the step's own; on a
-production mesh the port has no SPMD partitioner yet (ROADMAP §1 item 3),
-so they are the whole step's divided by the chips (``split`` "ideal") and the
-collective term is unknown (``coll_bytes_per_chip`` None, ``t_collective``
-None), not zero.  The reference's ``collective_bytes`` parses HLO text and
-has no counterpart; its ring factors are ``op_cost.ring_wire_bytes``.
+counted op totals here, one device's: on the one-card mesh the step's own,
+on a production mesh the program one device runs with the step placed as
+DTensors (``split`` "counted"), whose collectives give the collective term.
+A record may still say ``split`` "ideal" (the whole step divided by the
+chips, collectives unknown: ``coll_bytes_per_chip`` None, ``t_collective``
+None); the dry run wrote those before the mesh was ported.  The reference's
+``collective_bytes`` parses HLO text and has no counterpart; its ring
+factors are ``op_cost.ring_wire_bytes``.
 
 Hardware constants: the NVIDIA H100 SXM5's (H100 Tensor Core GPU datasheet).
 """
@@ -43,7 +45,7 @@ class Roofline:
     per_device_bytes: int
     useful_bytes_per_chip: float = 0.0  # argument+output buffers: a read-once/
                                         # write-once lower bound on HBM traffic
-    split: str = "counted"              # "counted" (one card) | "ideal" (whole step / chips)
+    split: str = "counted"              # "counted" (one device's program) | "ideal" (step / chips)
 
     @property
     def t_compute(self) -> float:

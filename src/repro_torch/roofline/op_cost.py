@@ -68,6 +68,14 @@ def ring_wire_bytes(kind: str, in_bytes: float, out_bytes: float, n: int) -> flo
     return in_bytes * ring
 
 
+def _dtensor_type():
+    """``DTensor``, where ``torch.distributed`` is built in."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
 def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
@@ -120,7 +128,17 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dtensor = _dtensor_type()
+        if dtensor is not None and any(isinstance(t, dtensor)
+                                       for t in tree_flatten((args, kwargs))[0]):
+            # one device's program: the global op is not counted; DTensor's own
+            # dispatch (in C++, with this mode still active) runs the local ops
+            # and the collectives of its redistributions, which reach this
+            # counter as plain-tensor ops
+            return NotImplemented
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out      # DTensor's shape propagation on fake tensors: no device op
         schema = func._schema
         ins = _tensors((args, kwargs))
         written = [t for a, v in zip(schema.arguments, args) if _writes(a)
@@ -130,7 +148,10 @@ class OpCounter(TorchDispatchMode):
         outs = _tensors(out)
         in_keys = {_storage_key(t) for t in ins}
         fresh = [(t, k) for t in outs for k in (_storage_key(t),) if k not in in_keys]
-        is_view = not written and not fresh
+        # a functional collective's wait and autograd wrapper move nothing
+        is_view = (not written and not fresh) or (
+            func.namespace == "_c10d_functional"
+            and func._overloadpacket.__name__ not in COLLECTIVES)
         for t, k in fresh:
             if k not in self.owned:
                 self._own(t, k)

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.weights import (from_reference, layout, params_to_reference,
-                                       to_reference)
+                                       to_reference, whole)
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -64,17 +64,38 @@ def state_like(params: nn.Module) -> tuple:
     return tree, {"mu": tree, "nu": tree, "step": "step"}
 
 
+def _placed_like(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t``, whole on every rank, as ``p`` holds it: on its device, and
+    split as ``p`` is where ``p`` is a DTensor (each rank keeps its slice)."""
+    t = t.to(p.device)
+    if not hasattr(p, "device_mesh"):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, p.device_mesh, p.placements, src_data_rank=None)
+
+
 def load_state(params: nn.Module, tree: tuple) -> dict:
     """Copy a checkpoint tree's weights into ``params`` (in place, in each
-    parameter's dtype) -> the optimizer state it holds, on their device."""
+    parameter's dtype) -> the optimizer state it holds, on their device and
+    placed as they are."""
     ptree, otree = tree
+    plist = list(params.parameters())
     with torch.no_grad():
-        for p, v in zip(params.parameters(), from_reference(params, ptree)):
-            p.copy_(v)
-    dev = next(params.parameters()).device
-    moments = {k: [t.to(dev, torch.float32) for t in from_reference(params, otree[k])]
+        for p, v in zip(plist, from_reference(params, ptree)):
+            p.copy_(_placed_like(p, v))
+    moments = {k: [_placed_like(p, t.to(torch.float32))
+                   for p, t in zip(plist, from_reference(params, otree[k]))]
                for k in ("mu", "nu")}
     return {**moments, "step": int(otree["step"])}
+
+
+def save_state(ckpt_dir: str, step: int, params: nn.Module, opt_state: dict) -> None:
+    """Checkpoint the training state.  Placed on a mesh, every rank gathers
+    it whole (``state_tree``) and the mesh's first device alone writes it."""
+    tree = state_tree(params, opt_state)
+    mesh = getattr(next(params.parameters()), "device_mesh", None)
+    if mesh is None or tuple(mesh.get_coordinate() or ()) == (0,) * mesh.ndim:
+        ckpt.save(ckpt_dir, step, tree)
 
 
 def _wait(loss) -> None:
@@ -101,6 +122,8 @@ def run(loop_cfg: LoopConfig, step_fn: Callable, params: nn.Module, opt_state: d
         t0 = time.perf_counter()
         batch = batch_fn(step)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
+        # placed on a mesh, a metric is a DTensor that may hold partial sums
+        metrics = {k: whole(v) if torch.is_tensor(v) else v for k, v in metrics.items()}
         _wait(metrics["loss"])
         dt = time.perf_counter() - t0
         ema = dt if ema is None else 0.9 * ema + 0.1 * dt
@@ -116,6 +139,6 @@ def run(loop_cfg: LoopConfig, step_fn: Callable, params: nn.Module, opt_state: d
             log(f"[loop] step {step} loss {rec['loss']:.4f} "
                 f"gnorm {rec['grad_norm']:.3f} {dt * 1e3:.0f}ms")
         if (step + 1) % loop_cfg.ckpt_every == 0:
-            ckpt.save(loop_cfg.ckpt_dir, step + 1, state_tree(params, opt_state))
-    ckpt.save(loop_cfg.ckpt_dir, loop_cfg.total_steps, state_tree(params, opt_state))
+            save_state(loop_cfg.ckpt_dir, step + 1, params, opt_state)
+    save_state(loop_cfg.ckpt_dir, loop_cfg.total_steps, params, opt_state)
     return params, opt_state, history

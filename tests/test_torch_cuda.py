@@ -1555,3 +1555,36 @@ def test_op_cost_counts_the_card_as_meta(arch, name, gpu):
     meta = analyze(_counted_steps(SMOKES[arch], torch.device("meta"))[name])
     assert card["by_op"] == meta["by_op"]
     assert (card["flops"], card["bytes"]) == (meta["flops"], meta["bytes"]) != (0, 0)
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def test_placed_train_step_on_a_card_mesh(gpu):
+    """qwen SMOKE's f32 training weights as DTensors on a 1 x 1 mesh over an
+    NCCL group of one: ``chip_smoke.MESH_STEPS`` train steps bitwise the
+    unplaced ones (phase 15 (b) at the SMOKE size)."""
+    from repro_torch.configs import SMOKES
+
+    rec = _chip_smoke().run_placed_train(SMOKES["qwen1.5-0.5b"], 0)
+    assert rec["bitwise"] and len(rec["losses"]) == _chip_smoke().MESH_STEPS
+    assert not torch.distributed.is_initialized()
+
+
+def test_compressed_dp_step_two_ranks_on_one_card(gpu):
+    """Two processes on ``cuda:0`` in a gloo group run the compressed
+    data-parallel step on qwen SMOKE: parameters bitwise equal across the
+    ranks, the synced gradients and error buffers bitwise the plain int8
+    sum's, one kernel-1 unpack a step a rank (phase 15 (c) at the SMOKE
+    size)."""
+    cs = _chip_smoke()
+    rec = cs.run_dp_compressed("qwen1.5-0.5b", 0, smoke=True)
+    assert rec["launches_per_rank"] == [cs.MESH_STEPS] * cs.DP_RANKS

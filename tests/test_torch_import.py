@@ -50,7 +50,8 @@ for new in ("repro_torch.core.query", "repro_torch.data.queries",
             "repro_torch.train.checkpoint", "repro_torch.train.loop",
             "repro_torch.roofline", "repro_torch.roofline.analysis",
             "repro_torch.roofline.op_cost", "repro_torch.launch.mesh",
-            "repro_torch.launch.dryrun"):
+            "repro_torch.launch.dryrun", "repro_torch.launch.elastic",
+            "repro_torch.models.sharding_ctx"):
     assert new in names, new
 print(len(names))
 """
