@@ -156,7 +156,9 @@ non-zero before the final line:
      (kernel 4's object beside the three decode kernels', each of those with
      its ``geometry`` object, the launches of phase 11's engine run and
      prompt wave and ``lm_family_launches``, phase 12's per family, and
-     ``lm_train_launches``, phase 13's training run), the
+     ``lm_train_launches``, phase 13's training run, and phase 16's
+     ``mesh_run_launches_per_run``, ``mesh_shard_span_launches_per_run`` and
+     ``mesh_mid_column_span_launches_per_run``, the last two counted), the
      card's name and power limit from ``nvidia-smi``, and last ``{"ok":
      true, "device": {...}}``;
  11. lm serve (runs after phase 9, so that phase 10 reports it): the
@@ -271,7 +273,9 @@ non-zero before the final line:
      is priced at NVLink's rate over the host link's (``mesh plan`` lines:
      modeled makespan, baselines, sharded columns, D2D legs, planning host
      ms; modeled, not measured); each makespan at or below its round-robin
-     and single-device baselines, N = 1 equal to ``plan_execution``'s.
+     and single-device baselines; N = 1 equal to ``plan_execution``'s plan
+     simulated at its own staging window, and at or above its unbounded
+     makespan (the two differ when no window up to 8 is stall-free).
      (b) qwen1.5-0.5b's f32 training weights at full width placed as
      DTensors on a 1 x 1 ("data", "model") ``DeviceMesh`` over an NCCL group
      of one, under the mesh context: ``MESH_STEPS`` train steps (phase 13's
@@ -295,6 +299,42 @@ non-zero before the final line:
      ``per_device_live`` beside the ideal split of phase 14's card cell,
      its FLOPs exactly the card cell's / 256 (``mesh dryrun`` line; modeled
      from counts on meta).  Then the phase's seconds.
+ 16. mesh run (after phase 15): the mesh's executor,
+     ``ColumnPipeline.run_sharded`` over phase 4's blobs of the 24 columns
+     and phase 4's kernel-2 span columns (``SPAN_PLANS``), with phase 15's
+     calibrated cost model; every logical device id maps onto the one card
+     (``devices[id % len(devices)]``), each leg on a copy stream and a
+     compute stream of its own.  The reference output of every gate is the
+     pipeline's single-device ``run()``, held bitwise to the source.  (a)
+     ``mesh_plan(2)``, ``mesh_plan(4)`` and the three group-span columns
+     (L_RETURNFLAG's rANS, kernel 3; the span columns, kernel 2) alone at
+     N = 4 with ``shard_threshold_bytes=0``, every one sharded (the 26
+     columns' plans keep them whole at SF 1), each ``MESH_RUN_REPS`` times
+     sequentially and concurrently, interleaved, the counts zeroed just
+     before each run: every column bitwise, every logical device with items
+     at one or more decode units in ``device_launches`` and at least its
+     shards' spans, every sharded column on more than one id, the launches
+     of kernels 2 and 3 by shard spans (counted as they happen: a shard
+     unit's span program calls, their difference of the kernel counters)
+     equal to those the shard schedules call for, in all and from
+     ``g_start > 0``, and in the forced case kernels 2 and 3 launched on
+     spans that start inside a column (``mesh run`` lines: makespan by events from the first leg's
+     start to the last leg's end, host ms of ``run_sharded``, the modeled
+     makespan, decode units by logical device, kernel launches and shard
+     span launches by kernel, logical and physical device counts).  (b) the
+     group-span columns under ``placement="sharded"`` on the reference's
+     skewed-link fabric (link 0 six times slower, ``MESH_D2D_SCALE``), both
+     modes: bitwise, the executed D2D legs the plan's, each shard on its
+     placed device id, the fabric EWMA moved (``mesh run d2d`` lines: each
+     leg's bytes and copy ms by events, the fitted ``d2d_scale``; copies
+     within the card's memory, not NVLink).  (c) phase 6's closed mix through
+     phase 6's serving pipeline with ``serve_planner("shared", mesh=2)``, a
+     cold and a warm wave: every column bitwise, every wave ``mesh:`` on ids
+     (0, 1), no request error (``mesh serve`` lines beside phase 6's warm
+     non-mesh wave).  (d) ``launch.elastic.replan_suffix`` of (a)'s N = 4
+     plan after logical device 0 is lost with its whole columns done: the
+     survivors decode the rest bitwise (``mesh run suffix`` line).  Then the
+     phase's seconds.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -427,6 +467,10 @@ MESH_STEPS = 3
 DP_RANKS = 2                 # two processes on the one card, a gloo group
 MESH_CELL = ("qwen1.5-0.5b", "train_4k", "pod")
 MESH_REL = 1e-9              # N = 1 against plan_execution: the same simulation
+# mesh run phase (16): run_sharded of phase 15's plans and phase 4's blobs
+MESH_RUN_REPS = 3            # runs of each plan in each mode (the first cold)
+MESH_SKEW = (6.0, 1.0, 1.0, 1.0)   # the reference's skewed-link fabric case
+MESH_D2D_SCALE = 0.05        # (tests/test_mesh_decode.py): link 0 6x slow, a cheap fabric
 
 
 def host_part(name: str) -> str | None:
@@ -1176,7 +1220,7 @@ def run_serving(cols: dict, encoded: dict, libs, plain_copy_ms: float) -> dict:
     if bulk.preempted != 3 or not all(p.preempted_in for p in points):
         raise AssertionError(f"serve slo_preempt: preempted {bulk.preempted}, points "
                              f"{[p.preempted_in for p in points]}")
-    return {"dispatch": dispatch, "serve": serve,
+    return {"dispatch": dispatch, "serve": serve, "pipe": pipe,
             "warm_wave_launches": warm["kernel_launches"],
             "largest_batch": {k: max(r["largest_batch"][k] for r in serve) for k in KERNELS}}
 
@@ -2185,9 +2229,11 @@ def run_mesh_plans(plans: dict, encoded: dict, cost_model) -> dict:
     N = 4 with ``placement="sharded"`` on a topology with a fabric priced at
     NVLink's rate over the host link's; each modeled makespan <= its
     round-robin and single-device baselines, N = 1 equal to
-    ``plan_execution``'s.  Modeled, not measured."""
+    ``plan_execution``'s plan simulated at its window (and >= its unbounded
+    makespan).  Modeled, not measured."""
+    from repro_torch.core import scheduler
     from repro_torch.core.costmodel import LinkTopology
-    from repro_torch.core.planner import plan_execution
+    from repro_torch.core.planner import _chunk_info, plan_execution
     from repro_torch.data.loader import ColumnPipeline
 
     pipe = ColumnPipeline(plans, device="cuda", cost_model=cost_model, mesh=max(MESH_PLAN_N))
@@ -2215,14 +2261,28 @@ def run_mesh_plans(plans: dict, encoded: dict, cost_model) -> dict:
              "items": len(mp.items), "planning_host_ms": host_ms}
         if mp.n_devices == 1:
             # the single-device plan the mesh planner starts from (its
-            # chunk_decode default is True, plan_execution's False)
+            # chunk_decode default is True, plan_execution's False).  Its
+            # modeled makespan is the UNBOUNDED pipeline's; its window is
+            # picked after, and is 8 when no window up to 8 is stall-free.
+            # The mesh plan simulates at that window, so it equals the plan
+            # simulated at its own window, and is >= the unbounded makespan.
             one = plan_execution(profiles, cost_model, policy=pipe.executor.policy,
                                  chunk_bytes=pipe.executor.chunk_bytes, chunk_decode=True,
                                  batch_columns=False)
-            if abs(one.modeled_makespan_s - mk) > MESH_REL * mk:
+            names = list(one.order)
+            at_window = scheduler.simulate_stream(
+                [scheduler.Job(n, one.decisions[n].est_transfer_s,
+                               one.decisions[n].est_decode_s) for n in names],
+                [_chunk_info(one.decisions[n], cost_model.launch_overhead_s(n))
+                 for n in names], window=one.window)
+            if (abs(at_window - mk) > MESH_REL * mk
+                    or one.modeled_makespan_s > mk * (1 + MESH_REL)):
                 raise AssertionError(f"mesh plan n1: {mk} against plan_execution's "
-                                     f"{one.modeled_makespan_s}")
-            r["plan_execution_ms"] = one.modeled_makespan_s * 1e3
+                                     f"{at_window} at its window {one.window} (unbounded "
+                                     f"{one.modeled_makespan_s})")
+            r["plan_execution_ms"] = at_window * 1e3
+            r["plan_execution_unbounded_ms"] = one.modeled_makespan_s * 1e3
+            r["plan_execution_window"] = one.window
         rec[label] = r
         print(f"mesh plan {label} (modeled, not measured) devices {mp.n_devices} policy "
               f"{mp.policy} makespan_ms {mk * 1e3:.4f} round_robin_ms "
@@ -2231,7 +2291,9 @@ def run_mesh_plans(plans: dict, encoded: dict, cost_model) -> dict:
               f"{base['serial-issue'] * 1e3:.4f} items {len(mp.items)} sharded "
               f"{r['sharded_columns']} shards {r['n_shards']} redistribution "
               f"{len(mp.redistribution)} legs {r['redistribution']} planning_host_ms "
-              f"{host_ms:.2f}" + (f" plan_execution_ms {r['plan_execution_ms']:.4f}"
+              f"{host_ms:.2f}" + (f" plan_execution_ms {r['plan_execution_ms']:.4f} "
+                                  f"(window {r['plan_execution_window']}; unbounded "
+                                  f"{r['plan_execution_unbounded_ms']:.4f})"
                                   if "plan_execution_ms" in r else ""))
     return rec
 
@@ -2564,6 +2626,316 @@ def run_mesh_cell(card: dict) -> dict:
     rec["ideal_per_device_live"] = ideal_live
     rec["child_s"] = child_s
     return rec
+
+
+def _column_bits(arr) -> torch.Tensor:
+    """A run's column as bits on the card (a ``ShardedColumn`` joined)."""
+    return bits(arr if isinstance(arr, torch.Tensor) else arr.full())
+
+
+SPAN_KERNELS = {"gp": "group_parallel", "np": "non_parallel"}
+
+
+def _span_counts(ex, mp) -> dict:
+    """The span launches ``mp``'s shard schedules call for, by kernel
+    (kernel 2 for a Group-Parallel span, kernel 3 for a Non-Parallel one):
+    all of them (``spans``), those that start inside the column
+    (``g_start > 0``, ``mid``), and the spans by logical device
+    (``by_device``)."""
+    from repro_torch.core.ir import group_chunk_layout
+
+    want = {"spans": dict.fromkeys(SPAN_KERNELS.values(), 0),
+            "mid": dict.fromkeys(SPAN_KERNELS.values(), 0), "by_device": {}}
+    for col, specs in mp.shards.items():
+        k = SPAN_KERNELS[group_chunk_layout(ex.graph(col)).kind]
+        for s in specs:
+            li = next(i for i, p in enumerate(mp.plans) if s.name in p.decisions)
+            sched = ex.shard_schedule(col, mp.plans[li].decisions[s.name].chunk_bytes,
+                                      s.g_lo, s.g_hi)
+            want["spans"][k] += sched.n_chunks
+            want["mid"][k] += sum(g > 0 for g in sched.g_starts)
+            dev = int(mp.device_ids[li])
+            want["by_device"][dev] = want["by_device"].get(dev, 0) + sched.n_chunks
+    return want
+
+
+@contextlib.contextmanager
+def _shard_span_tally(ex, libs):
+    """Count, as they happen, the launches of kernels 2 and 3 made by the
+    span programs of group-span shards: ``ex._decode`` marks a unit whose
+    item is a shard, and each span program call inside it adds its
+    difference of the kernel libraries' counters to ``spans`` (and to
+    ``mid`` when its ``g_start > 0``).  Yields the tally; the caller zeroes
+    it (``.clear()``) before each run."""
+    from repro_torch.core.compiler import GroupChunkProgram
+
+    kernels = dict(zip(KERNELS, libs))
+    tally = {"spans": dict.fromkeys(SPAN_KERNELS.values(), 0),
+             "mid": dict.fromkeys(SPAN_KERNELS.values(), 0)}
+    in_shard = [False]
+    decode, call = ex._decode, GroupChunkProgram.__call__
+
+    def counted_decode(unit, flats, cols):
+        in_shard[0] = "column" in cols[unit.members[0]]
+        try:
+            return decode(unit, flats, cols)
+        finally:
+            in_shard[0] = False
+
+    def counted_call(prog, bufs, out_start, g_start, n_valid, out, base=0):
+        if not in_shard[0]:
+            return call(prog, bufs, out_start, g_start, n_valid, out, base)
+        before = {k: kernels[k].launches for k in SPAN_KERNELS.values()}
+        res = call(prog, bufs, out_start, g_start, n_valid, out, base)
+        for k in SPAN_KERNELS.values():
+            n = kernels[k].launches - before[k]
+            tally["spans"][k] += n
+            if g_start > 0:
+                tally["mid"][k] += n
+        return res
+
+    def clear():
+        for part in tally.values():
+            for k in part:
+                part[k] = 0
+
+    ex._decode = counted_decode
+    GroupChunkProgram.__call__ = counted_call
+    try:
+        yield tally, clear
+    finally:
+        GroupChunkProgram.__call__ = call
+        del ex._decode
+
+
+def run_mesh_runs(cols: dict, encoded: dict, span_encoded: dict, cost_model, libs) -> dict:
+    """Phase 16 (a), (b) and (d): ``ColumnPipeline.run_sharded`` on the card
+    (see the module docstring).  Every run is held bitwise to the pipeline's
+    single-device ``run()``, itself held to the source, so the sequential and
+    concurrent runs of a plan equal each other bitwise."""
+    from repro_torch.core import planner as planner_mod
+    from repro_torch.core.costmodel import LinkTopology
+    from repro_torch.core.ir import group_chunk_layout
+    from repro_torch.core.plan import make_plan
+    from repro_torch.data.columns import TABLE2_PLANS
+    from repro_torch.data.loader import ColumnPipeline
+    from repro_torch.launch.elastic import replan_suffix
+
+    spans_of = {f"{c}.{p}": c for c, p in SPAN_PLANS.items()}
+    plans = dict(TABLE2_PLANS) | {n: make_plan(SPAN_PLANS[c]) for n, c in spans_of.items()}
+    blobs = dict(encoded) | {n: span_encoded[c] for n, c in spans_of.items()}
+    pipe = ColumnPipeline(plans, device="cuda", cost_model=cost_model, mesh=max(MESH_PLAN_N))
+    pipe.load(blobs)
+    ex = pipe.executor
+    single = pipe.run()
+    ref = {}
+    for n in blobs:
+        ref[n] = _column_bits(single[n].array)
+        if not torch.equal(ref[n], bits(torch.from_numpy(cols[spans_of.get(n, n)]).cuda())):
+            raise AssertionError(f"mesh run: the single-device run of {n} differs from "
+                                 "its source")
+    single = None
+    with _shard_span_tally(ex, libs) as (tally, clear_tally):
+        physical = len(ex.physical_devices())
+        group_cols = [n for n in blobs if group_chunk_layout(ex.graph(n)) is not None]
+        profiles = {n: ex.column_profile(n) for n in group_cols}
+
+        def forced(**kw):
+            """The group-span columns alone at N = 4 with ``shard_threshold_bytes=0``
+            (the mesh planner's defaults otherwise, as ``mesh_plan``'s)."""
+            return planner_mod.plan_mesh_execution(
+                profiles, cost_model, n_devices=4, shard_threshold_bytes=0,
+                chunk_bytes=ex.chunk_bytes, policy=ex.policy, **kw)
+
+        def drive(label, mp, mode):
+            """One ``run_sharded`` with the counts and the shard-span tally
+            zeroed just before; its columns held to the single-device run, its
+            counted shard spans to those its schedules call for."""
+            want = _span_counts(ex, mp)
+            for lib in libs:
+                lib.launches = 0
+            clear_tally()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipe.run_sharded(plan=mp, concurrent=mode)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: lib.launches for k, lib in zip(KERNELS, libs)}
+            counts["shard_spans"] = dict(tally["spans"])
+            counts["mid_column_spans"] = dict(tally["mid"])
+            for c in mp.columns():
+                if not torch.equal(_column_bits(res[c].array), ref[c]):
+                    raise AssertionError(f"mesh run {label} concurrent={mode}: {c} differs from "
+                                         "the single-device run")
+            busy = {d for d, items in res.per_device.items() if items}
+            if not all(res.device_launches[d] > 0 for d in busy) or any(
+                    res.device_launches[d] < n for d, n in want["by_device"].items()):
+                raise AssertionError(f"mesh run {label}: device_launches {res.device_launches}, "
+                                     f"devices with items {busy}, shard spans by device "
+                                     f"{want['by_device']}")
+            if (tally["spans"], tally["mid"]) != (want["spans"], want["mid"]):
+                raise AssertionError(f"mesh run {label} concurrent={mode}: counted shard span "
+                                     f"launches {tally}, the schedules call for {want}")
+            for c in mp.shards:
+                if len(set(res[c].shard_devices)) < 2:
+                    raise AssertionError(f"mesh run {label}: {c} sharded on "
+                                         f"{res[c].shard_devices}")
+            return res, host_ms, counts
+
+        # (a) N = 2 and 4 over the 26 columns, and every group-span column sharded
+        cases = {"n2": pipe.mesh_plan(2), "n4": pipe.mesh_plan(4), "n4_forced_spans": forced()}
+        if set(cases["n4_forced_spans"].shards) != set(group_cols):
+            raise AssertionError(f"mesh run: the forced plan shards "
+                                 f"{sorted(cases['n4_forced_spans'].shards)} of {group_cols}")
+        runs, per_device_n4 = {}, None
+        for label, mp in cases.items():
+            got = {False: [], True: []}
+            for rep in range(MESH_RUN_REPS):              # the first pair is cold
+                for mode in ((False, True) if rep % 2 == 0 else (True, False)):
+                    res, host_ms, counts = drive(label, mp, mode)
+                    got[mode].append((res.makespan_s * 1e3, host_ms, counts,
+                                      dict(res.device_launches)))
+                    if label == "n4":
+                        per_device_n4 = res.per_device
+                    res = None
+            if label == "n4_forced_spans" and min(
+                    g[2]["mid_column_spans"][k] for m in got for g in got[m]
+                    for k in SPAN_KERNELS.values()) <= 0:
+                raise AssertionError(f"mesh run {label}: kernels 2 and 3 ran no mid-column "
+                                     f"span: {got}")
+            for mode in (False, True):
+                warm = got[mode][1:]
+                rec = {"logical": mp.n_devices, "physical": physical,
+                       "makespan_ms": float(np.median([g[0] for g in warm])),
+                       "makespan_ms_cold": got[mode][0][0],
+                       "host_ms": float(np.median([g[1] for g in warm])),
+                       "host_ms_cold": got[mode][0][1],
+                       "modeled_makespan_ms": mp.modeled_makespan_s * 1e3, "policy": mp.policy,
+                       "items": len(mp.items), "sharded": sorted(mp.shards),
+                       "device_launches": warm[-1][3],
+                       "kernel_launches": {k: v for k, v in warm[-1][2].items()
+                                           if k in KERNELS},
+                       "shard_spans": warm[-1][2]["shard_spans"],
+                       "mid_column_spans": warm[-1][2]["mid_column_spans"]}
+                key = f"{label} {'concurrent' if mode else 'sequential'}"
+                runs[key] = rec
+                print(f"mesh run {key} " + " ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items())
+                    + f" (every logical device shares one card and its one host link; the model"
+                    f" assumes {mp.n_devices} links)")
+
+        # (b) D2D legs: the reference's skewed-link fabric plan, shards placed
+        d2d = {}
+        topo = LinkTopology(n_links=4, link_scale=MESH_SKEW, d2d_scale=MESH_D2D_SCALE)
+        mp = forced(topology=topo, placement="sharded")
+        legs = {it: (mp.device_ids[s], mp.device_ids[d]) for it, s, d in mp.redistribution}
+        if not legs:
+            raise AssertionError("mesh run d2d: the skewed-link fabric plan has no D2D leg")
+        spec_of = {s.name: s for ss in mp.shards.values() for s in ss}
+        for mode in (False, True):
+            before = cost_model.topology.d2d_scale
+            res, host_ms, counts = drive("d2d", mp, mode)
+            after = cost_model.topology.d2d_scale
+            got = {it: (s, d) for it, (s, d, _) in res.d2d_copies.items()}
+            if got != legs or any(s == d for s, d in got.values()):
+                raise AssertionError(f"mesh run d2d: executed legs {got}, the plan's {legs}")
+            for col, specs in mp.shards.items():
+                want = tuple(int(mp.device_ids[mp.final_device(s.name)]) for s in specs)
+                if res[col].shard_devices != want:
+                    raise AssertionError(f"mesh run d2d: {col} on {res[col].shard_devices}, "
+                                         f"placed on {want}")
+            if after is None or after == before:
+                raise AssertionError(f"mesh run d2d: the fabric EWMA {before} -> {after}")
+            per_leg = {it: {"src": s, "dst": d,
+                            "bytes": spec_of[it].n_out
+                            * ref[planner_mod.shard_column_of(it)].element_size(),
+                            "copy_ms": secs * 1e3}
+                       for it, (s, d, secs) in res.d2d_copies.items()}
+            key = "concurrent" if mode else "sequential"
+            d2d[key] = {"makespan_ms": res.makespan_s * 1e3, "host_ms": host_ms,
+                        "legs": per_leg, "d2d_scale": after, "kernel_launches": counts}
+            res = None
+            d2d[key]["transfer_scale"] = cost_model.transfer_scale
+            print(f"mesh run d2d {key} logical 4 physical {physical} legs {len(per_leg)} "
+                  f"makespan_ms {d2d[key]['makespan_ms']:.4f} host_ms {host_ms:.2f} "
+                  f"fitted_d2d_scale {after:.6g} over the calibrated host link "
+                  f"(transfer_scale {cost_model.transfer_scale:.6g}; copies within one card's "
+                  f"memory, not NVLink) "
+                  + " ".join(f"{it} {v['src']}->{v['dst']} bytes {v['bytes']} copy_ms "
+                             f"{v['copy_ms']:.4f}" for it, v in per_leg.items()))
+
+        # (d) the elastic suffix: logical device 0 lost after its whole columns
+        done = [it for it in per_device_n4[0] if planner_mod.SHARD_SEP not in it]
+        mp2 = replan_suffix(cases["n4"], done, (1, 2, 3), cost_model,
+                            {n: ex.column_profile(n) for n in blobs}, shard_threshold_bytes=0)
+        res, host_ms, counts = drive("suffix", mp2, None)
+        if not set(res.per_device) <= {1, 2, 3} or set(mp2.columns()) & set(done):
+            raise AssertionError(f"mesh run suffix: per_device {sorted(res.per_device)}, "
+                                 f"re-ran {set(mp2.columns()) & set(done)}")
+        suffix = {"done": len(done), "columns": len(mp2.columns()),
+                  "per_device": {d: len(v) for d, v in res.per_device.items()},
+                  "makespan_ms": res.makespan_s * 1e3, "host_ms": host_ms,
+                  "modeled_makespan_ms": mp2.modeled_makespan_s * 1e3,
+                  "device_launches": dict(res.device_launches), "kernel_launches": counts}
+        print("mesh run suffix " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in suffix.items())
+            + f" logical 3 physical {physical}")
+        return {"runs": runs, "d2d": d2d, "suffix": suffix}
+
+
+def run_mesh_serving(cols: dict, encoded: dict, pipe, non_mesh: dict, libs) -> dict:
+    """Phase 16 (c): phase 6's closed mix through ``pipe`` (phase 6's serving
+    pipeline) with ``serve_planner("shared", mesh=2)``, a cold and a warm
+    wave, each request shipping its own shallow copies of the SF-1 blobs;
+    beside ``non_mesh``, phase 6's warm non-mesh wave of the same mix."""
+    import copy
+
+    from repro_torch.data.tpch import QUERY_COLUMNS
+
+    mix = [QUERY_COLUMNS[1], QUERY_COLUMNS[6], QUERY_COLUMNS[13]] * 2
+    truth = {c: bits(torch.from_numpy(cols[c]).cuda()) for names in mix for c in names}
+    out = {}
+    for label in ("cold", "warm"):
+        planner = pipe.serve_planner("shared", mesh=2)
+        for lib in libs:
+            lib.launches = 0
+        t0 = time.perf_counter()
+        reqs = [planner.submit(f"m{i}", {c: copy.copy(encoded[c]) for c in names})
+                for i, names in enumerate(mix)]
+        planner.drain()
+        wall = time.perf_counter() - t0
+        for req in reqs:
+            if not req.done or req.error is not None or set(req.results) != set(req.encs):
+                raise AssertionError(f"mesh serve {label} {req.rid}: done {req.done}, "
+                                     f"error {req.error!r}")
+            for c, r in req.results.items():
+                if not torch.equal(_column_bits(r.array), truth[c]):
+                    raise AssertionError(f"mesh serve {label} {req.rid}: {c} differs from "
+                                         "its source")
+        for rep in planner.reports:
+            if not rep.chosen.startswith("mesh:") or rep.devices != (0, 1):
+                raise AssertionError(f"mesh serve {label}: chose {rep.chosen} on "
+                                     f"{rep.devices}")
+        lat = [r.latency_s * 1e3 for r in reqs]
+        launches: dict = {}
+        for rep in planner.reports:
+            for d, n in rep.device_launches.items():
+                launches[d] = launches.get(d, 0) + n
+        rec = {"waves": len(planner.reports), "wall_ms": wall * 1e3,
+               "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+               "register_ms": sum(r.register_s for r in planner.reports) * 1e3,
+               "makespan_ms": sum(r.makespan_s for r in planner.reports) * 1e3,
+               "modeled_ms": sum(r.shared_makespan_s for r in planner.reports) * 1e3,
+               "device_launches": launches,
+               "kernel_launches": {k: lib.launches for k, lib in zip(KERNELS, libs)},
+               "chosen": [r.chosen for r in planner.reports]}
+        out[label] = rec
+        print(f"mesh serve closed_mix {label} mesh 2 " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items())
+            + f" | non-mesh warm wall_ms {non_mesh['wall_ms']:.4f} p50_ms "
+            f"{non_mesh['p50_ms']:.4f} p99_ms {non_mesh['p99_ms']:.4f} register_ms "
+            f"{sum(non_mesh['register_ms_per_wave']):.4f} makespan_ms "
+            f"{non_mesh['makespan_ms']:.4f}")
+    return out
 
 
 def main() -> int:
@@ -2942,6 +3314,7 @@ def main() -> int:
         else:
             span_pipes[cb].load({c: span_pipes[CHUNK_SIZES[0]].encoded(c)
                                  for c in SPAN_PLANS})
+    span_encoded = {c: span_pipes[CHUNK_SIZES[0]].encoded(c) for c in SPAN_PLANS}
     entries = []          # one record per timed chunk or span entry
     off_entries = []      # chunk and span entries held at a geometry off the native table
 
@@ -3483,6 +3856,16 @@ def main() -> int:
     mesh["phase_s"] = time.perf_counter() - t_mesh
     print(f"mesh phase_s {mesh['phase_s']:.2f}")
 
+    # --------------------------------------------------------------- phase 16
+    t_mesh = time.perf_counter()
+    mesh_run = run_mesh_runs(cols, {c: pipe.encoded(c) for c in columns}, span_encoded,
+                             pipe.executor.cost_model, libs)
+    mesh_run["serve"] = run_mesh_serving(
+        cols, {c: pipe.encoded(c) for c in columns}, served.pop("pipe"),
+        next(r for r in served["serve"] if r["mix"] == "closed_mix shared warm"), libs)
+    mesh_run["phase_s"] = time.perf_counter() - t_mesh
+    print(f"mesh run phase_s {mesh_run['phase_s']:.2f}")
+
     # --------------------------------------------------------------- phase 10
     makespan = float(np.median(makespans[1:]))
     plain_b = sum(r.plain_bytes for r in res.values())
@@ -3559,7 +3942,13 @@ def main() -> int:
             "lm_serve_launches": lm["launches"][kname],
             "lm_prompt_wave_launches": lm["wave_launches"][kname],
             "lm_family_launches": {a: r["launches"][kname] for a, r in lm_families.items()},
-            "lm_train_launches": lm_train["launches"][kname]})
+            "lm_train_launches": lm_train["launches"][kname],
+            "mesh_run_launches_per_run": {k: v["kernel_launches"][kname]
+                                          for k, v in mesh_run["runs"].items()},
+            "mesh_shard_span_launches_per_run": {
+                k: v["shard_spans"].get(kname, 0) for k, v in mesh_run["runs"].items()},
+            "mesh_mid_column_span_launches_per_run": {
+                k: v["mid_column_spans"].get(kname, 0) for k, v in mesh_run["runs"].items()}})
     kernels.append(queries["kernel"])
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -3574,6 +3963,7 @@ def main() -> int:
                                         "baseline": baseline, "lm": lm,
                                         "lm_families": lm_families, "lm_train": lm_train,
                                         "lm_roofline": lm_roofline, "mesh": mesh,
+                                        "mesh_run": mesh_run,
                                         "kernels": kernels},
                                        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -318,7 +318,10 @@ class GroupChunkProgram:
     stages run over the span's local intermediates.  The reference pads a
     span's launch to ``pad_elems`` and trims; writing the ``n_valid`` outputs in
     place gives the same bits.  ``pad_elems`` stays in the cache key, so body
-    spans share one program and the tail gets a second, as in the reference."""
+    spans share one program and the tail gets a second, as in the reference.
+    ``base`` is the global index of ``out``'s first element: 0 for a whole
+    column, a mesh shard's first output for a shard-sized ``out``; the
+    kernels still take the global ``out_start`` and ``g_start``."""
 
     graph: DecodeGraph
     g_size: int
@@ -332,11 +335,11 @@ class GroupChunkProgram:
         self._post = self.graph.stages[layout.stage_index + 1:]
 
     def __call__(self, bufs: dict[str, torch.Tensor], out_start: int, g_start: int,
-                 n_valid: int, out: torch.Tensor) -> torch.Tensor:
+                 n_valid: int, out: torch.Tensor, base: int = 0) -> torch.Tensor:
         self.calls += 1
         env = dict(bufs)
         gst = self._stage
-        final = out[out_start:out_start + n_valid]
+        final = out[out_start - base:out_start - base + n_valid]
         dst = None if self._post else final
         backend, geoms = stage_backend(self.backend)
         if isinstance(gst, GroupParallel):

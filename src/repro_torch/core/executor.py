@@ -1,7 +1,8 @@
-"""Plan-driven streaming decode on one device: whole-column, batched,
-chunked-transfer and per-chunk (element or group-span) streaming.
+"""Plan-driven streaming decode: whole-column, batched, chunked-transfer and
+per-chunk (element or group-span) streaming on one device, and mesh plans
+over several.
 
-This is the reference's ``StreamingExecutor`` on one device: ``run`` executes an
+This is the reference's ``StreamingExecutor``: ``run`` executes an
 ``ExecutionPlan`` (``core/planner.py``), built from the constructor's knobs --
 ``chunk_bytes`` (an int, None for whole-blob transfer, or ``"auto"`` for
 per-column sizing), ``chunk_decode``, ``policy``, ``pipeline``,
@@ -65,10 +66,22 @@ issuer commits each decode unit's copies (one transfer item per unit) as the
 window allows, and the decode driver, a generator, waits for a unit's item and
 launches its decode.  ``_InlineIssuer`` issues the copies on the calling thread,
 in the order above; with ``async_dispatch`` a ``DispatchEngine`` moves them onto
-one transfer thread (``zipflow-xfer``) under a shared host-staging budget.  The
+a transfer thread (``zipflow-xfer``) under a shared host-staging budget.  The
 window becomes a host watermark there: the copies of unit u + window are
 allowed only once the decode of unit u is recorded, so the copy stream's wait
 on that event is never placed before the event exists.
+
+``run_sharded`` executes a ``MeshExecutionPlan`` (``planner.plan_mesh_execution``):
+each logical device id's leg -- its whole columns, then its group-span shards --
+runs on the physical device ``devices[id % len(devices)]`` (every card for a
+CUDA executor; on one card, or on the CPU, every id shares it) with a copy
+stream and a compute stream of its own.  A shard decodes the spans of its
+group range with the global group and output offsets the kernels check, into
+an output of its own size; a redistribution leg copies a decoded shard into
+a fresh buffer on its final device.  The legs run one after another, or all
+at once: one ``DispatchEngine`` transfer thread a leg, under one
+host-staging budget, while the calling thread launches each leg's decodes as
+its items land.  Shards are then assembled (``_assemble_shards``).
 
 ``run`` also takes the reference's serving hooks: ``preempt`` is called before
 every decode unit but the first (a nested ``run`` on the same executor may
@@ -80,6 +93,7 @@ between them is not counted in it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -144,19 +158,33 @@ class ChunkSchedule:
     axes: dict[str, int] = dataclasses.field(default_factory=dict)
     row_caps: dict[str, tuple[int, ...]] = dataclasses.field(default_factory=dict)
     host_push: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    bit_offsets: dict[str, tuple[int, ...]] = dataclasses.field(default_factory=dict)
 
     @property
     def n_chunks(self) -> int:
         return len(self.out_starts)
 
     def piece(self, arr: np.ndarray, leaf: str, k: int) -> np.ndarray:
-        """Host slice of ``leaf`` for chunk ``k`` (row-capped for stripes)."""
+        """Host slice of ``leaf`` for chunk ``k`` (row-capped for stripes;
+        for a bit-packed leaf whose span starts ``bit_offsets`` bits into its
+        first word, the words shifted so that the piece starts there)."""
         lo, hi = self.slices[leaf][k]
         if self.axes.get(leaf, 0) == 0:
+            r = self.bit_offsets[leaf][k] if leaf in self.bit_offsets else 0
+            if r:
+                return shift_bits(arr[lo:hi + 1], r)[:hi - lo]
             return arr[lo:hi]
         caps = self.row_caps.get(leaf)
         rows = int(arr.shape[0]) if caps is None else caps[k]
         return np.ascontiguousarray(arr[:rows, lo:hi])
+
+
+def shift_bits(words: np.ndarray, r: int) -> np.ndarray:
+    """uint32 words advanced by ``r`` bits (0 < r < 32): bit b of the result
+    is bit b + r of ``words``, zeros past their end."""
+    w = words.astype(np.uint64)
+    nxt = np.append(w[1:], np.uint64(0))
+    return ((w >> np.uint64(r)) | (nxt << np.uint64(32 - r))).astype(np.uint32)
 
 
 def element_schedule(ops: dict[str, np.ndarray], layout, n: int,
@@ -206,6 +234,7 @@ class ColumnExec:
     chunk_decoded: bool = False
     kernel_launches: int = 0     # CUDA kernel launches of this column's decode
     #                              (of a batch: the batch's, shared by its columns)
+    shard_devices: tuple[int, ...] = ()  # mesh run: the final device id of each shard
 
 
 @dataclasses.dataclass
@@ -235,6 +264,49 @@ class QueryExec:
     prefuse_traffic_bytes: int
     resident: dict[str, "ColumnExec"] = dataclasses.field(default_factory=dict)
     makespan_s: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedColumn:
+    """A column assembled from equal-size group-span shards that sit on
+    distinct physical devices: the port's counterpart of the reference's
+    sharding-annotated global array (one process cannot make a DTensor over
+    several local GPUs: DTensor wants one rank per device).  ``shards`` in
+    index order, shard i on ``devices[i]`` from output row ``starts[i]``."""
+
+    shards: tuple[torch.Tensor, ...]
+    devices: tuple[torch.device, ...]
+    starts: tuple[int, ...]
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole column as one tensor on ``device`` (the first shard's by
+        default)."""
+        device = self.devices[0] if device is None else torch.device(device)
+        return torch.cat([a.to(device) for a in self.shards])
+
+
+@dataclasses.dataclass
+class MeshRunResult:
+    """Execution record of one ``run_sharded`` over a device mesh.
+
+    ``columns`` maps every column to its record (a sharded column once,
+    assembled); ``per_device`` lists the plan items each logical device id
+    executed and ``device_launches`` its decode units; ``d2d_copies`` each
+    executed redistribution leg, ``item -> (src device id, dst device id,
+    copy seconds)``.  Besides the reference's fields: ``makespan_s``, the run's
+    makespan on the device (a CUDA device: by events, from the first leg's
+    start to the last leg's or copy's end); ``leg_makespan_s`` each leg's."""
+
+    columns: dict[str, ColumnExec]
+    per_device: dict[int, tuple[str, ...]]
+    device_launches: dict[int, int]
+    plan: "planner_mod.MeshExecutionPlan"
+    d2d_copies: dict[str, tuple[int, int, float]] = dataclasses.field(default_factory=dict)
+    makespan_s: float = 0.0
+    leg_makespan_s: dict[int, float] = dataclasses.field(default_factory=dict)
+
+    def __getitem__(self, name: str) -> ColumnExec:
+        return self.columns[name]
 
 
 Entry = tuple[str, int, int, torch.dtype, tuple[int, ...]]
@@ -385,7 +457,8 @@ class _Unit:
 # Workers never compile: an item only copies and records events, and every
 # ProgramCache lookup, kernel build and load and query build stays on the
 # dispatcher thread (the three decode libraries are built and loaded on the
-# device at the executor's construction, a query's kernel at ``prepare_query``).
+# device at the executor's construction, and on another card when a leg is
+# placed there; a query's kernel at ``prepare_query``).
 
 
 class _InlineIssuer:
@@ -410,7 +483,7 @@ class _InlineIssuer:
 
 
 class _WorkerIssuer:
-    """One transfer thread for one host->device link.
+    """One transfer thread for one link.
 
     The dispatcher advances an item watermark (``advance``); the worker
     commits the allowed items strictly in order, acquiring one shared
@@ -419,24 +492,28 @@ class _WorkerIssuer:
     releases those slots as it consumes the items (``consumed``, once the
     unit's decode is launched).  A worker's exception surfaces as
     ``RuntimeError("transfer worker failed")`` when the dispatcher next waits
-    for a commit (``check_error``).  ``issue_s`` is the host time the worker's
-    commits took."""
+    for a commit (``check_error``, ``wait``).  ``issue_s`` is the host time
+    the worker's commits took; with ``sync`` (a device-to-device leg) an
+    item's ``issue`` returns what to block on (a CUDA event, or None when the
+    copy is already done), and ``issue_s`` is the blocking copy's duration."""
 
     def __init__(self, issue, total: int, held: Sequence[bool] | None = None,
                  budget: threading.BoundedSemaphore | None = None,
-                 cv: threading.Condition | None = None):
+                 cv: threading.Condition | None = None, name: str = "zipflow-xfer",
+                 sync: bool = False):
         self._issue = issue
         self.total = total
         self.committed = 0
         self._allowed = 0
         self._held = held if budget is not None else None
         self._budget = budget
+        self._sync = sync
         self._rel_ptr = 0
         self._stop = False
         self.issue_s = 0.0
         self.error: BaseException | None = None
         self._cv = cv if cv is not None else threading.Condition()
-        self._thread = threading.Thread(target=self._work, name="zipflow-xfer", daemon=True)
+        self._thread = threading.Thread(target=self._work, name=name, daemon=True)
         self._thread.start()
 
     # ----- worker side
@@ -457,7 +534,9 @@ class _WorkerIssuer:
                             if self._stop:
                                 return
                     t0 = time.perf_counter()
-                    self._issue(i)
+                    done = self._issue(i)
+                    if self._sync and done is not None:
+                        done.synchronize()
                     self.issue_s += time.perf_counter() - t0
                     with self._cv:
                         self.committed = i + 1
@@ -480,6 +559,15 @@ class _WorkerIssuer:
         if self.error is not None:
             raise RuntimeError("transfer worker failed") from self.error
 
+    def wait(self, target: int) -> None:
+        """Block until the items < target are committed, or raise the
+        worker's exception."""
+        target = min(target, self.total)
+        with self._cv:
+            while self.committed < target and self.error is None:
+                self._cv.wait(timeout=0.05)
+        self.check_error()
+
     def consumed(self, upto: int) -> None:
         """The dispatcher consumed items < upto: release their staging slots."""
         if self._held is None:
@@ -498,19 +586,23 @@ class _WorkerIssuer:
 
 
 class DispatchEngine:
-    """A transfer thread and the decode dispatcher (the calling thread).
+    """Transfer threads, one a link, and the decode dispatcher (the calling
+    thread).
 
-    ``issuer`` starts a ``_WorkerIssuer`` bound to the engine's condition and
-    its host-staging budget (``LinkTopology.host_window`` slots; None:
-    unbounded).  ``drive`` runs the decode driver on the calling thread,
-    resuming it once its pending ``("need", n)`` is committed; a need for
-    item n also says that the items before n - 1 are decoded, so their slots
-    are released first.  Liveness: needs come in item order and a slot is
-    released as its chunk is consumed, so the slot the worker waits for is
-    always held by a chunk the dispatcher consumes without further budget.
-    ``wait_s`` is the host time the dispatcher spent blocked on commits.
-    One leg, one link: the reference's round-robin over several legs serves
-    its mesh, which the port does not have yet."""
+    ``issuer`` starts a ``_WorkerIssuer`` bound to the engine's condition (so
+    any link's commit wakes the dispatcher) and its host-staging budget
+    (``LinkTopology.host_window`` slots, shared by every link; None:
+    unbounded).  ``drive`` round-robins the decode drivers of several legs on
+    the calling thread: a leg resumes as soon as its pending ``("need", n)``
+    is committed, so one leg's decode launches interleave with another's
+    while every link's worker keeps its copies going.  A need for item n
+    also says that the leg's items before n - 1 are decoded, so their slots
+    are released first, and a finished leg releases the rest.  Liveness: a
+    leg's needs come in item order and a slot is released as its chunk is
+    consumed, so every held slot belongs to a chunk some leg consumes
+    without further budget.  Any worker's error, a leg's or a D2D issuer's,
+    surfaces at the dispatcher's next step.  ``wait_s`` is the host time the dispatcher spent
+    blocked with no leg able to go on."""
 
     def __init__(self, host_window: int | None = None):
         self._cv = threading.Condition()
@@ -519,27 +611,50 @@ class DispatchEngine:
                         else threading.BoundedSemaphore(max(1, host_window)))
         self._issuers: list[_WorkerIssuer] = []
 
-    def issuer(self, issue, total: int, held: Sequence[bool] | None = None) -> _WorkerIssuer:
-        iss = _WorkerIssuer(issue, total, held=held, budget=self._budget, cv=self._cv)
+    def issuer(self, issue, total: int, held: Sequence[bool] | None = None,
+               name: str = "zipflow-xfer", sync: bool = False) -> _WorkerIssuer:
+        iss = _WorkerIssuer(issue, total, held=held, budget=self._budget, cv=self._cv,
+                            name=name, sync=sync)
         self._issuers.append(iss)
         return iss
 
-    def drive(self, gen, issuer: _WorkerIssuer):
-        """Run one decode-driver generator to its end; returns its value."""
-        while True:
-            try:
-                _, n = gen.send(None)
-            except StopIteration as stop:
-                return stop.value
-            issuer.consumed(n - 1)
-            n = min(n, issuer.total)
-            if issuer.committed < n:
+    def drive(self, tasks: dict) -> dict:
+        """``tasks``: key -> (decode-driver generator, its issuer from
+        ``issuer``).  Runs every generator to its end; returns key -> its
+        value."""
+        results: dict = {}
+        live = dict(tasks)
+        need: dict = dict.fromkeys(tasks)       # None: not started
+        while live:
+            self._check_errors()
+            progressed = False
+            for key in list(live):
+                gen, iss = live[key]
+                if need[key] is not None and iss.committed < need[key]:
+                    continue
+                try:
+                    _, n = gen.send(None)
+                except StopIteration as stop:
+                    results[key] = stop.value
+                    iss.consumed(iss.total)
+                    del live[key]
+                else:
+                    iss.consumed(n - 1)
+                    need[key] = min(n, iss.total)
+                progressed = True
+            if live and not progressed:
                 t0 = time.perf_counter()
                 with self._cv:
-                    while issuer.committed < n and issuer.error is None:
+                    while not (any(iss.error is not None for iss in self._issuers)
+                               or any(iss.committed >= need[k]
+                                      for k, (_, iss) in live.items())):
                         self._cv.wait(timeout=0.05)
                 self.wait_s += time.perf_counter() - t0
-            issuer.check_error()
+        return results
+
+    def _check_errors(self) -> None:
+        for iss in self._issuers:
+            iss.check_error()
 
     def close(self) -> None:
         for iss in self._issuers:
@@ -561,6 +676,17 @@ def _event() -> torch.cuda.Event:
     return torch.cuda.Event(enable_timing=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Place:
+    """Where one leg runs: its physical device and, on a CUDA device, the
+    streams of its copies and of its decode (None: the executor's copy
+    stream and the caller's current stream)."""
+
+    device: torch.device
+    copy: "torch.cuda.Stream | None" = None
+    compute: "torch.cuda.Stream | None" = None
+
+
 class _Leg:
     """One run's decode units on one device.
 
@@ -569,16 +695,22 @@ class _Leg:
     written once by whichever thread issues and read by the dispatcher only
     after the item is committed.  ``decode`` is the dispatcher's generator.
     The copy side keeps its own per-column buffers (``bufs``) and the
-    dispatcher its own (``flats``); no dict is mutated by both."""
+    dispatcher its own (``flats``); no dict is mutated by both.  An item of
+    ``cols`` with a ``"column"`` is a group-span shard of that column: it is
+    not reported to ``on_ready``; ``on_shard(item, state)`` is called once
+    its last span is launched instead."""
 
-    def __init__(self, ex: "StreamingExecutor", units: list[_Unit], window: int, cols: dict):
+    def __init__(self, ex: "StreamingExecutor", units: list[_Unit], window: int, cols: dict,
+                 place: _Place | None = None):
         self.ex, self.units, self.window, self.cols = ex, units, window, cols
+        self.device = ex.device if place is None else place.device
         self.slots: list = [None] * len(units)
         self.bufs: dict[str, torch.Tensor] = {}
         self.last = {m: u for u, unit in enumerate(units) for m in unit.members}
         self.done: list[str] = []       # columns decoded, not yet reported ready
+        self.makespan_s = 0.0
         for c in cols.values():
-            c.update(launches=0, batch=())
+            c.update(launches=0, batch=(), device=self.device)
 
     def budget_flags(self) -> list[bool]:
         """Per item: whether it holds a host-staging slot (a chunk of a
@@ -590,7 +722,12 @@ class _Leg:
         first = staged.needs[k - 1] if k else 0
         return staged, staged.copies[first:staged.needs[k]]
 
-    def decode(self, issuer, preempt=None, on_ready=None):
+    def compute_stream(self):
+        return contextlib.nullcontext()
+
+    def decode(self, issuer, preempt=None, on_ready=None, on_shard=None, defer: bool = False):
+        """The decode driver; returns the records, or None with ``defer``
+        (the caller collects them with ``finish`` once every leg is driven)."""
         self.begin()
         issuer.advance(self.window)
         flats: dict[str, torch.Tensor] = {}
@@ -603,7 +740,8 @@ class _Leg:
             self.land(unit, self.slots[u], flats)
             self.slots[u] = None
             before = _launches()        # this unit's launches only, not a nested run's
-            self.ex._decode(unit, flats, self.cols)
+            with self.compute_stream():
+                self.ex._decode(unit, flats, self.cols)
             launched = _launches() - before
             self.decoded(u, unit)
             for name in unit.members:
@@ -612,25 +750,38 @@ class _Leg:
                 if u == self.last[name]:
                     col["batch"] = unit.members if len(unit.members) > 1 else ()
                     del flats[name]     # the allocator owns the buffer from here
-                    self.done.append(name)
+                    if "column" not in col:
+                        self.done.append(name)
+                    elif on_shard is not None:
+                        on_shard(name, col)
             issuer.advance(u + self.window + 1)
             if on_ready is not None:
                 self.report(on_ready, block=False)
-        return self.finish(on_ready)
+        self.stop()
+        return None if defer else self.finish(on_ready)
 
 
 class _CudaLeg(_Leg):
-    """Copies on the executor's copy stream, decode on the caller's current
-    stream, every span timed by CUDA events; one synchronize at the end."""
+    """Copies on a copy stream, decode on a compute stream (by default the
+    executor's copy stream and the caller's current stream; a mesh leg's own
+    pair), every span timed by CUDA events; one synchronize at the end."""
 
-    def __init__(self, ex, units, window, cols):
-        super().__init__(ex, units, window, cols)
-        self.compute = torch.cuda.current_stream(ex.device)
-        self.copy = ex.copy_stream
+    def __init__(self, ex, units, window, cols, place: _Place | None = None):
+        super().__init__(ex, units, window, cols, place)
+        self.caller = torch.cuda.current_stream(self.device)
+        self.own = place is not None and place.compute is not None
+        self.compute = place.compute if self.own else self.caller
+        self.copy = place.copy if place is not None and place.copy is not None \
+            else ex.copy_stream
         self.decoded_ev: list[torch.cuda.Event] = []   # per unit: after its decode
+
+    def compute_stream(self):
+        return torch.cuda.stream(self.compute) if self.own else contextlib.nullcontext()
 
     def begin(self) -> None:
         self.start, self.end = _event(), _event()
+        if self.own:
+            self.compute.wait_stream(self.caller)  # after the caller's earlier work
         self.start.record(self.compute)
         self.copy.wait_event(self.start)       # no copy starts before the run does
 
@@ -649,7 +800,7 @@ class _CudaLeg(_Leg):
                     c0 = _event()
                     c0.record(copy)
                     self.bufs[name] = torch.empty(staged.host.numel(), dtype=torch.uint8,
-                                                  device=self.ex.device)
+                                                  device=self.device)
                 flat = self.bufs[name]
                 for a, b in ranges:
                     flat[a:b].copy_(staged.host[a:b], non_blocking=True)
@@ -695,13 +846,19 @@ class _CudaLeg(_Leg):
                 return
             on_ready(self.done.pop(0))
 
-    def finish(self, on_ready) -> dict[str, ColumnExec]:
+    def stop(self) -> None:
         self.end.record(self.compute)
+
+    def finish(self, on_ready) -> dict[str, ColumnExec]:
         if on_ready is not None:
             self.report(on_ready, block=True)
         self.end.synchronize()
         ex = self.ex
-        ex.last_makespan_s = self.start.elapsed_time(self.end) / 1e3
+        self.makespan_s = ex.last_makespan_s = self.start.elapsed_time(self.end) / 1e3
+        if self.own:
+            # the outputs were made on the leg's stream; the caller uses them on its own
+            for c in self.cols.values():
+                c["out"].record_stream(self.caller)
         # The reference re-times a cold first call so that calibration sees
         # decode, not jit.  Nothing here compiles at a first call, and the
         # module loading that CUDA would otherwise do at a kernel's first
@@ -717,8 +874,8 @@ class _HostLeg(_Leg):
     """The same units on the CPU: copies and decode timed by the host clock,
     a batch's times split evenly among its columns."""
 
-    def __init__(self, ex, units, window, cols):
-        super().__init__(ex, units, window, cols)
+    def __init__(self, ex, units, window, cols, place: _Place | None = None):
+        super().__init__(ex, units, window, cols, place)
         for c in cols.values():
             c.update(transfer=0.0, decode=0.0)
 
@@ -732,7 +889,7 @@ class _HostLeg(_Leg):
         for name in unit.members:
             staged, ranges = self._copy_ranges(name, unit.k)
             if unit.k == 0:
-                self.bufs[name] = torch.empty_like(staged.host, device=self.ex.device)
+                self.bufs[name] = torch.empty_like(staged.host, device=self.device)
             flat = self.bufs[name]
             for a, b in ranges:
                 flat[a:b].copy_(staged.host[a:b])
@@ -759,13 +916,36 @@ class _HostLeg(_Leg):
         while self.done:
             on_ready(self.done.pop(0))
 
+    def stop(self) -> None:
+        self.t_end = time.perf_counter()
+
     def finish(self, on_ready) -> dict[str, ColumnExec]:
         if on_ready is not None:
             self.report(on_ready, block=True)
         ex = self.ex
-        ex.last_makespan_s = time.perf_counter() - self.t_run
+        self.makespan_s = ex.last_makespan_s = self.t_end - self.t_run
         return {name: ex._record(name, c, c["transfer"], c["decode"], c["launches"],
                                  c["batch"]) for name, c in self.cols.items()}
+
+
+@dataclasses.dataclass
+class _D2DLeg:
+    """One redistribution leg of a mesh run: a decoded shard (``src``, whose
+    decode ends at event ``after`` on a card) copied to its final device id;
+    ``out`` the copy, ``seconds`` its time (events on a card, ``c0`` to
+    ``c1``; the host clock on the CPU, ending at ``t_end``)."""
+
+    src_id: int
+    dst_id: int
+    device: torch.device
+    src: torch.Tensor | None = None
+    after: "torch.cuda.Event | None" = None
+    out: torch.Tensor | None = None
+    seconds: float = 0.0
+    c0: "torch.cuda.Event | None" = None
+    c1: "torch.cuda.Event | None" = None
+    t_end: float = 0.0
+    iss: "_WorkerIssuer | None" = None
 
 
 class StreamingExecutor:
@@ -816,6 +996,10 @@ class StreamingExecutor:
         self._staged: dict[str, StagedColumn] = {}
         self._schedules: dict[tuple[str, int], ChunkSchedule | None] = {}
         self._copy_stream: torch.cuda.Stream | None = None
+        # a mesh leg's own (copy, compute) streams, per logical and physical
+        # device; a D2D copy's stream per device
+        self._leg_streams: dict[tuple, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+        self._d2d_streams: dict[torch.device, torch.cuda.Stream] = {}
         # cumulative host seconds of ``compile`` by part: the graph and its
         # program, the cost-model profile, the chunk schedule, the staging's
         # layout; and of every staging's allocation and packing (at a compile
@@ -981,25 +1165,33 @@ class StreamingExecutor:
                                  int(graph.n_out), chunk_bytes)
         return None if sched.n_chunks == 1 else sched
 
-    def _build_group_schedule(self, name: str,
-                              chunk_bytes: int) -> ChunkSchedule | None:
+    def _build_group_schedule(self, name: str, chunk_bytes: int, g_lo: int = 0,
+                              g_hi: int | None = None,
+                              force: bool = False) -> ChunkSchedule | None:
         """Spans of whole groups of about ``chunk_bytes`` of streamed group
-        bytes, on the encoder's group offsets."""
+        bytes, on the encoder's group offsets.  ``g_lo``/``g_hi`` restrict it
+        to a group range (a mesh shard), with ``g_starts``/``out_starts``
+        still global; ``force`` gives a schedule even when one span covers
+        the range (a shard needs one; a whole column then does not split)."""
         graph = self.graph(name)
         layout = group_chunk_layout(graph)
         if layout is None:
             return None
         ops = plan_mod.host_operands(self._encoded[name])
         n_groups = int(layout.n_groups)
+        g_hi = n_groups if g_hi is None else min(int(g_hi), n_groups)
+        g_lo = max(0, int(g_lo))
+        span_groups = g_hi - g_lo
         bpg = costmodel.group_bytes_per_group(layout, ops)
-        if bpg <= 0 or n_groups <= 1:
+        if span_groups < 1 or (bpg <= 0 and not force) or (n_groups <= 1 and not force):
             return None
-        G = costmodel.groups_per_chunk(chunk_bytes, bpg, layout.align_groups)
-        if G >= n_groups:
+        G = costmodel.groups_per_chunk(chunk_bytes, max(bpg, 1e-9), layout.align_groups)
+        if G >= span_groups and not force:
             return None                  # one span would be the whole column
+        G = max(1, min(G, span_groups))
         presum = np.asarray(layout.group_presum, dtype=np.int64)
-        g_starts = tuple(range(0, n_groups, G))
-        g_sizes = tuple(min(G, n_groups - s) for s in g_starts)
+        g_starts = tuple(range(g_lo, g_hi, G))
+        g_sizes = tuple(min(G, g_hi - s) for s in g_starts)
         out_starts = tuple(int(presum[s]) for s in g_starts)
         out_sizes = tuple(int(presum[s + z] - presum[s]) for s, z in zip(g_starts, g_sizes))
         if min(out_sizes) <= 0:
@@ -1012,11 +1204,19 @@ class StreamingExecutor:
             pad_sizes = tuple(body_pad if z == G else costmodel.pad_group_elems(sz)
                               for sz, z in zip(out_sizes, g_sizes))
         slices: dict[str, list[tuple[int, int]]] = {}
+        bit_offsets: dict[str, tuple[int, ...]] = {}
         for nm, spec in layout.sliced.items():
             arr = ops[nm]
             axis = layout.axes.get(nm, 0)
             length = int(arr.shape[axis])
             num = int(ops[spec.num_op][0]) if spec.num_op else int(spec.num)
+            if axis == 0 and any(s * num % spec.den for s in g_starts):
+                # a shard's first group need not start a word: the kernels
+                # read a span's slice from its first element, so a bit-packed
+                # leaf's pieces start at the span's first bit
+                if not (spec.num_op and spec.den == 32 and arr.dtype == np.uint32):
+                    raise ValueError(f"{name}: a span of {nm!r} starts inside an item")
+                bit_offsets[nm] = tuple(s * num % 32 for s in g_starts)
             per = []
             for s, z in zip(g_starts, g_sizes):
                 if axis == 1:
@@ -1036,7 +1236,7 @@ class StreamingExecutor:
         # rANS stripes: span k moves only the rows its own chunks consume
         row_caps: dict[str, tuple[int, ...]] = {}
         gw = self._host_group_words(graph, layout)
-        if gw is not None and len(gw) >= n_groups:
+        if gw is not None and len(gw) >= g_hi:
             for nm, axis in layout.axes.items():
                 if axis != 1 or nm not in layout.sliced:
                     continue
@@ -1050,7 +1250,19 @@ class StreamingExecutor:
             out_starts=out_starts, out_sizes=out_sizes, slices=slices,
             whole=layout.whole, kind="group", g_starts=g_starts, g_sizes=g_sizes,
             pad_sizes=pad_sizes, axes=dict(layout.axes), row_caps=row_caps,
-            host_push=dict(layout.host_push))
+            host_push=dict(layout.host_push), bit_offsets=bit_offsets)
+
+    def shard_schedule(self, name: str, chunk_bytes: int | None, g_lo: int,
+                       g_hi: int) -> ChunkSchedule | None:
+        """The group-span schedule of a column restricted to ``[g_lo, g_hi)``
+        (a mesh shard; None chunk size: the planner's default), built once
+        per range: always one for a group-chunkable column, None otherwise."""
+        key = (name, chunk_bytes, (int(g_lo), int(g_hi)))
+        if key not in self._schedules:
+            cb = planner_mod.DEFAULT_CHUNK_BYTES if chunk_bytes is None else chunk_bytes
+            self._schedules[key] = self._build_group_schedule(name, cb, g_lo, g_hi,
+                                                              force=True)
+        return self._schedules[key]
 
     @staticmethod
     def _host_group_words(graph: DecodeGraph, layout) -> np.ndarray | None:
@@ -1095,8 +1307,8 @@ class StreamingExecutor:
     # --------------------------------------------------------------------- run
     def run(self, order: Sequence[str] | None = None, plan: ExecutionPlan | None = None,
             window: int | None = None, names: Sequence[str] | None = None,
-            preempt=None, on_ready=None, async_dispatch: bool | None = None
-            ) -> dict[str, ColumnExec]:
+            preempt=None, on_ready=None,
+            async_dispatch: bool | None = None) -> dict[str, ColumnExec]:
         """Transfer + decode the registered columns (all, those of ``names``
         -- the reference's ``run(encs)`` --, or those of ``order``, in that
         order) as ``plan`` decides; without a plan, one is built over them from
@@ -1132,7 +1344,7 @@ class StreamingExecutor:
         window = plan.window if window is None else window
         cols = {name: self._column(name, plan.decisions[name]) for name in order}
         units = self._units(order, plan.decisions, cols)
-        leg = (_CudaLeg if self.device.type == "cuda" else _HostLeg)(self, units, window, cols)
+        leg = self._leg(units, window, cols)
         if not (self.async_dispatch if async_dispatch is None else async_dispatch):
             issuer = _InlineIssuer(leg.issue, len(units))
             res = _drive_seq(leg.decode(issuer, preempt, on_ready))
@@ -1141,7 +1353,7 @@ class StreamingExecutor:
             engine = DispatchEngine(host_window=self.cost_model.topology.host_window)
             try:
                 issuer = engine.issuer(leg.issue, len(units), held=leg.budget_flags())
-                res = engine.drive(leg.decode(issuer, preempt, on_ready), issuer)
+                res = engine.drive({0: (leg.decode(issuer, preempt, on_ready), issuer)})[0]
             finally:
                 engine.close()
             wait_s = engine.wait_s
@@ -1156,6 +1368,29 @@ class StreamingExecutor:
         staged = self._staging(name, d.chunk_bytes, sched)
         self._staged[name] = staged
         return {"decision": d, "sched": sched, "staged": staged}
+
+    def _leg(self, units: list[_Unit], window: int, cols: dict,
+             place: _Place | None = None) -> _Leg:
+        device = self.device if place is None else place.device
+        return (_CudaLeg if device.type == "cuda" else _HostLeg)(self, units, window, cols,
+                                                                   place)
+
+    def _place(self, device: torch.device, dev_id: int) -> _Place:
+        """Logical device ``dev_id``'s place on ``device``: on a CUDA device a
+        copy stream and a compute stream of its own, with every decode kernel
+        loaded there (they load at construction on the executor's device)."""
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device.type != "cuda":
+            return _Place(device)
+        if self.backend in ("kernel", "baseline") and device != self.device:
+            for lib in (FP_KERNEL, GP_KERNEL, NP_KERNEL):
+                lib.load(device)
+        streams = self._leg_streams.get((dev_id, device))
+        if streams is None:
+            streams = self._leg_streams[(dev_id, device)] = (torch.cuda.Stream(device),
+                                                          torch.cuda.Stream(device))
+        return _Place(device, *streams)
 
     def _units(self, order: list[str], decisions, cols: dict) -> list[_Unit]:
         """The run's decode units in order.  Per-chunk columns give one unit per
@@ -1185,7 +1420,8 @@ class StreamingExecutor:
         name, k = unit.members[0], unit.k
         col = cols[name]
         staged, sched = col["staged"], col["sched"]
-        prog = self._programs[name]
+        src = col.get("column", name)       # a shard decodes its column's program
+        prog = self._programs[src]
         if len(unit.members) > 1:
             out = prog.batched([cols[m]["staged"].views(flats[m]) for m in unit.members])
             for i, m in enumerate(unit.members):
@@ -1194,11 +1430,12 @@ class StreamingExecutor:
         if sched is None:
             col["out"] = prog(staged.views(flats[name]))
             return
-        graph = self.graph(name)
+        graph = self.graph(src)
         bufs = staged.views(flats[name], k)
         if k == 0:
-            col["out"] = torch.empty(graph.n_out, dtype=torch_dtype(graph.out_dtype),
-                                     device=self.device)
+            col["out"] = torch.empty(sum(sched.out_sizes) if "column" in col else graph.n_out,
+                                     dtype=torch_dtype(graph.out_dtype),
+                                     device=col.get("device", self.device))
         if sched.kind == "element":
             chunk = self.cache.get_chunk(graph, sched.out_sizes[k], self.backend)
             chunk(bufs, sched.out_starts[k], col["out"])
@@ -1209,22 +1446,330 @@ class StreamingExecutor:
             col["units"] = sched.n_chunks + (pro is not None)
         span = self.cache.get_group_chunk(graph, sched.g_sizes[k], sched.pad_sizes[k],
                                           self.backend)
+        # a shard's output starts at its first span's: the kernels still see
+        # the global offsets
         span({**bufs, **col["resident"]}, sched.out_starts[k], sched.g_starts[k],
-             sched.out_sizes[k], col["out"])
+             sched.out_sizes[k], col["out"], sched.out_starts[0] if "column" in col else 0)
 
     def _record(self, name: str, col: dict, transfer_s: float, decode_s: float,
                 launches: int, batched_with: tuple[str, ...]) -> ColumnExec:
-        enc = self._encoded[name]
+        src = col.get("column", name)
+        enc = self._encoded[src]
         sched = col["sched"]
         return ColumnExec(
             name=name, array=col["out"], transfer_s=transfer_s, decode_s=decode_s,
             compressed_bytes=enc.compressed_nbytes, plain_bytes=enc.plain_nbytes,
             n_chunks=(sched.n_chunks if sched is not None
                       else self.n_transfer_chunks(name, col["decision"].chunk_bytes)),
-            signature=self._programs[name].signature,
+            signature=self._programs[src].signature,
             batched_with=tuple(m for m in batched_with if m != name),
             decode_launches=col.get("units", 1 if sched is None else sched.n_chunks),
             chunk_decoded=sched is not None, kernel_launches=launches)
+
+    # -------------------------------------------------------------------- mesh
+    def physical_devices(self) -> list[torch.device]:
+        """The physical devices a mesh's device ids map onto, by the
+        reference's rule ``devices[id % len(devices)]``: every visible card
+        for a CUDA executor, the host for a CPU one."""
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [self.device]
+
+    def _shard_state(self, column: str, spec, d: ColumnDecision) -> dict:
+        """One group-span shard's state in a leg: its range schedule and its
+        staging (the whole-resident buffers, then each span's slices)."""
+        sched = self.shard_schedule(column, d.chunk_bytes, spec.g_lo, spec.g_hi)
+        if sched is None:
+            raise ValueError(f"column {column!r} is not group-span shardable")
+        key = (column, d.chunk_bytes, (spec.g_lo, spec.g_hi))
+        if key not in self._stagings:
+            self._stagings[key] = stage_chunks(plan_mod.host_operands(self._encoded[column]),
+                                               sched, self.device.type == "cuda",
+                                               self.register_split_s)
+        return {"decision": d, "sched": sched, "staged": self._stagings[key], "column": column}
+
+    def _mesh_leg(self, mesh_plan, dplan: ExecutionPlan, place: _Place) -> _Leg:
+        """One logical device's leg: its whole columns in plan order (batched
+        where the plan says), then each of its shards, span by span, over one
+        transfer queue."""
+        whole = [it for it in dplan.order if planner_mod.SHARD_SEP not in it]
+        cols = {n: self._column(n, dplan.decisions[n]) for n in whole}
+        units = self._units(whole, dplan.decisions, cols)
+        for it in dplan.order:
+            if planner_mod.SHARD_SEP in it:
+                col = planner_mod.shard_column_of(it)
+                spec = next(s for s in mesh_plan.shards[col] if s.name == it)
+                cols[it] = self._shard_state(col, spec, dplan.decisions[it])
+                units += [_Unit((it,), k) for k in range(cols[it]["sched"].n_chunks)]
+        return self._leg(units, dplan.window, cols, place)
+
+    @staticmethod
+    def _d2d_target(mesh_plan, devices: list, dst_logical: int) -> tuple[int, torch.device]:
+        """(device id, physical device) of a redistribution leg's destination."""
+        ids = mesh_plan.device_ids
+        dst_id = int(ids[dst_logical % len(ids)]) if ids else int(dst_logical)
+        return dst_id, torch.device(devices[dst_id % len(devices)])
+
+    def _d2d_copy(self, leg: "_D2DLeg"):
+        """Copy a decoded shard into a fresh buffer on its destination: on a
+        CUDA device on a stream of the destination's, after the shard's decode
+        (``leg.after``), between two events, returning the last (a copy
+        within one card's memory when both ends are the same card); on the
+        CPU at once, timed by the host clock."""
+        src, dev = leg.src, leg.device
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            leg.out = torch.empty_like(src, device=dev)
+            leg.out.copy_(src)
+            leg.t_end = time.perf_counter()
+            leg.seconds = leg.t_end - t0
+            return None
+        stream = self._d2d_streams.get(dev)
+        if stream is None:
+            stream = self._d2d_streams[dev] = torch.cuda.Stream(dev)
+        out = torch.empty_like(src, device=dev)
+        # the fresh buffer may be one the caller's stream has just freed
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        if leg.after is not None:
+            stream.wait_event(leg.after)
+        leg.c0, leg.c1 = _event(), _event()
+        with torch.cuda.stream(stream):
+            leg.c0.record(stream)
+            out.copy_(src, non_blocking=True)
+            leg.c1.record(stream)
+        src.record_stream(stream)
+        out.record_stream(stream)
+        leg.out = out
+        return leg.c1
+
+    def _observe_link_actuals(self, dev_id: int, dplan: ExecutionPlan, recs) -> None:
+        """Fold one leg's measured over predicted transfer time into the
+        per-link EWMA (``CostModel.observe_link``)."""
+        pred = sum(d.est_transfer_s for d in dplan.decisions.values())
+        meas = sum(r.transfer_s for r in recs)
+        if pred > 0.0 and meas > 0.0:
+            self.cost_model.observe_link(dev_id, meas / pred)
+
+    def _observe_d2d_actual(self, nbytes: int, copy_s: float) -> None:
+        """Fold one fabric copy's time over the calibrated host-link time of
+        the same bytes into the fabric EWMA (``CostModel.observe_d2d``)."""
+        ref = self.cost_model.h2d_equiv_s(nbytes)
+        if ref > 0.0 and copy_s > 0.0:
+            self.cost_model.observe_d2d(copy_s / ref)
+
+    def run_sharded(self, mesh_plan, encs: dict[str, plan_mod.Encoded] | None = None,
+                    on_ready=None, concurrent: bool | None = None) -> MeshRunResult:
+        """Execute a ``MeshExecutionPlan``: each logical device id runs one
+        leg, on the physical device ``devices[id % len(devices)]`` of
+        ``physical_devices()``, with a copy stream and a compute
+        stream of its own: its whole columns as its ``ExecutionPlan`` decides,
+        then its group-span shards, each decoded shard-local with the global
+        group and output offsets into a shard-sized output.  A
+        redistribution leg copies its shard to the final device as soon as
+        it is decoded.  Sharded columns are assembled (``_assemble_shards``).
+
+        ``concurrent`` (None: on when the legs with work sit on more than one
+        physical device; on one card, sequential: there the legs share one
+        link, one card and this thread, and the concurrent path measured
+        slower) issues every leg's copies at once, one ``DispatchEngine`` transfer thread a leg
+        under the plan topology's shared host-staging budget, the D2D legs on
+        blocking issuers of their own, while this thread launches the legs'
+        decodes as their items land; otherwise the legs run one after
+        another, inline.  The results are bitwise the same either way.  Whole
+        columns feed ``CostModel.observe``, every leg ``observe_link`` and
+        every copy ``observe_d2d``; shards feed no per-column timing."""
+        for name, enc in (encs or {}).items():
+            if self._programs.get(name) is None or self._encoded.get(name) is not enc:
+                self.compile(name, enc)
+        devices = self.physical_devices()
+        active = [int(mesh_plan.device_ids[li]) for li, p in enumerate(mesh_plan.plans)
+                  if p.order]
+        if concurrent is None:
+            concurrent = len({devices[d % len(devices)] for d in active}) > 1
+        redist = {it: int(dst) for it, _src, dst in mesh_plan.redistribution}
+        per_device, device_launches, physical = {}, {}, {}
+        legs: dict[int, tuple[int, ExecutionPlan, _Leg]] = {}
+        d2d: dict[str, _D2DLeg] = {}
+        for li, dplan in enumerate(mesh_plan.plans):
+            dev_id = int(mesh_plan.device_ids[li])
+            per_device[dev_id] = tuple(dplan.order)
+            device_launches[dev_id] = 0
+            physical[dev_id] = dev = devices[dev_id % len(devices)]
+            if not dplan.order:
+                continue
+            legs[li] = (dev_id, dplan,
+                        self._mesh_leg(mesh_plan, dplan, self._place(dev, dev_id)))
+            for it in dplan.order:
+                if it in redist and redist[it] != li:
+                    d2d[it] = _D2DLeg(dev_id, *self._d2d_target(mesh_plan, devices, redist[it]))
+        if concurrent and len(active) > 1:
+            done = self._drive_concurrent(legs, d2d, mesh_plan.topology.host_window, on_ready)
+        else:
+            done = self._drive_sequential(legs, d2d, on_ready)
+        results: dict[str, ColumnExec] = {}
+        shard_recs: dict[str, list] = {}
+        for li, (dev_id, dplan, _) in legs.items():
+            seen: set[frozenset] = set()
+            for it in dplan.order:
+                rec = done[li][it]
+                if planner_mod.SHARD_SEP not in it:
+                    results[it] = rec
+                    self.cost_model.observe(it, rec.transfer_s, rec.decode_s)
+                    grp = frozenset((it,) + rec.batched_with)
+                    if grp not in seen:          # batched members share one unit
+                        seen.add(grp)
+                        device_launches[dev_id] += rec.decode_launches
+                    continue
+                device_launches[dev_id] += rec.decode_launches
+                col = planner_mod.shard_column_of(it)
+                spec = next(s for s in mesh_plan.shards[col] if s.name == it)
+                ent = d2d.get(it)
+                if ent is None:
+                    shard_recs.setdefault(col, []).append((spec, rec, dev_id, physical[dev_id]))
+                    continue
+                self._observe_d2d_actual(ent.out.numel() * ent.out.element_size(),
+                                         ent.seconds)
+                shard_recs.setdefault(col, []).append(
+                    (spec, dataclasses.replace(rec, array=ent.out), ent.dst_id, ent.device))
+            self._observe_link_actuals(dev_id, dplan, done[li].values())
+        self._finish_sharded(results, shard_recs, on_ready)
+        makespan = self._mesh_makespan([leg for _, _, leg in legs.values()], d2d.values())
+        self.last_makespan_s = makespan
+        return MeshRunResult(
+            columns=results, per_device=per_device, device_launches=device_launches,
+            plan=mesh_plan, d2d_copies={it: (e.src_id, e.dst_id, e.seconds)
+                                        for it, e in d2d.items()},
+            makespan_s=makespan,
+            leg_makespan_s={dev_id: leg.makespan_s for dev_id, _, leg in legs.values()})
+
+    def _drive_sequential(self, legs: dict, d2d: dict, on_ready) -> dict:
+        """The legs one after another, each inline; a shard's D2D copy right
+        after its leg, blocking."""
+        done, issue_s = {}, 0.0
+        for li, (_, dplan, leg) in legs.items():
+            issuer = _InlineIssuer(leg.issue, len(leg.units))
+            done[li] = _drive_seq(leg.decode(issuer, None, on_ready))
+            issue_s += issuer.issue_s
+            for it in dplan.order:
+                ent = d2d.get(it)
+                if ent is not None:
+                    ent.src = done[li][it].array
+                    t0 = time.perf_counter()
+                    end = self._d2d_copy(ent)
+                    if end is not None:
+                        end.synchronize()
+                        ent.seconds = ent.c0.elapsed_time(end) / 1e3
+                    issue_s += time.perf_counter() - t0
+        self.last_issue_s, self.last_wait_s = issue_s, 0.0
+        return done
+
+    def _drive_concurrent(self, legs: dict, d2d: dict, host_window: int | None,
+                          on_ready) -> dict:
+        """Every leg's transfer thread at once under one host-staging budget,
+        the decode dispatcher round-robin over the legs on this thread, and
+        each D2D copy on a blocking issuer of its own, filled the moment its
+        shard's last span is launched."""
+        engine = DispatchEngine(host_window=host_window)
+        issuers = []
+        try:
+            for it, ent in d2d.items():
+                ent.iss = engine.issuer(lambda i, e=ent: self._d2d_copy(e), 1,
+                                        name=f"zipflow-d2d-{it}", sync=True)
+
+            def on_shard(item: str, col: dict) -> None:
+                ent = d2d.get(item)
+                if ent is not None:
+                    ent.src, ent.after = col["out"], col.get("d1")
+                    ent.iss.advance(1)
+
+            tasks = {}
+            for li, (dev_id, _, leg) in legs.items():
+                iss = engine.issuer(leg.issue, len(leg.units), held=leg.budget_flags(),
+                                    name=f"zipflow-xfer-d{dev_id}")
+                issuers.append(iss)
+                tasks[li] = (leg.decode(iss, None, on_ready, on_shard, defer=True), iss)
+            engine.drive(tasks)
+            done = {li: leg.finish(on_ready) for li, (_, _, leg) in legs.items()}
+            for ent in d2d.values():
+                ent.iss.wait(1)
+                if ent.c1 is not None:
+                    ent.seconds = ent.c0.elapsed_time(ent.c1) / 1e3
+        finally:
+            engine.close()
+        self.last_issue_s = sum(i.issue_s for i in issuers)
+        self.last_wait_s = engine.wait_s
+        return done
+
+    def _mesh_makespan(self, legs: list[_Leg], d2d) -> float:
+        """From the first leg's start to the last leg's or copy's end: by
+        events on a CUDA device (per physical device, the longest), by the
+        host clock on the CPU."""
+        if not legs:
+            return 0.0
+        if not isinstance(legs[0], _CudaLeg):
+            ends = [leg.t_end for leg in legs] + [e.t_end for e in d2d if e.t_end]
+            return max(ends) - min(leg.t_run for leg in legs)
+        spans: dict[torch.device, list] = {}
+        for leg in legs:
+            spans.setdefault(leg.device, [[], []])
+            spans[leg.device][0].append(leg.start)
+            spans[leg.device][1].append(leg.end)
+        for e in d2d:
+            if e.c1 is not None and e.device in spans:
+                spans[e.device][1].append(e.c1)
+        best = 0.0
+        for starts, ends in spans.values():
+            ref = starts[0]
+            lo = min(ref.elapsed_time(ev) for ev in starts)
+            hi = max(ref.elapsed_time(ev) for ev in ends)
+            best = max(best, (hi - lo) / 1e3)
+        return best
+
+    def _finish_sharded(self, results: dict, shard_recs: dict, on_ready=None) -> None:
+        """Assemble each sharded column from its shards (which already sit on
+        their final devices) into one record; ``shard_devices`` are the final
+        device ids, so the requested placement shows."""
+        assembled = []
+        for col in sorted(shard_recs):
+            lst = sorted(shard_recs[col], key=lambda t: t[0].index)
+            recs = [t[1] for t in lst]
+            enc = self._encoded[col]
+            results[col] = ColumnExec(
+                name=col, array=self._assemble_shards([r.array for r in recs],
+                                                      [t[3] for t in lst]),
+                transfer_s=max(r.transfer_s for r in recs),
+                decode_s=max(r.decode_s for r in recs),
+                compressed_bytes=enc.compressed_nbytes, plain_bytes=enc.plain_nbytes,
+                n_chunks=sum(r.n_chunks for r in recs),
+                signature=self._programs[col].signature,
+                decode_launches=sum(r.decode_launches for r in recs), chunk_decoded=True,
+                kernel_launches=sum(r.kernel_launches for r in recs),
+                shard_devices=tuple(t[2] for t in lst))
+            assembled.append(col)
+        if on_ready is None:
+            return
+        for dev in {results[c].array.device for c in assembled
+                    if isinstance(results[c].array, torch.Tensor)}:
+            if dev.type == "cuda":          # the joins are complete on the device
+                torch.cuda.current_stream(dev).synchronize()
+        for col in assembled:
+            on_ready(col)
+
+    @staticmethod
+    def _assemble_shards(arrs: list, devs: list):
+        """Join shard outputs, in index order, into one column: equal-size
+        shards on distinct physical devices stay where they are, as a
+        ``ShardedColumn``; uneven or co-located ones (on one card, always) are
+        concatenated on the first shard's device."""
+        if len(arrs) == 1:
+            return arrs[0]
+        devs = [torch.device(d) for d in devs]
+        sizes = [int(a.shape[0]) for a in arrs]
+        if len(set(sizes)) == 1 and len(set(devs)) == len(devs):
+            return ShardedColumn(shards=tuple(a.to(d) for a, d in zip(arrs, devs)),
+                                 devices=tuple(devs),
+                                 starts=tuple(int(x) for x in np.cumsum([0] + sizes[:-1])))
+        return torch.cat([a.to(devs[0]) for a in arrs])
 
     # ------------------------------------------------------------- serving
     def unregister(self, name: str) -> None:

@@ -20,8 +20,8 @@ baselines are also reported in ``ExecutionPlan.baselines`` for benchmarks.
 ``plan_mesh_execution`` plans a decode over a mesh of N devices: which
 device's link each column (or group-span shard of a large column) streams
 over and decodes on, scored by ``scheduler.simulate_stream_multi``; its
-``MeshExecutionPlan`` is plain data and needs no devices (executing one is
-the executor's, ROADMAP §1 item 3(b)).
+``MeshExecutionPlan`` is plain data and needs no devices;
+``StreamingExecutor.run_sharded`` executes one.
 
 This is the reference's ``core/planner.py``; ``tests/test_torch_planner.py``
 and ``tests/test_torch_mesh_plan.py`` hold its plans equal to the reference's

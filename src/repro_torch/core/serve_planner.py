@@ -34,9 +34,14 @@ the per-signature history survives, so wave N+1 plans from wave N's
 calibration.  A request's latency is taken when its last column's decode is
 complete on the device (the executor's ``on_ready``).
 
+``mesh=N`` (N > 1) spreads each wave over N devices: the wave's columns are
+re-planned by ``planner.plan_mesh_execution`` (at the wave plan's window,
+under ``placement`` when given) and run by ``StreamingExecutor.run_sharded``;
+a mesh wave takes no preemption (point requests cut in between waves), and
+its report carries the devices, their decode units and any D2D copies.
+
 ``ServePlanner()`` without an executor builds one for the card and raises
-when CUDA is absent.  Mesh waves (``mesh > 1``, ``placement``) are not ported
-yet (ROADMAP §1 item 3(b), the executor half of the mesh).
+when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -111,7 +116,7 @@ class WaveReport:
     wave's columns (programs, schedules and pinned staging), with
     ``register_split_s`` its parts (``StreamingExecutor.register_split_s``),
     and ``makespan_s``, the run's makespan on the device (CUDA events on a
-    card)."""
+    card; of a mesh wave, its longest leg's)."""
 
     rids: tuple[str, ...]
     policy: str
@@ -127,13 +132,18 @@ class WaveReport:
     decode_launches: int = 0
     cross_batched_saved: int = 0         # launches removed by cross-rid batching
     preempted: int = 0                   # point requests served mid-wave
+    devices: tuple[int, ...] = ()        # mesh waves: the device ids spanned
+    device_launches: dict[int, int] = dataclasses.field(default_factory=dict)
+    # mesh waves: the redistribution legs run, item -> (src id, dst id, seconds)
+    d2d_copies: dict[str, tuple[int, int, float]] = dataclasses.field(default_factory=dict)
     register_s: float = 0.0
     register_split_s: dict[str, float] = dataclasses.field(default_factory=dict)
     makespan_s: float = 0.0
 
 
 class ServePlanner:
-    """Shared-resource planner over one ``StreamingExecutor``.
+    """Shared-resource planner over one ``StreamingExecutor`` (its device, or
+    with ``mesh`` several).
 
     ``submit`` is thread-safe (concurrent producers share one queue and one
     ProgramCache); ``drain`` runs waves until the queue is empty and returns
@@ -147,9 +157,6 @@ class ServePlanner:
         if policy not in ("shared", "slo", "fifo-per-query"):
             raise ValueError(f"unknown serve policy {policy!r}; known: "
                              "shared, slo, fifo-per-query")
-        if (mesh or 0) > 1 or placement is not None:
-            raise NotImplementedError("mesh waves (mesh > 1, placement) are not ported "
-                                      "yet: ROADMAP §1 item 3(b)")
         if executor is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("ServePlanner builds a CUDA executor by default and no "
@@ -159,6 +166,10 @@ class ServePlanner:
         self.executor = executor
         self.policy = policy
         self.max_wave = max_wave
+        # mesh=N: waves span N devices; placement="sharded" pins each shard's
+        # final device (the planner may land it elsewhere and copy it over)
+        self.mesh = mesh
+        self.placement = placement
         self._lock = threading.Lock()
         self._pending: deque[ServeRequest] = deque()
         self._served: deque[ServeRequest] = deque()   # preemptive completions
@@ -330,17 +341,35 @@ class ServePlanner:
             def on_ready(name: str) -> None:
                 ready_at[name] = time.perf_counter()
 
-            use_preempt = self.policy == "slo" and not preemptive
+            use_mesh = (self.mesh or 0) > 1 and not preemptive
+            # a mesh wave trades unit-boundary preemption for its legs: point
+            # requests still cut in between waves
+            use_preempt = self.policy == "slo" and not preemptive and not use_mesh
             if not preemptive:       # nested waves must not clobber the count
                 self._last_preempted = 0
             self._in_wave = use_preempt
             try:
-                results = ex.run(names=list(encs), plan=ep,
-                                 preempt=self._preempt if use_preempt else None,
-                                 on_ready=on_ready)
+                if use_mesh:
+                    profiles = {n: ex.column_profile(n) for n in encs}
+                    mesh_ep = planner_mod.plan_mesh_execution(
+                        profiles, ex.cost_model, n_devices=int(self.mesh), window=ep.window,
+                        placement=self.placement)
+                    report.chosen = f"mesh:{mesh_ep.policy}"
+                    report.candidates["mesh"] = mesh_ep.modeled_makespan_s
+                    report.shared_makespan_s = mesh_ep.modeled_makespan_s
+                    report.devices = tuple(sorted(mesh_ep.device_ids))
+                    mres = ex.run_sharded(mesh_ep, on_ready=on_ready)
+                    results = mres.columns
+                    report.device_launches = dict(mres.device_launches)
+                    report.d2d_copies = dict(mres.d2d_copies)
+                    report.makespan_s = max(mres.leg_makespan_s.values(), default=0.0)
+                else:
+                    results = ex.run(names=list(encs), plan=ep,
+                                     preempt=self._preempt if use_preempt else None,
+                                     on_ready=on_ready)
+                    report.makespan_s = ex.last_makespan_s
             finally:
                 self._in_wave = False
-            report.makespan_s = ex.last_makespan_s
             report.wall_s = time.perf_counter() - t_wave0
             report.preempted = 0 if preemptive else self._last_preempted
 

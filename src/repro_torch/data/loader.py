@@ -13,7 +13,8 @@ and decode-fused queries over the registered columns (``lower_query``,
 memory; and serving (``serve_planner``): many requests' columns decoded in
 shared waves (``core/serve_planner.py``); and mesh plans (``mesh_plan``):
 which of N devices each column, or group-span shard of a large column,
-streams to and decodes on (``core/planner.py plan_mesh_execution``).
+streams to and decodes on (``core/planner.py plan_mesh_execution``), run by
+``run_sharded``.
 
 It runs on the card unless the caller asks for the CPU: with no ``device`` it
 takes ``torch.device("cuda")`` and raises if CUDA is absent.  On a CUDA device
@@ -35,7 +36,8 @@ from repro_torch.algos.bitpack import pack_np
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import scheduler
 from repro_torch.core.compiler import compile_blob, device_buffers
-from repro_torch.core.executor import ColumnExec, QueryExec, StreamingExecutor
+from repro_torch.core.executor import (ColumnExec, MeshRunResult, QueryExec,
+                                       StreamingExecutor)
 from repro_torch.core.plan import Plan
 from repro_torch.core.planner import ExecutionPlan, MeshExecutionPlan, plan_mesh_execution
 from repro_torch.core.serve_planner import ServePlanner
@@ -257,11 +259,17 @@ class ColumnPipeline:
         kw.setdefault("placement", self.placement)
         return plan_mesh_execution(profiles, self.executor.cost_model, n_devices=n, **kw)
 
-    def run_sharded(self, n_devices: int | None = None, plan: MeshExecutionPlan | None = None):
-        """Executing a mesh plan is the executor's half of the mesh, not
-        ported yet."""
-        raise NotImplementedError("running a mesh plan over several devices is not ported "
-                                  "yet: ROADMAP §1 item 3(b)")
+    def run_sharded(self, n_devices: int | None = None, plan: MeshExecutionPlan | None = None,
+                    concurrent: bool | None = None) -> MeshRunResult:
+        """Execute the registered columns over a device mesh: ``plan`` (the
+        ``mesh_plan(n_devices)`` by default) through
+        ``StreamingExecutor.run_sharded``, each logical device's leg on the
+        physical device ``devices[id % len(devices)]``, its legs issued
+        together unless ``concurrent=False``.  Returns the
+        ``MeshRunResult``."""
+        if plan is None:
+            plan = self.mesh_plan(n_devices)
+        return self.executor.run_sharded(plan, self._encoded, concurrent=concurrent)
 
     def _measure(self, name: str) -> tuple[float, float]:
         """The column's (transfer_s, decode_s) for scheduling: the executor's
@@ -294,13 +302,18 @@ class ColumnPipeline:
         return self.executor.modeled_makespan(names=names, pipeline=pipeline,
                                               johnson=johnson, chunked=chunked)
 
-    def serve_planner(self, policy: str = "shared", max_wave: int | None = None):
+    def serve_planner(self, policy: str = "shared", max_wave: int | None = None,
+                      mesh: int | None = None):
         """A multi-query serving planner sharing this pipeline's executor (its
         ProgramCache and calibrated CostModel): concurrent requests' columns
         compose into one shared transfer queue, with cross-request batching and
-        SLO-aware issue order (``core/serve_planner.py``).  Requests submit
-        their own ``Encoded`` blobs; ``encode_request`` builds them."""
-        return ServePlanner(self.executor, policy=policy, max_wave=max_wave)
+        SLO-aware issue order (``core/serve_planner.py``); with ``mesh`` (the
+        constructor's by default) each wave spans that many devices, under the
+        constructor's ``placement``.  Requests submit their own ``Encoded``
+        blobs; ``encode_request`` builds them."""
+        return ServePlanner(self.executor, policy=policy, max_wave=max_wave,
+                            mesh=mesh if mesh is not None else self.mesh,
+                            placement=self.placement)
 
     def encode_request(self, columns: dict[str, np.ndarray]) -> dict[str, plan_mod.Encoded]:
         """A request's columns encoded with this pipeline's plans (the blobs

@@ -1588,3 +1588,32 @@ def test_compressed_dp_step_two_ranks_on_one_card(gpu):
     cs = _chip_smoke()
     rec = cs.run_dp_compressed("qwen1.5-0.5b", 0, smoke=True)
     assert rec["launches_per_rank"] == [cs.MESH_STEPS] * cs.DP_RANKS
+
+
+# ------------------------------------------------------------ the mesh's executor
+
+@pytest.mark.parametrize("concurrent", [False, True])
+def test_sharded_run_on_the_card(concurrent, gpu):
+    """``run_sharded`` of an N = 4 plan with ``shard_threshold_bytes=0``,
+    every logical device on this card with its own streams, bitwise the
+    single-device run: kernels 2 and 3 decode spans that start inside a
+    column into shard-sized outputs (the group-span columns of
+    ``tests/test_torch_mesh_run.py``)."""
+    import torch_mesh_ranks as R
+    from repro_torch.core import plan as P
+
+    cols, plans = R.mesh_columns(P)
+    pipe = ColumnPipeline(plans, device=gpu, chunk_bytes="auto", chunk_decode=True, mesh=4)
+    pipe.compress(cols)
+    single = pipe.run()
+    mp = pipe.mesh_plan(shard_threshold_bytes=0)
+    assert {"big", "rle", "sdbp"} <= set(mp.shards)
+    before = (GP.launches, NP.launches)
+    res = pipe.run_sharded(plan=mp, concurrent=concurrent)
+    assert GP.launches > before[0] and NP.launches > before[1]
+    for n, a in cols.items():
+        assert torch.equal(res[n].array, single[n].array), n
+        assert torch.equal(res[n].array.cpu(), torch.from_numpy(a)), n
+    assert pipe.executor.physical_devices()[0] == gpu and res.makespan_s > 0
+    assert all(len(set(res[c].shard_devices)) > 1 for c in mp.shards)
+    assert [t.name for t in threading.enumerate() if t.name.startswith("zipflow-")] == []

@@ -21,7 +21,7 @@ cost models pinned to one chip as in ``tests/test_torch_planner.py``:
     columns' ``kernel_launches`` without the nested run's; ``on_ready`` once per
     column, batched members included; ``_preempt`` serves a late point request;
   * the drain loop, ``stop``, per-request wave errors, the per-name stores
-    emptied after every wave, and the constructor's refusals.
+    emptied after every wave, the constructor's refusals, and mesh waves.
 """
 import collections
 import dataclasses
@@ -585,9 +585,24 @@ def test_serve_planner_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(mesh=4), dict(placement="sharded")])
-def test_mesh_waves_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="§1 item 3"):
-        ServePlanner(port_executor(), **kw)
+def test_mesh_and_placement_planners_serve_a_wave(kw, cols):
+    """``mesh > 1`` spreads a wave over that many devices (all on the host
+    here); ``placement`` alone serves a plain wave, as in the reference."""
+    sp = ServePlanner(port_executor(), **kw)
+    names = ["L_DISCOUNT", "L_TAX", "L_RETURNFLAG"]
+    req = sp.submit("r", port_blobs(ref_blobs(cols, names)))
+    sp.drain()
+    assert req.error is None
+    for c in names:
+        np.testing.assert_array_equal(bits(req.results[c].array.numpy()), bits(cols[c]))
+    rep = sp.reports[-1]
+    if "mesh" in kw:
+        assert rep.chosen.startswith("mesh:")
+        assert rep.devices == tuple(range(kw["mesh"]))
+        assert rep.device_launches and rep.makespan_s > 0
+    else:
+        assert not rep.chosen.startswith("mesh:") and rep.devices == ()
+    assert per_name_state(sp.executor) == set()
 
 
 def test_unknown_policy_raises():

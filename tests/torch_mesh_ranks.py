@@ -4,7 +4,9 @@ pytest does not collect it.
     python tests/torch_mesh_ranks.py CASE DIR
 
 A case named ``ref_*`` runs the JAX reference on forced host devices
-(``XLA_FLAGS`` set before JAX starts, as ``tests/test_elastic.py`` does);
+(``XLA_FLAGS`` set before JAX starts, as ``tests/test_elastic.py`` does;
+``ref_mesh_run`` pickles the reference's mesh decode plans and runs to
+``ref_mesh_run.pkl``);
 any other spawns ``WORLD[case]`` processes on the CPU that form a ``gloo``
 group over a file in ``DIR`` and run ``rank_<case>``.  Inputs and results
 cross as ``.npz`` files in ``DIR``: the reference's parameters
@@ -21,7 +23,7 @@ import traceback
 import numpy as np
 
 WORLD = {"psum": 4, "dp": 4, "place": 4, "elastic": 4}
-FORCED = {"ref_psum": 4, "ref_dp": 4, "ref_elastic": 4}
+FORCED = {"ref_psum": 4, "ref_dp": 4, "ref_elastic": 4, "ref_mesh_run": 4}
 ARCH = "qwen1.5-0.5b"
 PSUM_SHAPES = ((64,), (7, 33), (3, 5, 9), (1,))
 DP_OPT = dict(lr=1e-2, warmup_steps=0, total_steps=10, weight_decay=0.1)
@@ -96,7 +98,107 @@ def batches():
     return out
 
 
+def mesh_columns(P):
+    """The reference's mesh decode columns (``tests/test_mesh_decode.py``) and
+    their plans in the plan module ``P`` (either package's): a skewed rANS
+    grid, RLE, a string dictionary with a bit-packed index, two small rANS
+    columns."""
+    rng = np.random.default_rng(7)
+    cols = {
+        "big": np.concatenate([np.zeros(50_000, np.int32),
+                               rng.integers(0, 60, 30_000).astype(np.int32)]),
+        "rle": np.repeat(rng.integers(0, 50, 400), rng.integers(1, 90, 400)).astype(np.int32),
+        "sdbp": np.frombuffer(b"the quick brown fox jumps. " * 1500, dtype=np.uint8).copy(),
+        "small0": rng.integers(0, 9, 5_000).astype(np.int32),
+        "small1": rng.integers(0, 9, 5_000).astype(np.int32),
+    }
+    plans = {"big": P.Plan("ans", params={"chunk_size": 512}), "rle": P.make_plan("rle"),
+             "sdbp": P.Plan("stringdict", children={"index": P.make_plan("bitpack")}),
+             "small0": P.Plan("ans", params={"chunk_size": 512}),
+             "small1": P.Plan("ans", params={"chunk_size": 512})}
+    return cols, plans
+
+
+def mesh_blobs():
+    """``mesh_columns`` and their blobs, encoded by the reference."""
+    from repro.core import plan as RP
+
+    cols, plans = mesh_columns(RP)
+    return cols, {n: RP.encode(plans[n], a) for n, a in cols.items()}
+
+
 # --------------------------------------------------------- reference side
+
+def ref_mesh_run(d: str) -> None:
+    """The reference's mesh runs of ``tests/test_mesh_decode.py`` and
+    ``tests/test_async_dispatch.py`` on 4 devices: the ``shard_threshold_bytes=0``
+    plans at N = 2 and 4 with every shard's schedule, the N = 4 plan run
+    sequentially and concurrently, the elastic suffix after the loss of
+    device 0, the skewed-link fabric plan, and a serving wave over 2
+    devices; plans, schedules and results pickled to ``ref_mesh_run.pkl``."""
+    import pickle
+
+    import jax
+    from repro.core import planner as RPL
+    from repro.core.compiler import ProgramCache
+    from repro.core.costmodel import LinkTopology
+    from repro.core.executor import StreamingExecutor
+    from repro.core.serve_planner import ServePlanner
+    from repro.launch.elastic import replan_suffix
+
+    assert jax.device_count() == 4
+    _, encs = mesh_blobs()
+    ex = StreamingExecutor(chunk_bytes="auto", chunk_decode=True, cache=ProgramCache())
+    for n, e in encs.items():
+        ex.compile(n, e)
+    profiles = {n: ex.column_profile(n) for n in encs}
+    out: dict = {"plans": {}, "runs": {}, "schedules": {}}
+
+    def run(label, mp, **kw):
+        res = ex.run_sharded(mp, encs, **kw)
+        out["plans"][label] = mp
+        out["runs"][label] = {
+            "arrays": {c: np.asarray(res[c].array) for c in mp.columns()},
+            "per_device": dict(res.per_device), "device_launches": dict(res.device_launches),
+            "shard_devices": {c: tuple(res[c].shard_devices) for c in mp.shards},
+            "d2d": {it: (s, t) for it, (s, t, _) in res.d2d_copies.items()}}
+        return res
+
+    for n in (2, 4):
+        mp = RPL.plan_mesh_execution(profiles, ex.cost_model, n_devices=n,
+                                     shard_threshold_bytes=0)
+        out["plans"][f"n{n}"] = mp
+        for col, specs in mp.shards.items():
+            for s in specs:
+                cb = next(p.decisions[s.name] for p in mp.plans
+                          if s.name in p.decisions).chunk_bytes
+                out["schedules"][(n, s.name)] = (
+                    cb, ex.shard_schedule(col, cb, s.g_lo, s.g_hi))
+    mp = out["plans"]["n4"]
+    res = run("seq", mp, concurrent=False)
+    run("conc", mp, concurrent=True)
+    done = [it for it in res.per_device[0] if RPL.SHARD_SEP not in it]
+    run("suffix", replan_suffix(mp, done, surviving_device_ids=(1, 2, 3),
+                                cost_model=ex.cost_model, profiles=profiles,
+                                shard_threshold_bytes=0))
+    topo = LinkTopology(n_links=4, link_scale=(6.0, 1.0, 1.0, 1.0), d2d_scale=0.05)
+    run("fabric", RPL.plan_mesh_execution(profiles, ex.cost_model, n_devices=4,
+                                          shard_threshold_bytes=0, topology=topo,
+                                          placement="sharded"))
+    sp = ServePlanner(StreamingExecutor(chunk_bytes="auto", chunk_decode=True,
+                                        cache=ProgramCache()), mesh=2)
+    sp.submit("q1", {"big": encs["big"], "small0": encs["small0"]})
+    sp.submit("q2", {"rle": encs["rle"], "small1": encs["small1"]})
+    served = sp.drain()
+    rep = sp.reports[-1]
+    out["serve"] = {"chosen": rep.chosen, "devices": tuple(rep.devices),
+                    "launch_devices": sorted(rep.device_launches),
+                    "arrays": {f"{rid}/{c}": np.asarray(a) for rid, r in served.items()
+                               for c, a in r.arrays.items()}}
+    with open(os.path.join(d, "ref_mesh_run.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 
 def _shard_map():
     import jax
