@@ -64,11 +64,7 @@ non-zero before the final line:
      chunk_decode=True)`` and the same at 4 MiB (FIFO, no batching, planned
      once at window 2, as for the whole path), each cold and ``WARM_RUNS`` times warm with the counts zeroed just before,
      every column equal to its source; and the same for the two kernel-2 span
-     columns.  Then the host time of one whole-column and one chunked 1 MiB
-     run (``run(window=2)``, so each plans inside the run, as a caller's does)
-     split by ``torch.profiler``'s Python tracer into planning, argument
-     packing, the launch calls, views, events, cache lookups, copies and the
-     rest (``host_split`` lines);
+     columns;
   5. the planner's paths: ``ColumnPipeline(plans, device="cuda")`` under the
      reference's defaults (chunk-johnson, 1 MiB transfer chunks, batching),
      then ``policy="adaptive", chunk_bytes="auto", chunk_decode=True`` planned
@@ -471,44 +467,6 @@ MESH_REL = 1e-9              # N = 1 against plan_execution: the same simulation
 MESH_RUN_REPS = 3            # runs of each plan in each mode (the first cold)
 MESH_SKEW = (6.0, 1.0, 1.0, 1.0)   # the reference's skewed-link fabric case
 MESH_D2D_SCALE = 0.05        # (tests/test_mesh_decode.py): link 0 6x slow, a cheap fabric
-
-
-def host_part(name: str) -> str | None:
-    """The part of the host's work a ``torch.profiler`` event of a run belongs
-    to: Python calls are named ``path(line): function``, torch ops ``aten::...``;
-    None for the rest (the executor's own loop, dict and list work)."""
-    m = re.match(r"(.*)\((\d+)\): (\S+)$", name)
-    path, fn = (m.group(1), m.group(3)) if m else ("", "")
-    if path.endswith(("core/planner.py", "core/scheduler.py")) or \
-            (path.endswith("core/executor.py") and fn in ("plan", "issue_order")):
-        return "planning"
-    if path.endswith("core/costmodel.py"):
-        return "cost_model"
-    if path.endswith("kernels/cuda.py"):
-        return "launch_call" if fn in ("launch", "launch_batched") else "arg_packing"
-    if fn in ("_launch_args", "kernel_out", "finish", "into", "stage_device",
-              "batch_device", "chain_dtype", "gp_dtype", "np_dtype", "native_config"):
-        return "arg_packing"
-    if path.endswith("core/executor.py") and fn == "views":
-        return "views"
-    if "torch/cuda/" in path:
-        return "events_streams"
-    if (path.endswith("core/compiler.py") and fn in ("_get", "_lookup", "get", "get_chunk",
-                                                     "get_group_chunk", "get_group_prologue")) \
-            or (path.endswith("core/executor.py") and fn in ("_staging", "_column", "_units",
-                                                             "chunk_schedule")):
-        return "cache_lookup"
-    if name.startswith("aten::copy_"):
-        return "copies"
-    if name.startswith("aten::empty"):
-        return "allocation"
-    if name.startswith("aten::"):
-        return "torch_ops"          # the Aux ops' launches and other tensor work
-    return None
-
-
-HOST_PARTS = ("planning", "cost_model", "arg_packing", "launch_call", "views",
-              "events_streams", "cache_lookup", "copies", "allocation", "torch_ops")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -3590,58 +3548,6 @@ def main() -> int:
               + f" busy_ms {busy_us / 1e3:.4f} traced_makespan_ms {traced_ms[label]:.4f} "
               f"busy_share {busy_us / 1e3 / traced_ms[label]:.4f}")
 
-    # where the host's time per run goes: one whole-column and one chunked
-    # 1 MiB run under torch.profiler's Python tracer (CPU side only), each
-    # event of the executor's ``run`` put in the first part that claims it
-    host_split = {}
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
-                                with_stack=True) as prof:
-        for label, p_ in marks.items():
-            t0 = time.perf_counter()
-            traced = p_.run(window=2)       # planned inside the run, as a caller's is
-            host_split[label] = {"traced_host_ms": (time.perf_counter() - t0) * 1e3,
-                                 "decode_units": sum(r.decode_launches
-                                                     for r in traced.values())}
-            traced = None
-    runs_ev = []
-
-    def find_runs(e):
-        if re.search(r"core/executor\.py\(\d+\): run$", e.name):
-            runs_ev.append(e)
-            return
-        for ch in e.children:
-            find_runs(ch)
-
-    for root in prof.profiler.kineto_results.experimental_event_tree():
-        find_runs(root)
-    runs_ev.sort(key=lambda e: e.start_time_ns)
-    if len(runs_ev) != len(marks):
-        raise AssertionError(f"the Python tracer saw {len(runs_ev)} runs, not {len(marks)}")
-    for (label, rec), ev in zip(host_split.items(), runs_ev):
-        parts = dict.fromkeys(HOST_PARTS, 0.0)
-
-        def claim(e, parts=parts):
-            part = host_part(e.name)
-            if part is not None:
-                parts[part] += e.duration_time_ns / 1e6
-                return
-            for ch in e.children:
-                claim(ch)
-
-        for ch in ev.children:
-            claim(ch)
-        rec["run_ms"] = ev.duration_time_ns / 1e6
-        rec.update(parts)
-        rec["other"] = rec["run_ms"] - sum(parts.values())
-        print(f"host_split {label} " + " ".join(
-            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
-    (w_label, w), (c_label, c) = list(host_split.items())
-    added = c["decode_units"] - w["decode_units"]
-    per_unit = {k: (c[k] - w[k]) / added for k in ("run_ms",) + HOST_PARTS + ("other",)}
-    host_split["per_added_unit_ms"] = per_unit
-    print(f"host_split per_added_unit ({c_label} - {w_label}, {added} units) " + " ".join(
-        f"{k} {v:.4f}" for k, v in per_unit.items()))
-
     # the plain-copy yardstick: the plain columns from pinned memory to the card
     # on the executor's copy stream, what moving them uncompressed would take
     stream = pipe.executor.copy_stream
@@ -3955,7 +3861,7 @@ def main() -> int:
         args.out.write_text(json.dumps({"device": name, "stages": stages,
                                         "columns": rows, "totals": totals,
                                         "entries": entries, "chunked": chunked,
-                                        "batched": batched, "host_split": host_split,
+                                        "batched": batched,
                                         "planner": planned, "queries": queries["runs"],
                                         "dispatch": served["dispatch"],
                                         "serve": served["serve"],

@@ -90,6 +90,12 @@ cut in there, as ``core/serve_planner.py`` does for point requests), and
 device (on a card: its event observed complete).  A column's
 ``kernel_launches`` counts the launches of its own units, so a nested run
 between them is not counted in it.
+
+Under ``torch.profiler`` a run shows its steps as spans (``core/trace.py``):
+``repro_torch.run`` and inside it ``run.prepare`` (the columns' state, units
+and leg; ``run.stage`` where a staging is built), ``run.issue`` (each commit of
+copies), ``run.unit`` (one decode unit, ``run.decode`` its launches) and
+``run.sync`` (the host waiting for the device at the end).
 """
 from __future__ import annotations
 
@@ -111,6 +117,7 @@ from repro_torch.core.costmodel import CostModel, profile_from
 from repro_torch.core.ir import (DecodeGraph, element_chunk_layout, group_chunk_layout,
                                  query_chunk_layout)
 from repro_torch.core.planner import BATCHED, CHUNK, ColumnDecision, ExecutionPlan
+from repro_torch.core.trace import span
 from repro_torch.kernels import cuda
 from repro_torch.kernels.fully_parallel import KERNEL as FP_KERNEL
 from repro_torch.kernels.group_parallel import KERNEL as GP_KERNEL
@@ -476,9 +483,10 @@ class _InlineIssuer:
         if self.committed >= target:
             return
         t0 = time.perf_counter()
-        while self.committed < target:
-            self._issue(self.committed)
-            self.committed += 1
+        with span("run.issue"):
+            while self.committed < target:
+                self._issue(self.committed)
+                self.committed += 1
         self.issue_s += time.perf_counter() - t0
 
 
@@ -735,15 +743,16 @@ class _Leg:
             if preempt is not None and u:
                 preempt()               # a unit boundary: urgent work may cut in
             yield ("need", u + 1)
-            # no reference to the unit's buffers outlives ``flats``: the last
-            # unit of a column frees its buffer right after its decode
-            self.land(unit, self.slots[u], flats)
-            self.slots[u] = None
-            before = _launches()        # this unit's launches only, not a nested run's
-            with self.compute_stream():
-                self.ex._decode(unit, flats, self.cols)
-            launched = _launches() - before
-            self.decoded(u, unit)
+            with span("run.unit"):
+                # no reference to the unit's buffers outlives ``flats``: the last
+                # unit of a column frees its buffer right after its decode
+                self.land(unit, self.slots[u], flats)
+                self.slots[u] = None
+                before = _launches()    # this unit's launches only, not a nested run's
+                with self.compute_stream(), span("run.decode"):
+                    self.ex._decode(unit, flats, self.cols)
+                launched = _launches() - before
+                self.decoded(u, unit)
             for name in unit.members:
                 col = self.cols[name]
                 col["launches"] += launched
@@ -759,6 +768,13 @@ class _Leg:
                 self.report(on_ready, block=False)
         self.stop()
         return None if defer else self.finish(on_ready)
+
+    def finish(self, on_ready) -> dict[str, ColumnExec]:
+        """Wait for the leg's work (``on_ready`` for the columns not yet
+        reported), then its records."""
+        with span("run.sync"):
+            self.wait(on_ready)
+        return self.records()
 
 
 class _CudaLeg(_Leg):
@@ -849,10 +865,12 @@ class _CudaLeg(_Leg):
     def stop(self) -> None:
         self.end.record(self.compute)
 
-    def finish(self, on_ready) -> dict[str, ColumnExec]:
+    def wait(self, on_ready) -> None:
         if on_ready is not None:
             self.report(on_ready, block=True)
         self.end.synchronize()
+
+    def records(self) -> dict[str, ColumnExec]:
         ex = self.ex
         self.makespan_s = ex.last_makespan_s = self.start.elapsed_time(self.end) / 1e3
         if self.own:
@@ -919,9 +937,11 @@ class _HostLeg(_Leg):
     def stop(self) -> None:
         self.t_end = time.perf_counter()
 
-    def finish(self, on_ready) -> dict[str, ColumnExec]:
+    def wait(self, on_ready) -> None:
         if on_ready is not None:
             self.report(on_ready, block=True)
+
+    def records(self) -> dict[str, ColumnExec]:
         ex = self.ex
         self.makespan_s = ex.last_makespan_s = self.t_end - self.t_run
         return {name: ex._record(name, c, c["transfer"], c["decode"], c["launches"],
@@ -1006,6 +1026,9 @@ class StreamingExecutor:
         # or a run that needs a new one)
         self.register_split_s = dict.fromkeys(
             ("program", "profile", "schedule", "layout", "alloc", "pack"), 0.0)
+        # cumulative count of the stagings ``_staging`` has built (each a host
+        # allocation and a pack of the column's operands), at a compile or a run
+        self.stagings_built = 0
         self.last_makespan_s: float | None = None
         # host seconds of the last run's copy issue (on whichever thread
         # issued) and of its dispatcher's waits for the transfer thread (0.0
@@ -1090,23 +1113,28 @@ class StreamingExecutor:
         """The column's host staging for a whole decode with ``chunk_bytes``
         pieces, or for the per-chunk decode of ``sched``; built once each.
         Whole stagings share one host buffer and differ in their copies."""
-        pin = self.device.type == "cuda"
         if sched is not None:
             key = (name, chunk_bytes, True)
             if key not in self._stagings:
-                self._stagings[key] = stage_column(self._encoded[name], pin, sched,
-                                                   clock=self.register_split_s)
+                self._stagings[key] = self._stage(name, sched)
             return self._stagings[key]
         key = (name, chunk_bytes, False)
         if key not in self._stagings:
             base = self._stagings.get((name, None, False))
             if base is None:
-                base = stage_column(self._encoded[name], pin, clock=self.register_split_s)
-                self._stagings[(name, None, False)] = base
+                base = self._stagings[(name, None, False)] = self._stage(name, None)
             copies = whole_copies(self._encoded[name], base.layout, chunk_bytes)
             self._stagings[key] = dataclasses.replace(base, copies=copies,
                                                       needs=(len(copies),))
         return self._stagings[key]
+
+    def _stage(self, name: str, sched: ChunkSchedule | None) -> StagedColumn:
+        """Build one staging of a column (page-locked on a card), counted."""
+        with span("run.stage"):
+            staged = stage_column(self._encoded[name], self.device.type == "cuda", sched,
+                                  clock=self.register_split_s)
+        self.stagings_built += 1
+        return staged
 
     # ----------------------------------------------------------------- schedule
     def n_transfer_chunks(self, name: str, chunk_bytes: int | None) -> int:
@@ -1284,18 +1312,19 @@ class StreamingExecutor:
         them.  An explicit ``order`` pins the issue order (the decisions are
         still planned); ``pipeline=False`` makes the constructor's default
         policy FIFO.  ``fused_columns`` is ``planner.plan_execution``'s."""
-        names = list(self._encoded) if names is None else list(names)
-        profiles = {n: self.column_profile(n) for n in names}
-        pol = policy if policy is not None else (self.policy if self.pipeline else "fifo")
-        ep = planner_mod.plan_execution(
-            profiles, self.cost_model, policy=pol,
-            chunk_bytes=self.chunk_bytes if chunk_bytes is self._DEFAULTS else chunk_bytes,
-            chunk_decode=self.chunk_decode if chunk_decode is None else chunk_decode,
-            window=self.prefetch_chunks if window is None else window,
-            batch_columns=self.batch_columns, fused_columns=fused_columns)
-        if order is not None:
-            ep = dataclasses.replace(ep, order=tuple(order), policy="explicit")
-        return ep
+        with span("plan"):
+            names = list(self._encoded) if names is None else list(names)
+            profiles = {n: self.column_profile(n) for n in names}
+            pol = policy if policy is not None else (self.policy if self.pipeline else "fifo")
+            ep = planner_mod.plan_execution(
+                profiles, self.cost_model, policy=pol,
+                chunk_bytes=self.chunk_bytes if chunk_bytes is self._DEFAULTS else chunk_bytes,
+                chunk_decode=self.chunk_decode if chunk_decode is None else chunk_decode,
+                window=self.prefetch_chunks if window is None else window,
+                batch_columns=self.batch_columns, fused_columns=fused_columns)
+            if order is not None:
+                ep = dataclasses.replace(ep, order=tuple(order), policy="explicit")
+            return ep
 
     def issue_order(self, names: Sequence[str] | None = None) -> list[str]:
         """Column issue order under the configured scheduling policy."""
@@ -1325,42 +1354,44 @@ class StreamingExecutor:
         device.  ``async_dispatch`` (None: the constructor's knob) issues the
         copies from a ``DispatchEngine`` transfer thread; the results are
         bitwise those of the inline path."""
-        for given in (order, names):
-            unknown = [n for n in given or () if n not in self._encoded]
-            if unknown:
-                raise KeyError(f"columns not registered: {unknown}")
-        if window is not None and window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        names = list(self._encoded) if names is None else list(names)
-        if plan is None:
-            plan = self.plan(names, order=order)
-        elif order is not None:
-            plan = dataclasses.replace(plan, order=tuple(order), policy="explicit")
-        missing = [n for n in names if n not in plan.decisions]
-        if missing:
-            raise ValueError(f"plan does not cover columns {missing}; it was built over "
-                             f"{sorted(plan.decisions)}: re-plan after registering them")
-        order = [n for n in plan.order if n in names]
-        window = plan.window if window is None else window
-        cols = {name: self._column(name, plan.decisions[name]) for name in order}
-        units = self._units(order, plan.decisions, cols)
-        leg = self._leg(units, window, cols)
-        if not (self.async_dispatch if async_dispatch is None else async_dispatch):
-            issuer = _InlineIssuer(leg.issue, len(units))
-            res = _drive_seq(leg.decode(issuer, preempt, on_ready))
-            wait_s = 0.0
-        else:
-            engine = DispatchEngine(host_window=self.cost_model.topology.host_window)
-            try:
-                issuer = engine.issuer(leg.issue, len(units), held=leg.budget_flags())
-                res = engine.drive({0: (leg.decode(issuer, preempt, on_ready), issuer)})[0]
-            finally:
-                engine.close()
-            wait_s = engine.wait_s
-        self.last_issue_s, self.last_wait_s = issuer.issue_s, wait_s
-        for name, rec in res.items():
-            self.cost_model.observe(name, rec.transfer_s, rec.decode_s)
-        return res
+        with span("run"):
+            for given in (order, names):
+                unknown = [n for n in given or () if n not in self._encoded]
+                if unknown:
+                    raise KeyError(f"columns not registered: {unknown}")
+            if window is not None and window < 1:
+                raise ValueError(f"window must be >= 1, got {window}")
+            names = list(self._encoded) if names is None else list(names)
+            if plan is None:
+                plan = self.plan(names, order=order)
+            elif order is not None:
+                plan = dataclasses.replace(plan, order=tuple(order), policy="explicit")
+            missing = [n for n in names if n not in plan.decisions]
+            if missing:
+                raise ValueError(f"plan does not cover columns {missing}; it was built over "
+                                 f"{sorted(plan.decisions)}: re-plan after registering them")
+            order = [n for n in plan.order if n in names]
+            window = plan.window if window is None else window
+            with span("run.prepare"):
+                cols = {name: self._column(name, plan.decisions[name]) for name in order}
+                units = self._units(order, plan.decisions, cols)
+                leg = self._leg(units, window, cols)
+            if not (self.async_dispatch if async_dispatch is None else async_dispatch):
+                issuer = _InlineIssuer(leg.issue, len(units))
+                res = _drive_seq(leg.decode(issuer, preempt, on_ready))
+                wait_s = 0.0
+            else:
+                engine = DispatchEngine(host_window=self.cost_model.topology.host_window)
+                try:
+                    issuer = engine.issuer(leg.issue, len(units), held=leg.budget_flags())
+                    res = engine.drive({0: (leg.decode(issuer, preempt, on_ready), issuer)})[0]
+                finally:
+                    engine.close()
+                wait_s = engine.wait_s
+            self.last_issue_s, self.last_wait_s = issuer.issue_s, wait_s
+            for name, rec in res.items():
+                self.cost_model.observe(name, rec.transfer_s, rec.decode_s)
+            return res
 
     def _column(self, name: str, d: ColumnDecision) -> dict:
         """A column's state in one run: its decision, schedule and staging."""

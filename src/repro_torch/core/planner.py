@@ -23,6 +23,10 @@ over and decodes on, scored by ``scheduler.simulate_stream_multi``; its
 ``MeshExecutionPlan`` is plain data and needs no devices;
 ``StreamingExecutor.run_sharded`` executes one.
 
+Under ``torch.profiler`` ``plan_execution`` shows its steps as spans
+(``core/trace.py``): ``repro_torch.plan.decide`` (a configuration's per-column
+decisions), ``plan.order`` (an issue order and its scoring) and ``plan.window``.
+
 This is the reference's ``core/planner.py``; ``tests/test_torch_planner.py``
 and ``tests/test_torch_mesh_plan.py`` hold its plans equal to the reference's
 on the same profiles and cost model.
@@ -38,6 +42,7 @@ import numpy as np
 from repro_torch.core import costmodel as costmodel_mod, scheduler
 from repro_torch.core.costmodel import ColumnProfile, CostModel, LinkTopology
 from repro_torch.core.scheduler import ChunkInfo, SchedulingPolicy, get_policy
+from repro_torch.core.trace import span
 
 DEFAULT_CHUNK_BYTES = 1 << 20
 # legacy fixed ladder (64 KiB .. 4 MiB), kept only as the fallback when a
@@ -195,12 +200,13 @@ def _window_for(decisions: Mapping[str, ColumnDecision],
         return 2
     if jobs is None:
         return min(8, max(2, max(ks) // 8 + 2))
-    base = scheduler.simulate_stream(jobs, infos, order)
-    for w in (2, 3, 4, 6, 8):
-        if scheduler.simulate_stream(jobs, infos, order,
-                                     window=w) <= base * (1 + 1e-9):
-            return w
-    return 8
+    with span("plan.window"):
+        base = scheduler.simulate_stream(jobs, infos, order)
+        for w in (2, 3, 4, 6, 8):
+            if scheduler.simulate_stream(jobs, infos, order,
+                                         window=w) <= base * (1 + 1e-9):
+                return w
+        return 8
 
 
 def plan_execution(profiles: Mapping[str, ColumnProfile] | Sequence[ColumnProfile],
@@ -251,13 +257,14 @@ def plan_execution(profiles: Mapping[str, ColumnProfile] | Sequence[ColumnProfil
         # "fixed-chunk" honours chunk_bytes=None (whole-blob transfer stays
         # whole-blob even with chunk_decode=True -- _decide_fixed degrades to
         # whole mode)
-        if kind == "auto":
-            return {n: _decide_auto(profiles[n], *times[n],
-                                    cost_model.launch_overhead_s(n), fixed_cb,
-                                    cost_model)
-                    for n in names}
-        return {n: _decide_fixed(profiles[n], *times[n], fixed_cb,
-                                 kind == "fixed-chunk") for n in names}
+        with span("plan.decide"):
+            if kind == "auto":
+                return {n: _decide_auto(profiles[n], *times[n],
+                                        cost_model.launch_overhead_s(n), fixed_cb,
+                                        cost_model)
+                        for n in names}
+            return {n: _decide_fixed(profiles[n], *times[n], fixed_cb,
+                                     kind == "fixed-chunk") for n in names}
 
     def infos_of(decisions: dict[str, ColumnDecision]) -> list[ChunkInfo]:
         return [_chunk_info(decisions[n], o) for n, o in zip(names, overheads)]
@@ -279,14 +286,15 @@ def plan_execution(profiles: Mapping[str, ColumnProfile] | Sequence[ColumnProfil
         whole_dec = decisions_of("whole")
         whole_infos = infos_of(whole_dec)
         fixedc_dec = decisions_of("fixed-chunk")
-        baselines = {
-            "fifo": scheduler.simulate_stream(
-                jobs, whole_infos, scheduler.fifo_order(jobs)),
-            "johnson": scheduler.simulate_stream(
-                jobs, whole_infos, scheduler.johnson_order(jobs)),
-            "chunk-johnson": scheduler.ChunkJohnsonPolicy().modeled_makespan(
-                jobs, infos_of(fixedc_dec)),
-        }
+        with span("plan.order"):
+            baselines = {
+                "fifo": scheduler.simulate_stream(
+                    jobs, whole_infos, scheduler.fifo_order(jobs)),
+                "johnson": scheduler.simulate_stream(
+                    jobs, whole_infos, scheduler.johnson_order(jobs)),
+                "chunk-johnson": scheduler.ChunkJohnsonPolicy().modeled_makespan(
+                    jobs, infos_of(fixedc_dec)),
+            }
         if pol.name == "adaptive":
             # global search: chunk configurations x candidate orders; includes
             # the baseline configs, so the makespan is <= min(baselines)
@@ -295,16 +303,18 @@ def plan_execution(profiles: Mapping[str, ColumnProfile] | Sequence[ColumnProfil
             best_dec, best_order, best_mk = None, None, float("inf")
             for dec in search:
                 infos = infos_of(dec)
-                order = pol.order(jobs, infos)
-                mk = scheduler.simulate_stream(jobs, infos, order)
+                with span("plan.order"):
+                    order = pol.order(jobs, infos)
+                    mk = scheduler.simulate_stream(jobs, infos, order)
                 if mk < best_mk - 1e-15:
                     best_dec, best_order, best_mk = dec, order, mk
             decisions, order, makespan_s = best_dec, best_order, best_mk
         else:
             decisions = decisions_of(executed_kind)
             infos = infos_of(decisions)
-            order = pol.order(jobs, infos)
-            makespan_s = scheduler.simulate_stream(jobs, infos, order)
+            with span("plan.order"):
+                order = pol.order(jobs, infos)
+                makespan_s = scheduler.simulate_stream(jobs, infos, order)
 
     if fused_columns:
         # fused-vs-materialize is a per-column comparison, independent of the

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.patterns import (BYTES, GATHER, I2F_DIV, LOAD, QUERY_OPS, RANGE,
                                        SPAN, UNPACK, UNPACK_RAW, UNZIGZAG, Chain)
+from repro_torch.core.trace import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -216,8 +217,9 @@ class KernelLib:
                device: torch.device) -> None:
         lib = self.load(device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, self.entry)(ctypes.addressof(args), int(threads),
-                                       int(device.index), stream)
+        with span("launch"):
+            err = getattr(lib, self.entry)(ctypes.addressof(args), int(threads),
+                                           int(device.index), stream)
         if err != 0:
             msg = lib.zf_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({err})")
@@ -242,8 +244,9 @@ class KernelLib:
         for i in range(0, len(members), self.batch_max):
             part = members[i:i + self.batch_max]
             structs = (self.args_type * len(part))(*part)
-            err = fn(ctypes.addressof(structs), len(part), int(threads),
-                     int(device.index), stream)
+            with span("launch"):
+                err = fn(ctypes.addressof(structs), len(part), int(threads),
+                         int(device.index), stream)
             if err != 0:
                 msg = lib.zf_error_string(err).decode()
                 raise RuntimeError(f"{self.name} batched launch of {len(part)} failed: "
