@@ -95,7 +95,9 @@ Under ``torch.profiler`` a run shows its steps as spans (``core/trace.py``):
 ``repro_torch.run`` and inside it ``run.prepare`` (the columns' state, units
 and leg; ``run.stage`` where a staging is built), ``run.issue`` (each commit of
 copies), ``run.unit`` (one decode unit, ``run.decode`` its launches) and
-``run.sync`` (the host waiting for the device at the end).
+``run.sync`` (the host waiting for the device at the end); a ``plan`` that
+hands back its last search's plan (``StreamingExecutor.plan``) shows
+``plan.reuse`` inside ``repro_torch.plan``.
 """
 from __future__ import annotations
 
@@ -968,6 +970,43 @@ class _D2DLeg:
     iss: "_WorkerIssuer | None" = None
 
 
+def _own_copy(ep: ExecutionPlan) -> ExecutionPlan:
+    """``ep`` with dicts of its own, so that no caller changes a stored plan."""
+    return dataclasses.replace(ep, decisions=dict(ep.decisions), baselines=dict(ep.baselines))
+
+
+def _within(snap: tuple, times: tuple[float, ...], decode_scale: float) -> bool:
+    """Both relative distances of the priced inputs from ``snap`` (its
+    ``(times, decode_scale)``) under ``planner.REPLAN_DRIFT``: the L1 distance
+    of the per-column times over their sum, and ``decode_scale``'s."""
+    was, scale = snap
+    moved = sum(abs(a - b) for a, b in zip(times, was))
+    return (moved == 0 or moved < planner_mod.REPLAN_DRIFT * sum(was)) and \
+        abs(decode_scale - scale) < planner_mod.REPLAN_DRIFT * scale
+
+
+@dataclasses.dataclass(frozen=True)
+class _PlanMemo:
+    """``StreamingExecutor.plan``'s last search: its key (the resolved knobs,
+    the column names and whether the cost model is calibrated), the columns'
+    registered profiles and the cost model it read (held, so that identity
+    decides), its plan, and two snapshots of the priced inputs, each a
+    ``(times, decode_scale)``: what the search priced, and what the plan
+    measured in its first run (``own``, taken by the first call after it)."""
+
+    key: tuple
+    profiles: tuple
+    cost_model: CostModel
+    plan: ExecutionPlan
+    priced: tuple                   # (per column transfer_s + decode_s, decode_scale)
+    observed: int                   # the cost model's observations at the search
+    own: tuple | None = None
+
+    def matches(self, key: tuple, profiles: tuple, cost_model: CostModel) -> bool:
+        return (key == self.key and cost_model is self.cost_model
+                and all(a is b for a, b in zip(profiles, self.profiles)))
+
+
 class StreamingExecutor:
     """Plan-driven streaming decode over cached programs.
 
@@ -1029,6 +1068,10 @@ class StreamingExecutor:
         # cumulative count of the stagings ``_staging`` has built (each a host
         # allocation and a pack of the column's operands), at a compile or a run
         self.stagings_built = 0
+        # ``plan``'s one-entry memo, and its cumulative searches and reuses
+        self._plan_memo: _PlanMemo | None = None
+        self.plans_built = 0
+        self.plans_reused = 0
         self.last_makespan_s: float | None = None
         # host seconds of the last run's copy issue (on whichever thread
         # issued) and of its dispatcher's waits for the transfer thread (0.0
@@ -1311,17 +1354,49 @@ class StreamingExecutor:
         The constructor's knobs are the defaults and any argument overrides
         them.  An explicit ``order`` pins the issue order (the decisions are
         still planned); ``pipeline=False`` makes the constructor's default
-        policy FIFO.  ``fused_columns`` is ``planner.plan_execution``'s."""
+        policy FIFO.  ``fused_columns`` is ``planner.plan_execution``'s.
+
+        The last search is kept: a call with the same columns (the same
+        registered profiles: a re-``compile`` or a ``forget`` searches anew),
+        the same cost model (calibrated or not), knobs and fused columns (with
+        their resolved selectivities) gets a copy of its plan while the priced
+        inputs -- each column's predicted transfer + decode time, and the cost
+        model's ``decode_scale`` -- stay within ``planner.REPLAN_DRIFT`` of
+        what the search priced or of what the plan measured in its first run,
+        whose timings follow the plan's own chunkings (span ``plan.reuse``,
+        count ``plans_reused``); otherwise it searches again (count
+        ``plans_built``)."""
         with span("plan"):
             names = list(self._encoded) if names is None else list(names)
             profiles = {n: self.column_profile(n) for n in names}
+            profs = tuple(profiles.values())
+            cm = self.cost_model
             pol = policy if policy is not None else (self.policy if self.pipeline else "fifo")
-            ep = planner_mod.plan_execution(
-                profiles, self.cost_model, policy=pol,
-                chunk_bytes=self.chunk_bytes if chunk_bytes is self._DEFAULTS else chunk_bytes,
-                chunk_decode=self.chunk_decode if chunk_decode is None else chunk_decode,
-                window=self.prefetch_chunks if window is None else window,
-                batch_columns=self.batch_columns, fused_columns=fused_columns)
+            cb = self.chunk_bytes if chunk_bytes is self._DEFAULTS else chunk_bytes
+            cd = self.chunk_decode if chunk_decode is None else chunk_decode
+            win = self.prefetch_chunks if window is None else window
+            fused = None if fused_columns is None else tuple(sorted(
+                (n, cm.selectivity_for(n) if s is None else float(s))
+                for n, s in fused_columns.items()))
+            key = (tuple(names), pol, cb, cd, win, self.batch_columns, fused, cm.n_observed > 0)
+            times = tuple(j.transfer_s + j.decompress_s for j in cm.jobs(names))
+            scale = cm.decode_scale
+            memo = self._plan_memo
+            hit = memo is not None and memo.matches(key, profs, cm)
+            if hit and memo.own is None and cm.n_observed > memo.observed:
+                memo = self._plan_memo = dataclasses.replace(memo, own=(times, scale))
+            if hit and any(_within(snap, times, scale)
+                           for snap in (memo.priced, memo.own) if snap is not None):
+                with span("plan.reuse"):
+                    ep = _own_copy(memo.plan)
+                    self.plans_reused += 1
+            else:
+                ep = planner_mod.plan_execution(
+                    profiles, cm, policy=pol, chunk_bytes=cb, chunk_decode=cd, window=win,
+                    batch_columns=self.batch_columns, fused_columns=fused_columns)
+                self._plan_memo = _PlanMemo(key, profs, cm, _own_copy(ep), (times, scale),
+                                            cm.n_observed)
+                self.plans_built += 1
             if order is not None:
                 ep = dataclasses.replace(ep, order=tuple(order), policy="explicit")
             return ep

@@ -52,6 +52,12 @@ DEFAULT_CHUNK_BYTES = 1 << 20
 # prefix sums, both pruned by the calibrated launch-overhead estimate
 CHUNK_CANDIDATES = (1 << 16, 1 << 18, 1 << 20, 1 << 22)
 MIN_CHUNK_BYTES = 1 << 12
+# ``StreamingExecutor.plan`` hands back its last plan while the search's
+# priced inputs stay within this relative distance of its snapshot (each
+# column's predicted transfer + decode time, L1 over their sum; and
+# ``CostModel.decode_scale``): above the call-to-call drift of warm loads on
+# an H100, below what one large column's time doubling moves
+REPLAN_DRIFT = 0.15
 
 WHOLE, CHUNK, BATCHED = "whole", "chunk", "batched"
 

@@ -101,6 +101,26 @@ def test_every_span_of_a_plan_and_a_run_nests_in_its_parent(data):
     assert "run.stage" not in names and names["run.unit"] == 11
 
 
+def test_a_reused_plan_records_plan_reuse_inside_its_plan_span(data):
+    """Of two identical plans, the second hands back the first's search: its
+    ``repro_torch.plan`` holds one ``plan.reuse`` and no search step."""
+    pipe = pipeline(data)
+    with torch.profiler.profile(activities=CPU) as prof:
+        pipe.plan()
+        pipe.plan()
+    evs = program_events(prof)
+    plans = sorted((a, b) for n, a, b in evs if n == "plan")
+    assert len(plans) == 2
+
+    def inside(name, span):
+        return [e for e in evs if e[0] == name and span[0] <= e[1] and e[2] <= span[1]]
+
+    assert not inside("plan.reuse", plans[0]) and inside("plan.decide", plans[0])
+    assert len(inside("plan.reuse", plans[1])) == 1
+    assert not inside("plan.decide", plans[1]) and not inside("plan.order", plans[1])
+    assert (pipe.executor.plans_built, pipe.executor.plans_reused) == (1, 1)
+
+
 @pytest.mark.parametrize("chunk_bytes", [2048, 4096])
 def test_stagings_built_counts_what_a_run_at_a_new_chunk_size_builds(data, chunk_bytes):
     pipe = pipeline(data)
