@@ -3,7 +3,9 @@ the tests that see ``correct`` come out false (``test_zfbench_faults_*.py``).
 A cell held out of ``BENCHMARK.json`` (``zfbench/held/``) runs as well.
 
 Each fault is planted in the pipeline after set-up, where the answer is
-produced: a load's decoded columns, a query's accumulator and result."""
+produced: a load's decoded columns, a query's accumulator and result; in an
+open-loop cell, each request's decoded columns, or one request the serving
+planner never completes."""
 from __future__ import annotations
 
 import contextlib
@@ -64,6 +66,40 @@ def _query_fault(pipe, kind: str, setup) -> None:
     pipe.run_query = broken
 
 
+def _serve_fault(server, kind: str) -> None:
+    from repro_torch.core.serve_planner import ServeRequest, rid_of
+
+    from zfbench.lib.serve import WINDOW
+
+    if kind == "lost":                      # one window request queued nowhere
+        submit, lost = server.planner.submit, []
+
+        def dropped(rid, encs, *a, **kw):
+            if rid.startswith(WINDOW) and not lost:
+                lost.append(rid)
+                return ServeRequest(rid=rid, encs=dict(encs))
+            return submit(rid, encs, *a, **kw)
+
+        server.planner.submit = dropped
+        return
+    run = server.ex.run
+
+    def broken(*a, **kw):
+        out = run(*a, **kw)
+        fixed, seen = {}, set()
+        for name, rec in out.items():
+            arr = rec.array.clone()
+            if kind == "unchanged":          # the output buffers never written
+                arr.zero_()
+            elif kind == "altered" and rid_of(name) not in seen:
+                arr.view(-1)[arr.numel() // 3] += 1      # one element of a request's column
+            seen.add(rid_of(name))
+            fixed[name] = dataclasses.replace(rec, array=arr)
+        return fixed
+
+    server.ex.run = broken
+
+
 def run_with_fault(workload: str, kind: str | None, seed: int = 5, scale: float = 0.002,
                    seconds: float = 0.3) -> dict:
     """One rehearsed run of ``workload`` with fault ``kind`` planted (None: a
@@ -71,8 +107,6 @@ def run_with_fault(workload: str, kind: str | None, seed: int = 5, scale: float 
     from zfbench import run as runner
 
     def plant(setup):
-        if kind is None:
-            return
         if any(c["op"] == "query" for c in setup_traffic["calls"]):
             _query_fault(setup.pipe, kind, setup)
         else:
@@ -82,6 +116,11 @@ def run_with_fault(workload: str, kind: str | None, seed: int = 5, scale: float 
 
     bench = registry.with_held(registry.benchmark())
     setup_traffic = registry.traffic(registry.cell(bench, workload)["traffic"])
+    hooks = {}
+    if kind is not None and setup_traffic.get("loop") == "open":
+        hooks["serve"] = lambda server: _serve_fault(server, kind)
+    elif kind is not None:
+        hooks["setup"] = plant
     env = dict(os.environ)
     threads = torch.get_num_threads()
     out = io.StringIO()
@@ -93,8 +132,13 @@ def run_with_fault(workload: str, kind: str | None, seed: int = 5, scale: float 
     traffic, benchmark = registry.traffic, registry.benchmark
 
     def short_warm_up(name, *a, **kw):      # a few calls warm the CPU's plain backend
-        return {**traffic(name, *a, **kw),
-                "warmup": {"min_calls": 2, "stable_calls": 2, "max_calls": 6}}
+        data = traffic(name, *a, **kw)
+        if data.get("loop") == "open":       # a few requests, at a rate the CPU serves;
+            # the grace covers waves slowed by a busy host, so only a request
+            # that never completes is late
+            return {**data, "rate_per_s": 4.0, "grace_s": 10.0,
+                    "warmup": {"requests": 6, "quiet_requests": 2, "max_requests": 30}}
+        return {**data, "warmup": {"min_calls": 2, "stable_calls": 2, "max_calls": 6}}
 
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()), \
@@ -104,7 +148,7 @@ def run_with_fault(workload: str, kind: str | None, seed: int = 5, scale: float 
                                   lambda *a, **kw: registry.with_held(benchmark(*a, **kw))):
             rc = runner.main(["--workload", workload, "--seed", str(seed), "--seconds",
                               str(seconds), "--trace", "0", "--rehearse", "--scale", str(scale)],
-                             hooks={"setup": plant})
+                             hooks=hooks)
     finally:
         gc.unfreeze()
         os.environ.clear()

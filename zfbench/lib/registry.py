@@ -6,10 +6,12 @@ A later change adds a cell by adding files under ``zfbench/`` and entries in
 
 * a configuration is the JSON file its ``configs`` entry names;
 * a traffic mix ``<mix>`` is ``zfbench/traffic/<mix>.json``, data
-  that the one closed-loop driver (``lib/harness.py``) reads;
+  that the closed-loop driver (``lib/harness.py``) or, with ``"loop":
+  "open"``, the open loop (``lib/serve.py``) reads;
 * a metric ``<a>.<b>`` is read by ``zfbench/metrics/<a>.<b>.py``, or, where that
   file is absent, by ``zfbench/metrics/<a>.py`` (one reader for every variant);
-* a cell held out of ``BENCHMARK.json`` while the program fails it is
+* a cell held out of ``BENCHMARK.json`` while the program fails it, or
+  while its runs spread past the widest bound the benchmark allows, is
   ``zfbench/held/<cell>.json``: its entries, ready to go back, and why
   (the tests still drive it through a rehearsed run);
 * a query ``<q>`` is ``zfbench/queries/<q>.json``, data that

@@ -18,6 +18,9 @@ traced slice with the spans the port records under ``torch.profiler``
   one program span of the same name, the share of its duration that span
   covers (each call's, and the least), and the microseconds before and
   after it;
+* ``plan_kinds``: per traced load, ``search`` where its ``repro_torch.plan``
+  holds a ``plan.decide``, ``reuse`` where it holds a ``plan.reuse`` (the
+  plan memo's hit), null where it holds neither;
 * ``traced_load_ms``, ``untraced_load_ms``: mean wall time of a profiled load
   and of the window's other loads;
 * ``h2d_copies_per_load``: host-to-device copies on the device per profiled
@@ -84,8 +87,12 @@ def summary(recs: list[dict], tr) -> dict:
                             "least_share": min(shares) if shares else None,
                             "shares": [round(x, 4) for x in shares],
                             "outside_us": [[round(a, 1), round(b, 1)] for a, b in outside]}
+    kinds = ["search" if d else "reuse" if r else None
+             for d, r in zip(spans.program_spans(tr, "plan", "plan.decide"),
+                             spans.program_spans(tr, "plan", "plan.reuse"))]
     return {"program_trace": {
         "traced_loads": len(traced),
+        "plan_kinds": kinds,
         "traced_load_ms": mean_ms(traced),
         "untraced_load_ms": mean_ms(rest),
         "h2d_copies_per_load": len(tr.ops(H2D)) / len(traced) if traced else None,

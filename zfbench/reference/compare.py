@@ -30,6 +30,7 @@ LIMITS = {
     "missing_answers": 0,          # compared calls without an answer
     "count_lane_mismatches": 0,    # query count lanes that differ from NumPy's count
     "max_rel_err": 2e-5,           # float lanes against the float64 reference
+    "lost_requests": 0,            # served requests never completed, or whose wave raised
 }
 
 

@@ -7,11 +7,13 @@ its metrics are found by name from ``BENCHMARK.json`` (``zfbench/README.md``).
 The run generates the cell's TPC-H columns from the seed, encodes them with
 the port (``repro_torch``), stages them in a ``ColumnPipeline`` on the card,
 warms up, and then drives the traffic for ``--seconds`` as one closed-loop
-client.  ``--trace 0`` prints the cell's end-to-end metrics; ``--trace 1``
-traces a slice of the window with ``torch.profiler`` and prints its per-layer
-metrics.  Either way the answers are compared with the NumPy reference once
-the window has closed; each number compared is printed beside its limit, on
-standard error and under ``checks`` in the result.
+client, or, for a mix with ``"loop": "open"``, as requests on a schedule into
+the port's ``ServePlanner`` (``lib/serve.py``).  ``--trace 0`` prints the
+cell's end-to-end metrics; ``--trace 1`` traces a slice of the window with
+``torch.profiler`` and prints its per-layer metrics.  Either way the answers
+are compared with the NumPy reference once the window has closed; each number
+compared is printed beside its limit, on standard error and under ``checks``
+in the result.
 
 It exits non-zero and prints no result without enough CUDA devices, if JAX
 or the JAX package was loaded, or if the program is absent.
@@ -76,7 +78,8 @@ def parse(argv=None) -> argparse.Namespace:
 
 def main(argv=None, hooks=None) -> int:
     """``hooks["setup"]`` (tests only) is called with the set-up, to plant a
-    fault in the pipeline under test."""
+    fault in the pipeline under test; ``hooks["serve"]``, with an open-loop
+    cell's ``serve.Server``."""
     args = parse(argv)
     from zfbench.lib import registry
 
@@ -95,6 +98,11 @@ def main(argv=None, hooks=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 3
+    if traffic.get("loop") == "open":       # requests on a schedule: lib/serve.py
+        from zfbench.lib import serve
+
+        return serve.main(args, bench, cell, cfg, traffic, hooks, cuda, T_START,
+                          _power_limit() if cuda else None)
     from zfbench.lib import harness
     from zfbench.reference import compare
 

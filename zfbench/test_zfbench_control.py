@@ -3,7 +3,8 @@ precision lower, put in the program's place, comes out not correct, while
 the program's own answers (the CPU's plain PyTorch path) come out correct."""
 import pytest
 
-from zfbench.lib import harness, registry
+from zfbench.data.tpch_gen import generate
+from zfbench.lib import harness, registry, serve
 from zfbench.reference import compare
 
 BENCH = registry.benchmark()
@@ -38,3 +39,17 @@ def test_load_control_fails(q_setup):
     assert compare.within(sound), sound
     ctl = compare.compare_load(plain, [compare.control_load_answer(plain)])
     assert ctl["mismatched_elements"] > 0 and not compare.within(ctl)
+
+
+def test_serve_control_fails():
+    """One request of each query of the serve mix, the reference in the
+    program's place: exact, it passes; one precision lower, it fails."""
+    traffic = registry.traffic("serve")
+    used = sorted({c for cols in traffic["queries"].values() for c in cols})
+    plain = generate(0.01, 2**31 + 13, used)
+    exact = [(names, {c: plain[c].copy() for c in names})
+             for names in traffic["queries"].values()]
+    assert compare.within(serve.readings(plain, exact, 0))
+    ctl = serve.readings(plain, serve.control_answers(plain, traffic), 0)
+    assert ctl["mismatched_elements"] > 0 and ctl["missing_columns"] == 0
+    assert not compare.within(ctl)

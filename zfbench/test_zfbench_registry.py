@@ -64,8 +64,14 @@ def test_configs_found(cfg):
 def test_cells_find_their_traffic_and_metrics(cell):
     w = registry.cell(ALL, cell)
     t = registry.traffic(w["traffic"])
-    assert t["calls"] and t["loop"] == "closed" and t["clients"] == 1
-    for q in {c["query"] for c in t["calls"] if c["op"] == "query"}:
+    if t["loop"] == "open":             # requests of the queries' columns, on a schedule
+        cfg = registry.config(ALL, w["config"])
+        columns = {c for cols in cfg["tables"].values() for c in cols}
+        assert t["queries"] and all(set(c) <= columns for c in t["queries"].values())
+        assert t["rate_per_s"] > 0
+    else:
+        assert t["calls"] and t["loop"] == "closed" and t["clients"] == 1
+    for q in {c["query"] for c in t.get("calls", ()) if c["op"] == "query"}:
         assert registry.reference_query(q).COLUMNS
     for per_layer in (False, True):
         for m in registry.cell_metrics(ALL, cell, per_layer):

@@ -163,8 +163,10 @@ def rehearse_traced(workload: str) -> tuple[dict, dict]:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()), \
                 mock.patch.object(harness, "jax_loaded", own), \
                 mock.patch.object(registry, "traffic", short):
+            # a window of several calls even on a loaded host: the slice starts
+            # at the window's second call
             rc = program_trace.main(["--workload", workload, "--seed", str(2**31 + 7),
-                                     "--seconds", "1.0", "--rehearse", "--scale", "0.002"])
+                                     "--seconds", "4.0", "--rehearse", "--scale", "0.002"])
     finally:
         gc.unfreeze()
         os.environ.clear()
@@ -188,6 +190,13 @@ def test_a_rehearsed_traced_run_prints_the_program_metrics(workload):
     assert traced >= 1 and prog["device_ops_named_program"] == 0
     for part in ("plan", "run"):
         assert prog["in_harness"][part]["holding_one"] == traced
-        assert prog["in_harness"][part]["least_share"] > 0.5
-    assert {"repro_torch.plan", "repro_torch.plan.decide", "repro_torch.run",
-            "repro_torch.run.unit", "repro_torch.run.sync"} <= set(prog["steps"])
+    assert prog["in_harness"]["run"]["least_share"] > 0.5
+    # each profiled plan searched (plan.decide) or handed back the plan memo's
+    # plan (plan.reuse); a hit takes microseconds, so the profiler's own time
+    # around it may outweigh it: only a search has to cover most of its span
+    kinds = prog["plan_kinds"]
+    assert len(kinds) == traced and set(kinds) <= {"search", "reuse"}
+    shares = prog["in_harness"]["plan"]["shares"]
+    assert all(s > 0.5 for k, s in zip(kinds, shares, strict=True) if k == "search")
+    assert {"repro_torch.plan", "repro_torch.run", "repro_torch.run.unit",
+            "repro_torch.run.sync"} <= set(prog["steps"])
